@@ -1,0 +1,72 @@
+"""Parameter definitions and initialisation.
+
+Models declare their weights as a nested dict of ``ParamDef`` leaves (shape,
+dtype, initializer); ``init_params`` materialises the same nested dict as
+tensors. Per-layer weights are stacked along a leading layer axis, as in the
+JAX package, and the model indexes one layer at a time.
+
+The port runs on one device, so the reference's logical sharding axes are
+dropped.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+
+Tree = Dict[str, Any]
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    shape: Tuple[int, ...]
+    dtype: torch.dtype = torch.bfloat16
+    init: str = "normal"                      # normal | zeros | ones
+    scale: float = 1.0                        # stddev multiplier
+    fan_in: Optional[int] = None              # None -> last-but-one dim
+
+
+def _init_leaf(d: ParamDef, generator: Optional[torch.Generator],
+               device: torch.device) -> torch.Tensor:
+    if d.init == "zeros":
+        return torch.zeros(d.shape, dtype=d.dtype, device=device)
+    if d.init == "ones":
+        return torch.ones(d.shape, dtype=d.dtype, device=device)
+    fan = d.fan_in
+    if fan is None:
+        fan = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
+    std = d.scale / (fan ** 0.5)
+    w = torch.randn(d.shape, generator=generator, dtype=torch.float32,
+                    device=device)
+    return w.mul_(std).to(d.dtype)
+
+
+def map_defs(fn: Callable[[ParamDef], Any], tree: Tree) -> Tree:
+    return {k: map_defs(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def init_params(defs: Tree, generator: Optional[torch.Generator],
+                device: torch.device) -> Tree:
+    """Draw every leaf in f32 on ``device`` from ``generator``, then cast.
+
+    ``generator`` must live on ``device`` (it may be None when every leaf is
+    zeros or ones, as in a cache). Leaves are drawn in the order of the
+    definition dict, so a seed gives the same weights on every run.
+    """
+    return map_defs(lambda d: _init_leaf(d, generator, device), defs)
+
+
+def param_count(defs: Tree) -> int:
+    total = 0
+    for v in defs.values():
+        if isinstance(v, dict):
+            total += param_count(v)
+        else:
+            n = 1
+            for s in v.shape:
+                n *= s
+            total += n
+    return total
