@@ -80,19 +80,12 @@ class ModelConfig:
     tie_embeddings: bool = False
     z_loss: float = 1e-4
 
-    # -- sharding / performance knobs (hillclimb levers) ---------------------
-    attn_shard: str = "heads"        # "heads" | "head_dim" — TP axis for attention
-    fsdp: bool = False               # shard params over the data axis too (ZeRO-3)
-    remat: str = "full"              # "none" | "full" | "dots" — scan remat policy
-    scan_layers: bool = True
-    sharding_profile: str = "tp"     # "tp" (Megatron TP over model) | "dp"
-                                     # (pure data parallel; model axis joins batch)
-    sequence_parallel: bool = False  # shard residual seq axis over "model"
-    decode_cache_shard: str = "head_dim"   # "head_dim" | "seq"
+    # -- performance knobs ---------------------------------------------------
+    # The JAX package's sharding, remat and optimizer knobs are left out: the
+    # port runs on one device and does not train yet, so nothing would read
+    # them. They come back with the slice that does.
     use_flash: bool = False          # decode through the flash_decode kernel
     attn_impl: str = "auto"          # "auto" | "einsum" | "blockwise" | "flash"
-    optimizer: str = "adamw"         # "adamw" | "adamw_wsd"
-    grad_compress: bool = False      # int8 gradient compression (opt-in)
 
     # -------------------------------------------------------------------
 

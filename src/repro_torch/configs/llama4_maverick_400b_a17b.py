@@ -20,6 +20,4 @@ CONFIG = ModelConfig(
     experts_per_token=1,
     moe_layer_period=2,      # dense / MoE interleave
     rope_theta=500_000.0,
-    fsdp=True,               # 390B params: shard weights over data too
-    sequence_parallel=True,  # keeps the residual sharded (peak was 16.0GB)
 )

@@ -13,5 +13,4 @@ CONFIG = ModelConfig(
     d_ff=5760,
     vocab_size=122753,
     rope_theta=10_000.0,
-    optimizer="adamw_wsd",   # the paper's WSD schedule
 )

@@ -15,5 +15,4 @@ CONFIG = ModelConfig(
     d_ff=28672,
     vocab_size=32768,
     rope_theta=1_000_000.0,
-    fsdp=True,               # 123B params: shard weights over data too
 )

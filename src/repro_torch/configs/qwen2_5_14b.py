@@ -16,5 +16,4 @@ CONFIG = ModelConfig(
     vocab_size=152064,
     qkv_bias=True,
     rope_theta=1_000_000.0,
-    sequence_parallel=True,   # shaves ~1.5GB/dev activation memory at TP-16
 )

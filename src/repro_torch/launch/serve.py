@@ -23,7 +23,6 @@ import torch
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.kernels import _build
 from repro_torch.launch import steps as S
 from repro_torch.models import LM
 from repro_torch.models.params import Tree
@@ -51,12 +50,10 @@ def _sync(device: torch.device) -> None:
 def serve(cfg: ModelConfig, *, batch: int, prompt_len: int, gen: int,
           device=None) -> Served:
     """Random-init ``cfg`` (seed 0), prefill ``batch`` random prompts (seed
-    1), decode ``gen`` tokens greedily. The prefill is run once untimed first, and the first
-    decode step is left out of ``decode_s``, so both times exclude one-time
-    library set-up."""
+    1), decode ``gen`` tokens greedily. The prefill is run once untimed
+    first, and the first decode step is left out of ``decode_s``, so both
+    times exclude one-time set-up (the kernel's build at first use included)."""
     dev = resolve_device(device)
-    if dev.type == "cuda":
-        _build.build_all()
     model = LM(cfg.replace(use_flash=True))
     params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
     cache = model.init_cache(batch, prompt_len + gen, dev)

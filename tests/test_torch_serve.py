@@ -6,6 +6,7 @@ same next token), so an argmax flip cannot make them diverge. Bar: rtol=atol
 5e-2, the reference's own bar for bf16 logits (tests/test_models.py).
 """
 
+import dataclasses
 import os
 import re
 import subprocess
@@ -23,7 +24,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.configs import get_config as ref_get_config  # noqa: E402
 from repro.models import LM as RefLM  # noqa: E402
 from repro.models.params import param_count as ref_param_count  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import ARCHS, get_config  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import LM, param_count  # noqa: E402
 from repro_torch.models.convert import params_from_reference  # noqa: E402
@@ -117,6 +118,21 @@ def test_init_follows_the_reference_std_rule():
                    (params["blocks"]["ffn"]["w_down"],
                     (2 * cfg.num_layers) ** -0.5 / cfg.d_ff ** 0.5)):
         assert abs(w.float().std().item() / std - 1) < 0.05
+
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_config_copies_agree_with_reference(arch):
+    """Every field the port keeps has the reference's value; the fields it
+    leaves out are only the reference's sharding and training knobs."""
+    cfg, rcfg = get_config(arch), ref_get_config(arch)
+    kept = {f.name for f in dataclasses.fields(cfg)}
+    assert {n: getattr(cfg, n) for n in kept} == {
+        n: getattr(rcfg, n) for n in kept}
+    assert cfg.param_count() == rcfg.param_count()
+    left_out = {f.name for f in dataclasses.fields(rcfg)} - kept
+    assert left_out == {"attn_shard", "fsdp", "remat", "scan_layers",
+                        "sharding_profile", "sequence_parallel",
+                        "decode_cache_shard", "optimizer", "grad_compress"}
 
 
 def test_only_dense_models_are_ported():
