@@ -81,11 +81,13 @@ class ModelConfig:
     z_loss: float = 1e-4
 
     # -- performance knobs ---------------------------------------------------
-    # The JAX package's sharding, remat and optimizer knobs are left out: the
-    # port runs on one device and does not train yet, so nothing would read
-    # them. They come back with the slice that does.
-    use_flash: bool = False          # decode through the flash_decode kernel
+    # The JAX package's sharding knobs are left out: the port runs on one
+    # device, so nothing would read them.
+    remat: str = "full"              # "none" | "full" | "dots" — per-layer remat
+    use_flash: bool = False          # the flash_decode / flash_attention kernels
     attn_impl: str = "auto"          # "auto" | "einsum" | "blockwise" | "flash"
+    optimizer: str = "adamw"         # "adamw" | "adamw_wsd"
+    grad_compress: bool = False      # int8 gradient compression (opt-in)
 
     # -------------------------------------------------------------------
 

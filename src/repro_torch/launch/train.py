@@ -1,0 +1,162 @@
+"""Training driver: the fault-tolerant loop over the llama-family train step.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b \
+        --shape train_4k --steps 100 [--smoke] [--ckpt-dir /path] \
+        [--fail-at 30,60] [--resume] [--device cpu]
+
+Runs on the card unless ``--device cpu`` is given; ``--smoke`` uses the
+reduced config at 4 x 128 tokens. The model is trained as
+``cfg.replace(use_flash=True)``, so every layer's forward attention runs the
+``flash_attention`` kernel (its backward goes through the plain version).
+Weights are random, drawn from a seeded generator on the device; batches
+come from ``SyntheticLMData`` (seed 0). ``--lr`` is accepted and ignored,
+as in the JAX package's driver (the schedule's peak is the optimizer's
+default). The reference's ``--multi-pod`` (its production mesh over pods)
+is left out: the port runs on one card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from typing import Callable, Iterable, List, Optional
+
+import torch
+
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.configs import ARCHS, SHAPES, get_config
+from repro_torch.configs.base import ModelConfig, ShapeSpec
+from repro_torch.data import SyntheticLMData
+from repro_torch.device import resolve_device
+from repro_torch.launch import steps as S
+from repro_torch.models import LM
+from repro_torch.models.params import Tree
+from repro_torch.runtime import (FailureInjector, FaultTolerantLoop,
+                                 StragglerPolicy)
+
+
+@dataclasses.dataclass
+class Trained:
+    model: LM
+    state: Tree
+    losses: List[float]           # one per step run, restarts included
+    step_times: List[float]       # seconds a step, host clock after a sync
+    end_step: int
+    history: List[str]            # the loop's failure / restore events
+    seconds: float                # the whole loop
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def train(cfg: ModelConfig, shape: ShapeSpec, *, steps: int, device=None,
+          ckpt_dir: str = "", ckpt_every: int = 50,
+          fail_at: Iterable[int] = (), resume: bool = False, seed: int = 0,
+          log: Callable[[str], None] = print) -> Trained:
+    """Train ``cfg`` (random init from ``seed``) for ``steps`` steps of
+    ``shape.global_batch`` x ``shape.seq_len`` tokens."""
+    dev = resolve_device(device)
+    model = LM(cfg.replace(use_flash=True))
+    opt_cfg = S.make_optimizer_config(cfg, total_steps=steps)
+    data = SyntheticLMData(cfg, shape, seed=0, device=dev)
+    step_fn = S.make_train_step(model, opt_cfg)
+    state = S.init_train_state(
+        model, opt_cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+
+    mgr = None
+    start = 0
+    if ckpt_dir:
+        mgr = CheckpointManager(ckpt_dir, keep=3)
+        if resume:
+            st, restored = mgr.restore_latest(state)
+            if restored is not None:
+                start, state = st, restored
+                log(f"[train] resumed from step {start}")
+
+    losses: List[float] = []
+    times: List[float] = []
+
+    def wrapped_step(st, batch):
+        t0 = time.perf_counter()
+        st2, loss = step_fn(st, batch)
+        losses.append(float(loss))          # waits for the step's work
+        _sync(dev)
+        times.append(time.perf_counter() - t0)
+        return st2
+
+    loop = FaultTolerantLoop(
+        step_fn=wrapped_step,
+        batch_fn=data.batch,
+        ckpt_save=(lambda s, st: mgr.save(s, st)) if mgr else
+        (lambda s, st: None),
+        # the step and AdamW update ``state``'s tensors in place, and restore
+        # copies into them: after a restore the loop goes on with the same
+        # tensors, and no second train state is held
+        ckpt_restore=(lambda: mgr.restore_latest(state)) if mgr else
+        (lambda: (None, None)),
+        checkpoint_every=ckpt_every,
+        injector=FailureInjector(fail_at={int(s): "injected"
+                                          for s in fail_at}),
+        straggler=StragglerPolicy(),
+    )
+    t0 = time.perf_counter()
+    state, end_step, history = loop.run(state, start, steps)
+    seconds = time.perf_counter() - t0
+    if mgr:
+        mgr.wait()
+    return Trained(model, state, losses, times, end_step, history, seconds)
+
+
+def main(argv: Optional[List[str]] = None) -> Trained:
+    ap = argparse.ArgumentParser(
+        epilog="The JAX package's --multi-pod is left out: one card.")
+    ap.add_argument("--arch", choices=sorted(ARCHS), default="llama3-8b")
+    ap.add_argument("--shape", choices=sorted(SHAPES), default="train_4k")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced config at 4 x 128 tokens")
+    ap.add_argument("--batch", type=int, default=0,
+                    help="override global batch (smoke default 4)")
+    ap.add_argument("--seq", type=int, default=0,
+                    help="override sequence length (smoke default 128)")
+    ap.add_argument("--lr", type=float, default=3e-4,
+                    help="accepted and ignored, as in the JAX package")
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--fail-at", default="",
+                    help="comma-separated steps at which to inject failures")
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    cfg = get_config(args.arch)
+    shape = SHAPES[args.shape]
+    if args.smoke:
+        cfg = cfg.smoke()
+        shape = ShapeSpec(shape.name, args.seq or 128, args.batch or 4,
+                          shape.kind)
+    elif args.batch or args.seq:
+        shape = ShapeSpec(shape.name, args.seq or shape.seq_len,
+                          args.batch or shape.global_batch, shape.kind)
+
+    r = train(cfg, shape, steps=args.steps, device=args.device,
+              ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+              fail_at=[int(s) for s in args.fail_at.split(",") if s],
+              resume=args.resume)
+    ls, dt = r.losses, r.seconds
+    print(f"[train] {args.arch} {cfg.name}: {len(ls)} steps in {dt:.1f}s "
+          f"({dt / max(1, len(ls)):.2f}s/step)")
+    if ls:
+        k = max(1, len(ls) // 10)
+        print(f"[train] loss {ls[0]:.4f} -> {sum(ls[-k:]) / k:.4f} "
+              f"(first -> mean of last {k})")
+    if r.history:
+        print(f"[train] events: {r.history}")
+    return r
+
+
+if __name__ == "__main__":
+    main()

@@ -23,11 +23,14 @@ def _tensor(a: Any, device: torch.device) -> torch.Tensor:
     if arr.dtype.name == "bfloat16":
         return torch.from_numpy(arr.astype(np.float32)).to(
             device=device, dtype=torch.bfloat16)
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+    # a copy: the optimizer updates in place, and a CPU tensor made with
+    # from_numpy would write through to the caller's array
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(device, copy=True)
 
 
 def params_from_reference(tree: Mapping[str, Any], device=None) -> Tree:
-    """Nested dict of arrays -> the same nested dict of tensors on ``device``."""
+    """Nested dict of arrays -> the same nested dict of tensors on
+    ``device``, each a copy of its array."""
     dev = resolve_device(device)
     return {k: params_from_reference(v, dev) if isinstance(v, Mapping)
             else _tensor(v, dev) for k, v in tree.items()}

@@ -5,16 +5,16 @@ from the matching ``*_defs`` builder), with the JAX package's layouts and
 numerics: norms and softmax in f32, the half-split rotary embedding, scores in
 f32 masked with -1e30.
 
-Attention runs one of three ways:
+Attention runs one of five ways:
 
 * with a KV cache and one query token under ``cfg.use_flash``: the
   ``flash_decode`` CUDA kernel;
 * with a KV cache otherwise: an einsum directly in cache layout;
-* without a cache: the full-score einsum (``impl="einsum"``).
+* without a cache, by ``impl``: the ``flash_attention`` CUDA kernel
+  (``"flash"``, the training path), online softmax over 512-row blocks in
+  plain torch (``"blockwise"``) or the full-score einsum (``"einsum"``).
 
-The reference's ``blockwise`` and ``flash`` no-cache implementations and MoE
-are not ported yet (ROADMAP: the forward/training slice and the LM
-substrate queue).
+MoE is not ported yet (ROADMAP: the LM substrate queue).
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_decode import flash_decode
 from .params import ParamDef
 
@@ -108,22 +109,67 @@ def attention_defs(cfg, layers: int = 0) -> Tree:
     return out
 
 
-def _einsum_attention(q, k, v) -> torch.Tensor:
-    """Causal q [B,S,KV,G,hd] x k, v [B,S,KV,hd] -> [B,S,KV,G,hd] in q's dtype."""
+def _einsum_attention(q, k, v, *, causal: bool) -> torch.Tensor:
+    """q [B,S,KV,G,hd] x k, v [B,S,KV,hd] -> [B,S,KV,G,hd] in q's dtype."""
     hd, sq = q.shape[-1], q.shape[1]
     s = torch.einsum("bskgd,btkd->bkgst", q.float(), k.float()) / math.sqrt(hd)
-    rows = torch.arange(sq, device=q.device)[:, None]
-    cols = torch.arange(sq, device=q.device)[None, :]
-    s = s.masked_fill(rows < cols, _NEG_INF)
+    if causal:
+        rows = torch.arange(sq, device=q.device)[:, None]
+        cols = torch.arange(k.shape[1], device=q.device)[None, :]
+        s = s.masked_fill(rows < cols, _NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bkgst,btkd->bskgd", p, v.float()).to(q.dtype)
 
 
+def _blockwise_attention(q, k, v, *, causal: bool, bq: int = 512,
+                         bk: int = 512) -> torch.Tensor:
+    """Online-softmax attention over [bq, bk] blocks (plain torch).
+
+    The reference's ``lax.map`` over query blocks and ``lax.scan`` over KV
+    blocks become two Python loops; padding, the -1e30 mask and the
+    ``l == 0 -> 1`` guard are the reference's.
+    """
+    b, sq, kvh, g, hd = q.shape
+    skv = k.shape[1]
+    sqp, skp = -(-sq // bq) * bq, -(-skv // bk) * bk
+    qp = F.pad(q, (0, 0, 0, 0, 0, 0, 0, sqp - sq))
+    kp = F.pad(k, (0, 0, 0, 0, 0, skp - skv))
+    vp = F.pad(v, (0, 0, 0, 0, 0, skp - skv)).float()
+    scale = 1.0 / math.sqrt(hd)
+    blocks = []
+    for qi in range(sqp // bq):
+        qt = qp[:, qi * bq:(qi + 1) * bq].float()
+        m = torch.full((b, kvh, g, bq), _NEG_INF, device=q.device)
+        l = torch.zeros((b, kvh, g, bq), device=q.device)
+        acc = torch.zeros((b, kvh, g, bq, hd), device=q.device)
+        rows = qi * bq + torch.arange(bq, device=q.device)[:, None]
+        for ki in range(skp // bk):
+            kt = kp[:, ki * bk:(ki + 1) * bk].float()
+            s = torch.einsum("bskgd,btkd->bkgst", qt, kt) * scale
+            cols = ki * bk + torch.arange(bk, device=q.device)[None, :]
+            mask = cols < skv
+            if causal:
+                mask = mask & (rows >= cols)
+            s = s.masked_fill(~mask, _NEG_INF)
+            m2 = torch.maximum(m, s.amax(dim=-1))
+            alpha = torch.exp(m - m2)
+            p = torch.exp(s - m2[..., None])
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bkgst,btkd->bkgsd", p, vp[:, ki * bk:(ki + 1) * bk])
+            m = m2
+        l = torch.where(l == 0.0, torch.ones_like(l), l)
+        out = acc / l[..., None]                        # [b,kvh,g,bq,hd]
+        blocks.append(out.permute(0, 3, 1, 2, 4))       # [b,bq,kvh,g,hd]
+    return torch.cat(blocks, dim=1)[:, :sq].to(q.dtype)
+
+
 def attention(p: Tree, x: torch.Tensor, cfg, *, positions: torch.Tensor,
-              cache: Optional[Tree] = None,
+              causal: bool = True, cache: Optional[Tree] = None,
               cache_pos: Optional[int] = None, impl: str = "einsum"
               ) -> Tuple[torch.Tensor, Optional[Tree]]:
-    """Causal self-attention with an optional KV cache.
+    """Self-attention (causal unless ``causal=False``) with an optional KV
+    cache.
 
     x: [B, S, D]. cache: dict with "k"/"v" [B, KV, S_max, hd], written in
     place at ``cache_pos`` (the reference's ``dynamic_update_slice`` returns
@@ -173,16 +219,26 @@ def attention(p: Tree, x: torch.Tensor, cfg, *, positions: torch.Tensor,
                           ck.float()) / math.sqrt(hd)
         rows = cache_pos + torch.arange(s, device=x.device)[:, None]
         cols = torch.arange(t, device=x.device)[None, :]
-        mask = (cols < cache_pos + s) & (rows >= cols)   # frontier, causal
+        mask = cols < cache_pos + s                      # frontier
+        if causal:
+            mask = mask & (rows >= cols)
         sc = sc.masked_fill(~mask, _NEG_INF)
         pr = torch.softmax(sc, dim=-1)
         out = torch.einsum("bkgst,bktd->bskgd", pr, cv.float()).to(x.dtype)
+    elif impl == "flash":
+        # [B, S, H, hd] seen as [B, H, S, hd] through strides: the kernel
+        # reads and writes the model's layout, and its output transposed
+        # back is a view. It reads kv head h // G itself, where the
+        # reference's ops.gqa_attention repeats K and V first.
+        o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), causal=causal)
+        out = o.transpose(1, 2).reshape(b, s, hkv, g, hd)
+    elif impl == "blockwise":
+        out = _blockwise_attention(qg, k, v, causal=causal)
     elif impl == "einsum":
-        out = _einsum_attention(qg, k, v)
+        out = _einsum_attention(qg, k, v, causal=causal)
     else:
-        raise NotImplementedError(
-            f"attention impl {impl!r} is not ported yet (ROADMAP: the "
-            "forward/training slice brings flash_attention and blockwise)")
+        raise ValueError(f"unknown attention impl {impl!r}")
 
     y = out.reshape(b, s, hq * hd) @ p["wo"]
     return y, cache

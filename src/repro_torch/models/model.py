@@ -5,9 +5,14 @@ parameters stacked along a leading layer axis, as in the JAX package. A
 Python loop over layers takes the place of ``lax.scan``.
 
 Entry points, as in the reference:
-  ``forward``      — no-cache logits (einsum attention)
+  ``loss``         — training loss (next-token cross-entropy + z-loss)
+  ``forward``      — no-cache logits (flash, blockwise or einsum attention)
   ``prefill``      — forward + KV-cache fill, returns last-position logits
   ``decode_step``  — one token per sequence against the cache
+
+``cfg.remat`` wraps each layer of ``forward`` as the reference's remat
+policy wraps its scanned body: ``"full"`` recomputes the layer in backward
+(``torch.utils.checkpoint``), ``"none"`` keeps its activations.
 
 The KV cache is preallocated as [L, B, KV, S_max, hd] and written in place.
 Other families (moe, ssm, hybrid, vlm, audio) are not ported yet.
@@ -18,6 +23,7 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -29,6 +35,35 @@ def layer_slice(tree: Tree, i: int) -> Tree:
     """One layer's view of a tree of stacked [L, ...] tensors."""
     return {k: layer_slice(v, i) if isinstance(v, dict) else v[i]
             for k, v in tree.items()}
+
+
+def layer_list(tree: Tree, n: int) -> list:
+    """Every layer's view of a tree of stacked [L, ...] tensors at once.
+
+    ``unbind`` gives one backward that stacks the layers' gradients, where
+    indexing each layer apart would allocate a zero [L, ...] gradient per
+    layer and sum them."""
+    flat = {k: layer_list(v, n) if isinstance(v, dict) else v.unbind(0)
+            for k, v in tree.items()}
+    return [{k: v[i] for k, v in flat.items()} for i in range(n)]
+
+
+def _remat(fn, policy: str):
+    """The reference's ``_maybe_remat`` for one layer."""
+    if policy == "none":
+        return fn
+    if policy == "dots":
+        raise NotImplementedError(
+            'remat="dots" (save matmul outputs) is not ported yet (ROADMAP: '
+            'queue 0, "dots" remat)')
+    if policy != "full":
+        raise ValueError(f"unknown remat policy {policy!r}")
+
+    def run(*args):
+        if not torch.is_grad_enabled():      # nothing to save: same compute
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False)
+    return run
 
 
 class LM:
@@ -93,12 +128,30 @@ class LM:
         positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
         x = Lyr.embed(params["embed"], tokens)
         impl = self._impl(s)
-        for i in range(cfg.num_layers):
-            x, _ = self._dense_block(layer_slice(params["blocks"], i), x,
-                                     positions, impl=impl)
+
+        def body(x, p):
+            return self._dense_block(p, x, positions, impl=impl)[0]
+        body = _remat(body, cfg.remat)
+        for p in layer_list(params["blocks"], cfg.num_layers):
+            x = body(x, p)
         x = Lyr.apply_norm(params["final_norm"], x, cfg.norm_eps)
         logits = Lyr.unembed(params["embed"], x)
         return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def loss(self, params: Tree, batch: Dict[str, torch.Tensor]
+             ) -> torch.Tensor:
+        """Mean next-token NLL plus ``z_loss * mean(lse^2)``, in f32.
+
+        The true logit is gathered instead of the reference's one-hot
+        product: the same value, without a [B, S, V] f32 one-hot (4.2 GB at
+        batch 2 x 4096 tokens of a 128k vocab)."""
+        cfg = self.cfg
+        logits, _ = self.forward(params, batch)
+        logits = logits.float()
+        lse = torch.logsumexp(logits, dim=-1)
+        true_logit = logits.gather(-1, batch["labels"][..., None].long())[..., 0]
+        nll = lse - true_logit
+        return nll.mean() + cfg.z_loss * (lse * lse).mean()
 
     # ------------------------------------------------------------------
     # serving: cache defs / prefill / decode

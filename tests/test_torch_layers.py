@@ -123,10 +123,25 @@ def test_no_cache_attention_and_mlp(dt):
 
 
 @pytest.mark.parametrize("impl", ["flash", "blockwise"])
-def test_unported_attention_impls_raise(impl):
-    cfg = get_config("llama3-8b").smoke()
-    p = {n: torch.from_numpy(w) for n, w in
-         _attn_params(np.random.default_rng(0), cfg).items()}
-    x = torch.zeros(1, 3, cfg.d_model)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TL.attention(p, x, cfg, positions=torch.arange(3)[None], impl=impl)
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_no_cache_attention_impls(dt, impl):
+    """blockwise (plain torch) and flash (the kernel's plain version on the
+    CPU) against the reference's, whose flash runs the Pallas kernel in
+    interpret mode. S = 600 spans two 512-row blocks with a ragged edge."""
+    cfg = get_config("llama3-8b").smoke().replace(num_kv_heads=2)
+    rcfg = ref_get_config("llama3-8b").smoke().replace(num_kv_heads=2)
+    rng = np.random.default_rng(6)
+    b, s = 1, 600 if impl == "blockwise" else 70
+    p = _attn_params(rng, cfg)
+    x = rng.normal(size=(b, s, cfg.d_model)).astype("float32")
+    pos = np.arange(s)[None].repeat(b, 0).astype("int32")
+    jp = {n: _pair(w, dt)[0] for n, w in p.items()}
+    tp = {n: _pair(w, dt)[1] for n, w in p.items()}
+    jx, tx = _pair(x, dt)
+    want, _ = jax.jit(RL.attention, static_argnums=(2,),
+                      static_argnames=("impl",))(
+        jp, jx, rcfg, positions=jnp.asarray(pos), impl=impl)
+    got, cache = TL.attention(tp, tx, cfg, positions=torch.from_numpy(pos),
+                              impl=impl)
+    assert cache is None
+    _close(got, want, dt)

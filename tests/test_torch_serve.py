@@ -75,15 +75,15 @@ def test_prefill_and_teacher_forced_decode_match_reference(kv_heads,
     _close(cache["self"]["k"], rcache["self"]["k"])
     _close(cache["self"]["v"], rcache["self"]["v"])
 
-    if not use_flash:          # forward has no flash path in this slice
-        # in f32, where the point is the algorithm and not bf16 rounding
-        r32 = jax.tree.map(lambda a: np.asarray(a, np.float32), rparams)
-        want, _ = jax.jit(ref.forward)(r32, {"tokens": toks})
-        got, aux = port.forward(params_from_reference(r32, "cpu"),
-                                {"tokens": ttoks})
-        np.testing.assert_allclose(got.numpy(), np.asarray(want),
-                                   rtol=1e-4, atol=1e-4)
-        assert float(aux) == 0.0
+    # the no-cache forward (through flash under use_flash), in f32, where
+    # the point is the algorithm and not bf16 rounding
+    r32 = jax.tree.map(lambda a: np.asarray(a, np.float32), rparams)
+    want, _ = jax.jit(ref.forward)(r32, {"tokens": toks})
+    got, aux = port.forward(params_from_reference(r32, "cpu"),
+                            {"tokens": ttoks})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=1e-4, atol=1e-4)
+    assert float(aux) == 0.0
 
 
 def test_param_tree_matches_reference_at_full_size():
@@ -122,17 +122,19 @@ def test_init_follows_the_reference_std_rule():
 
 @pytest.mark.parametrize("arch", sorted(ARCHS))
 def test_config_copies_agree_with_reference(arch):
-    """Every field the port keeps has the reference's value; the fields it
-    leaves out are only the reference's sharding and training knobs."""
+    """Every field the port keeps has the reference's value (the training
+    knobs remat, optimizer and grad_compress included); the fields it leaves
+    out are only the reference's sharding knobs."""
     cfg, rcfg = get_config(arch), ref_get_config(arch)
     kept = {f.name for f in dataclasses.fields(cfg)}
     assert {n: getattr(cfg, n) for n in kept} == {
         n: getattr(rcfg, n) for n in kept}
     assert cfg.param_count() == rcfg.param_count()
     left_out = {f.name for f in dataclasses.fields(rcfg)} - kept
-    assert left_out == {"attn_shard", "fsdp", "remat", "scan_layers",
+    assert left_out == {"attn_shard", "fsdp", "scan_layers",
                         "sharding_profile", "sequence_parallel",
-                        "decode_cache_shard", "optimizer", "grad_compress"}
+                        "decode_cache_shard"}
+    assert {"remat", "optimizer", "grad_compress"} <= kept
 
 
 def test_only_dense_models_are_ported():
