@@ -34,6 +34,25 @@ lines:
              loss and layer 0's attention through the kernel against the
              plain (blockwise) branch, and an f32 loss and gradients at 2
              layers through both branches.
+7. compile — the Cascade compiler of the port on the host: Table I
+             (DENSE_APPS x {unpipelined, full}, place_moves=120,
+             verify=True) with each app's critical-path and EDP ratios,
+             and the three STRAIGHT_LINE_PINS at place_moves=40. Then the
+             path the kernels serve: each of the 13 designs' timing
+             matrices goes to the card and its longest path from SRC runs
+             through maxplus, held to numpy's longest_path_maxplus; and
+             gaussian_blur, sharpen and sobel_mag2 run through stencil on
+             the gaussian, unsharp and harris frames (integer pixels from a
+             seed), held to the plain version. Checks both launch counts.
+8. maxplus — the max-plus kernel against its plain version (bit for bit, in
+             f32) at the reference test's shapes, at every closure size of
+             the path, ragged, with half the entries at the NEG_INF floor,
+             and at n = 4096; times one squaring at each size of the path
+             (the kernel, and at the largest the plain version) and at
+             n = 4096. No PyTorch call computes it.
+9. stencil — the 3x3 stencil kernel against its plain version at the
+             reference test's shapes and the three frames, four weight
+             sets; times kernel, plain version and conv2d at each frame.
 
 Then one JSON line of kernel results and, last, ``{"ok": true, ...}``. Any
 failure raises and exits non-zero before the last line.
@@ -48,6 +67,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -62,11 +82,36 @@ TOL = {torch.float32: 2e-3, torch.bfloat16: 4e-2}   # tests/test_kernels.py
 KERNEL_TOL = {torch.float32: dict(rtol=2e-3, atol=2e-3),
               torch.bfloat16: dict(rtol=1e-2, atol=1e-3)}
 
+# max-plus: one FADD and one FMNMX per (i, j, k). FMNMX runs at 64 results
+# a clock an SM on compute capability 9.0 (CUDA C++ Programming Guide,
+# arithmetic instruction throughput) and an SM issues 128 thread-
+# instructions a clock, so either way M N K / (64 x 132 SMs x clock); the
+# clock is the H100 SXM's 1.98 GHz boost
+MAXPLUS_PER_S = 64 * 132 * 1.98e9
+# stencil: 9 products and 9 sums a pixel, separately rounded
+STENCIL_OPS_PER_PIXEL = 18
+
 ARCH, BATCH, PROMPT, GEN = "llama3-8b", 4, 128, 32
 # llama3-8b training: full width; 8 layers, batch 2 instead of 32 layers and
 # 256 (train_4k), so that bf16 weights, f32 AdamW moments and the loss's
 # [B, S, V] temporaries fit one 80 GB card
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2, 4096, 4
+
+# the compile path: Table I's designs at benchmarks/cascade_tables.py's move
+# budget, and tests/test_predication.py's pins at place_moves=40: (design
+# digest, critical path ns, physical registers)
+TABLE1_MOVES = 120
+STRAIGHT_LINE_PINS = {
+    "gaussian": ("a3a27512474fe9396edeb6f63f642286873820b92ee2701b95b0b98dae1f81f3",
+                 1.375, 62),
+    "unsharp": ("f51ce187b41722194946e24ed3fc93e9ab044bb59a2bb0eaee081e4ba152eaef",
+                1.47, 91),
+    "harris": ("1bd4154ffbd6ad87d2b51b31c4b8831d96ac0883aa7aecd0eeec371981153b01",
+               2.005, 228),
+}
+# the golden compute of each dense app with a 3x3 kernel, on the app's frame
+GOLDEN = (("gaussian", "gaussian_blur"), ("unsharp", "sharpen"),
+          ("harris", "sobel_mag2"))
 
 
 def log(phase: str, msg: str) -> None:
@@ -656,6 +701,242 @@ def check_train_branches(cfg, params, batch) -> None:
         f"abs error over max abs value: {', '.join(errs)} (tol {tol})")
 
 
+def maxplus_bound(m: int, k: int, n: int):
+    """(least ms, what bounds it) for one max-plus product: M N K add/max
+    pairs at the card's FMNMX rate, against A, B read and C written once."""
+    t_ops = m * n * k / MAXPLUS_PER_S
+    t_bytes = 4 * (m * k + k * n + m * n) / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def stencil_bound(h: int, w: int):
+    """(least ms, what bounds it) for one 3x3 stencil: x read and out
+    written once, against 18 f32 operations a pixel at the card's peak."""
+    t_bytes = 8 * h * w / HBM_BYTES_PER_S
+    t_ops = STENCIL_OPS_PER_PIXEL * h * w / PEAK_FLOPS[torch.float32]
+    return 1e3 * max(t_ops, t_bytes), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def phase_maxplus(dev, path: list) -> dict:
+    """``path``: (n, launches) of each longest path the compile phase ran."""
+    from repro_torch.kernels.maxplus import (NEG_INF, maxplus_matmul,
+                                             maxplus_matmul_plain)
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def operand(rows, cols):
+        """Normal entries, half of them absent (NEG_INF), as in a timing
+        matrix, so that the floor is reached."""
+        x = torch.randn(rows, cols, generator=gen, device=dev)
+        x[torch.rand(rows, cols, generator=gen, device=dev) < 0.5] = NEG_INF
+        return x
+
+    shapes = [(8, 8, 8), (100, 130, 70), (128, 128, 128), (200, 50, 300),
+              (1, 257, 1), (150, 90, 60)]                  # the reference's
+    sizes = sorted({n for n, _ in path})
+    shapes += [(n, n, n) for n in sizes]
+    shapes += [(1000, 999, 1001), (4096, 4096, 4096)]
+    max_err = 0.0
+    for m, k, n in shapes:
+        a, b = operand(m, k), operand(k, n)
+        got, want = maxplus_matmul(a, b), maxplus_matmul_plain(a, b)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        if not torch.equal(got, want):
+            raise RuntimeError(f"maxplus {m}x{k}x{n}: kernel differs from its "
+                               f"plain version, max abs err {err}")
+        max_err = max(max_err, err)
+        log("maxplus", f"M={m} K={k} N={n}: equal to the plain version bit "
+            f"for bit ({(got == NEG_INF).float().mean().item():.3f} of "
+            f"outputs at the floor)")
+        del a, b, got, want
+    # the floor is the TPU kernel's function, not its oracle's
+    a = torch.tensor([[NEG_INF, NEG_INF], [0., 1.]], device=dev)
+    b = torch.tensor([[-500., 2.], [-700., 3.]], device=dev)
+    got = maxplus_matmul(a, b)
+    if got[0, 0].item() != NEG_INF or not torch.equal(
+            got, maxplus_matmul_plain(a, b)):
+        raise RuntimeError(f"maxplus floor: got {got.tolist()}")
+    log("maxplus", f"floor example: {got.tolist()} (the oracle without a "
+        f"floor gives -1000000512 at [0, 0])")
+
+    def timed(n, iters, plain_iters):
+        a = torch.randn(n, n, generator=gen, device=dev)
+        bound_ms, bound_by = maxplus_bound(n, n, n)
+        return {"ms": time_ms(lambda x: maxplus_matmul(x, x), [(a,)], iters),
+                "plain_ms": time_ms(lambda x: maxplus_matmul_plain(x, x),
+                                    [(a,)], plain_iters),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": None}
+
+    # one squaring at each closure size of the path, and the plain version
+    # at the largest; the path's kernel time and what it spends over bound
+    ms_at = {n: time_ms(lambda x: maxplus_matmul(x, x),
+                        [(torch.randn(n, n, generator=gen, device=dev),)],
+                        200) for n in sizes}
+    path_ms = sum(k * ms_at[n] for n, k in path)
+    over_ms = sum(k * (ms_at[n] - maxplus_bound(n, n, n)[0]) for n, k in path)
+    log("maxplus", "one squaring at each size of the path (ms): "
+        + json.dumps(ms_at) + f"; the path's {sum(k for _, k in path)} "
+        f"launches: {path_ms:.4f} ms, {over_ms:.4f} ms above their bounds")
+    main = timed(sizes[-1], iters=200, plain_iters=10)
+    log("maxplus", f"n={sizes[-1]} (the path's largest), one squaring: "
+        + json.dumps(main))
+    big = timed(4096, iters=5, plain_iters=1)
+    log("maxplus", "n=4096, one squaring: " + json.dumps(big)
+        + f", roofline share {big['bound_ms'] / big['ms']:.3f}")
+    torch.cuda.empty_cache()
+    return {"name": "maxplus", "route": "cuda",
+            "source": "src/repro_torch/kernels/maxplus/csrc/maxplus.cu",
+            "replaces": "src/repro/kernels/maxplus/maxplus.py:29",
+            "max_abs_err": max_err, **main}
+
+
+def phase_stencil(dev) -> dict:
+    from repro_torch.core import DENSE_APPS
+    from repro_torch.kernels import stencil as S
+    gen = torch.Generator(device=dev).manual_seed(3)
+    frames = [DENSE_APPS[app].frame for app, _ in GOLDEN]
+    shapes = [(8, 16), (100, 240), (128, 128), (77, 515), (300, 200)]
+    max_err = 0.0
+    for h, w in shapes + frames:
+        x = torch.randn(h, w, generator=gen, device=dev)
+        for name in ("GAUSS3", "SHARPEN3", "SOBEL_X3", "SOBEL_Y3"):
+            got = S.stencil3x3(x, getattr(S, name))
+            want = S.stencil3x3_ref(x, getattr(S, name))
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+            max_err = max(max_err, (got - want).abs().max().item())
+        log("stencil", f"H={h} W={w}: 4 weight sets within rtol=atol=1e-5 "
+            f"of the plain version (max abs err so far {max_err:.3g})")
+        del x, got, want
+
+    def conv(w4):
+        return lambda x: F.conv2d(x[None, None], w4, padding=1)[0, 0]
+
+    results = {}
+    for (app, _), (h, w) in zip(GOLDEN, frames):
+        x = torch.randn(h, w, generator=gen, device=dev)
+        lib = conv(S.GAUSS3.to(dev)[None, None])
+        torch.testing.assert_close(lib(x), S.stencil3x3_ref(x, S.GAUSS3),
+                                   rtol=1e-4, atol=1e-4)
+        bound_ms, bound_by = stencil_bound(h, w)
+        results[app] = {
+            "ms": time_ms(lambda t: S.stencil3x3(t, S.GAUSS3), [(x,)], 50),
+            "plain_ms": time_ms(lambda t: S.stencil3x3_ref(t, S.GAUSS3),
+                                [(x,)], 10),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": time_ms(lib, [(x,)], 50)}
+        r = results[app]
+        log("stencil", f"{app} frame {h}x{w} ({8 * h * w / 1e6:.0f} MB "
+            f"moved): " + json.dumps(r) + f", {8 * h * w / r['ms'] / 1e6:.0f}"
+            f" GB/s achieved, roofline share {r['bound_ms'] / r['ms']:.3f}")
+        del x
+    torch.cuda.empty_cache()
+    return {"name": "stencil", "route": "cuda",
+            "source": "src/repro_torch/kernels/stencil/csrc/stencil.cu",
+            "replaces": "src/repro/kernels/stencil/stencil.py:26",
+            "max_abs_err": max_err, **results["gaussian"]}
+
+
+def phase_compile(dev, card: str):
+    """Returns (n, maxplus launches) of each longest path run, and the
+    maxplus and stencil launch counts of the path."""
+    from repro_torch.core import DENSE_APPS, CascadeCompiler, PassConfig
+    from repro_torch.core.netlist import design_digest
+    from repro_torch.core.sta import longest_path_maxplus, timing_matrix
+    from repro_torch.kernels import stencil as S
+    from repro_torch.kernels.maxplus import (NEG_INF, longest_path,
+                                             maxplus_matmul)
+
+    c = CascadeCompiler()
+    designs = []
+    t0 = time.perf_counter()
+    for app, spec in DENSE_APPS.items():
+        r0, r1 = (c.compile(spec, getattr(PassConfig, flow)(
+            place_moves=TABLE1_MOVES), verify=True)
+            for flow in ("unpipelined", "full"))
+        designs += [(f"{app} unpipelined", r0), (f"{app} full", r1)]
+        log("compile", f"{app}: critical path {r0.sta.critical_path_ns:.3f}"
+            f" -> {r1.sta.critical_path_ns:.3f} ns (ratio "
+            f"{r0.sta.critical_path_ns / r1.sta.critical_path_ns:.2f}), EDP "
+            f"ratio {r0.power.edp_js / r1.power.edp_js:.2f}, runtime "
+            f"{r0.power.runtime_s * 1e3:.3f} -> {r1.power.runtime_s * 1e3:.3f}"
+            f" ms; compiled and verified in {r0.compile_seconds:.2f} + "
+            f"{r1.compile_seconds:.2f} s")
+    secs = time.perf_counter() - t0
+    log("compile", f"Table I: {len(designs)} designs (place_moves="
+        f"{TABLE1_MOVES}, verify=True) in {secs:.2f} s on the host")
+    for app, (digest, cp, regs) in STRAIGHT_LINE_PINS.items():
+        r = c.compile(DENSE_APPS[app], PassConfig.full(place_moves=40))
+        got = (design_digest(r.design), round(r.sta.critical_path_ns, 6),
+               r.design.physical_register_count())
+        if got != (digest, cp, regs):
+            raise RuntimeError(f"{app} pin: got {got}, want "
+                               f"{(digest, cp, regs)}")
+        designs.append((f"{app} pin", r))
+    log("compile", "STRAIGHT_LINE_PINS hold (critical path ns, registers, "
+        "design digest): " + ", ".join(f"{a} {p[1]} / {p[2]}"
+                                      for a, p in STRAIGHT_LINE_PINS.items()))
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    S.stencil3x3.launches = 0
+    maxplus_matmul.launches = 0
+    paths, golden = [], []
+    for label, r in designs:
+        m, verts = timing_matrix(r.design, c.timing)
+        src = verts.index("SRC")
+        arr = longest_path(torch.from_numpy(m).to(dev), src)
+        paths.append((label, m, src, arr))
+    for app, op in GOLDEN:
+        h, w = DENSE_APPS[app].frame
+        x = torch.randint(0, 256, (h, w), generator=gen, device=dev,
+                          dtype=torch.int32).float()
+        golden.append((app, op, x, getattr(S, op)(x)))
+    torch.cuda.synchronize()
+    mp, st = maxplus_matmul.launches, S.stencil3x3.launches
+    path = [(m.shape[0], max(1, math.ceil(math.log2(max(m.shape[0], 2)))))
+            for _, m, _, _ in paths]
+    want_mp = sum(k for _, k in path)
+    if mp != want_mp or st != 4:
+        raise RuntimeError(f"launches: maxplus {mp} (want {want_mp}), "
+                           f"stencil {st} (want 4)")
+    log("compile", f"launches: maxplus {mp} = sum over the {len(designs)} "
+        f"designs of max(1, ceil(log2 n)); stencil {st} (1 gaussian_blur, "
+        f"1 sharpen, 2 in sobel_mag2)")
+
+    for label, m, src, arr in paths:
+        got = arr.cpu().numpy()
+        want = longest_path_maxplus(m, src)
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-3)
+        reached = int((got > NEG_INF / 2).sum())
+        log("compile", f"{label}: n={m.shape[0]}, longest path from SRC "
+            f"through the kernel: {reached} vertices reached, latest "
+            f"arrival {got.max():.4f} ns, max abs err vs numpy "
+            f"{np.abs(got - want).max():.3g} (tol rtol 1e-4, atol 1e-3)")
+    def sobel_mag2_plain(x):
+        gx, gy = (S.stencil3x3_ref(x, w) for w in (S.SOBEL_X3, S.SOBEL_Y3))
+        return gx * gx + gy * gy
+
+    plain = {"gaussian_blur": lambda x: S.stencil3x3_ref(x, S.GAUSS3),
+             "sharpen": lambda x: S.stencil3x3_ref(x, S.SHARPEN3),
+             "sobel_mag2": sobel_mag2_plain}
+    for app, op, x, out in golden:
+        want = plain[op](x)
+        if out.shape != x.shape or not torch.isfinite(out).all():
+            raise RuntimeError(f"{op} on the {app} frame: bad output")
+        torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
+        log("compile", f"{op} on the {app} frame {tuple(x.shape)}: finite, "
+            f"max abs err vs the plain version "
+            f"{(out - want).abs().max().item():.3g} (tol rtol=atol=1e-5), "
+            f"range [{out.min().item():.1f}, {out.max().item():.1f}]")
+    del golden, paths
+    torch.cuda.empty_cache()
+    log("compile", f"on {card}")
+    return path, mp, st
+
+
 def main() -> int:
     card = phase_device()
     # f32 comparisons run in full f32: no TF32 in matmuls or convolutions
@@ -669,10 +950,16 @@ def main() -> int:
     decode["launches"] = phase_serve(card)
     torch.cuda.empty_cache()
     attn["launches"] = phase_train(card)
+    torch.cuda.empty_cache()
+    path, mp_launches, st_launches = phase_compile(dev, card)
+    maxplus = phase_maxplus(dev, path)
+    stencil = phase_stencil(dev)
+    maxplus["launches"], stencil["launches"] = mp_launches, st_launches
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys}
-                                  for e in (decode, attn)]}), flush=True)
+                                  for e in (decode, attn, maxplus, stencil)]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,4 +1,6 @@
-"""PyTorch/CUDA port of the ``repro`` LM serving path, for one NVIDIA H100.
+"""PyTorch/CUDA port of the ``repro`` package, for one NVIDIA H100: LM
+serving and training, and the Cascade compiler's default compile
+(``repro_torch.core``).
 
 Layout mirrors the JAX package module for module (``repro_torch.models.layers``
 is the counterpart of ``repro.models.layers``). The port imports torch, numpy

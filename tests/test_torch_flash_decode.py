@@ -102,7 +102,8 @@ def test_kernel_build_is_keyed_by_source_hash(monkeypatch, tmp_path):
     import shutil
 
     from repro_torch.kernels import _build
-    assert _build.kernel_names() == ["flash_attention", "flash_decode"]
+    assert _build.kernel_names() == ["flash_attention", "flash_decode",
+                                     "maxplus", "stencil"]
     path = _build.lib_path("flash_decode")
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("libflash_decode-") and path.suffix == ".so"
