@@ -17,8 +17,13 @@ lines:
 3b. attention — flash_attention against its plain version in bf16 and f32,
              causal and not, at the reference test's shapes, S = 65 / 130 /
              200 / 4097, Sq != Skv, GQA groups of 1, 4 and 8, and in the
-             model's strided layout, the training shape included; times
-             the kernel, the plain version and SDPA at that shape.
+             model's strided layout, the training shape included; at the
+             bf16 kernel's tile edges (S = 1, 127, 128, 129, 255), Sq !=
+             Skv around 128 and a batch slice with a batch stride that is
+             not dense. Checks that every bf16 call went to the tensor-core
+             kernel and every f32 call to the CUDA-core one, prints the bf16
+             kernel's registers, spills and shared memory, and times the
+             kernel, the plain version and SDPA at the training shape.
 4. serve   — llama3-8b at full width and depth (random weights from a seed)
              through ``repro_torch.launch.serve``: batch 4, prompt 128, 32
              generated tokens. Checks finite logits, the kernel's launch
@@ -28,12 +33,12 @@ lines:
 6. train   — llama3-8b at full width and 8 layers (random weights from a
              seed, synthetic data) through ``repro_torch.launch.train``:
              4 steps of 2 x 4096 tokens. Checks finite losses and the
-             flash_attention launch count, profiles one more step, holds one
-             in-place AdamW update of the live state against a plain
-             out-of-place update from the same gradients, holds one bf16
-             loss and layer 0's attention through the kernel against the
-             plain (blockwise) branch, and an f32 loss and gradients at 2
-             layers through both branches.
+             flash_attention launch count (all on the tensor cores),
+             profiles one more step, holds one in-place AdamW update of
+             the live state against a plain out-of-place update from the
+             same gradients, holds one bf16 loss and layer 0's attention
+             through the kernel against the plain (blockwise) branch, and
+             an f32 loss and gradients at 2 layers through both branches.
 7. compile — the Cascade compiler of the port on the host: Table I
              (DENSE_APPS x {unpipelined, full}, place_moves=120,
              verify=True) with each app's critical-path and EDP ratios,
@@ -60,8 +65,10 @@ failure raises and exits non-zero before the last line.
 
 from __future__ import annotations
 
+import importlib
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -292,36 +299,56 @@ def phase_flash_attention(dev) -> dict:
                                                      flash_attention_plain)
     gen = torch.Generator(device=dev).manual_seed(1)
 
-    def inputs(b, h, kv, sq, skv, d, dtype, model_layout=False):
-        """q [B,H,Sq,d], k/v [B,KV,Skv,d]; in the model's layout they are
-        [B,S,H,d] storage seen through strides, as the train step passes."""
+    def inputs(b, h, kv, sq, skv, d, dtype, layout="dense"):
+        """q [B,H,Sq,d], k/v [B,KV,Skv,d]. "model": [B,S,H,d] storage seen
+        through strides, as the train step passes; "batch_slice": every
+        other batch of a larger tensor, a batch stride that is not dense."""
         def one(heads, s):
-            shape = (b, s, heads, d) if model_layout else (b, heads, s, d)
-            x = torch.randn(shape, generator=gen, device=dev).to(dtype)
-            return x.transpose(1, 2) if model_layout else x
+            if layout == "model":
+                x = torch.randn((b, s, heads, d), generator=gen, device=dev)
+                return x.to(dtype).transpose(1, 2)
+            if layout == "batch_slice":
+                x = torch.randn((2 * b, heads, s, d), generator=gen,
+                                device=dev)
+                return x.to(dtype)[::2]
+            return torch.randn((b, heads, s, d), generator=gen,
+                               device=dev).to(dtype)
         return one(h, sq), one(kv, skv), one(kv, skv)
 
-    # (b, h, kv, sq, skv, d, causal, model layout)
-    cases = [(b, h, h, s, s, d, c, False)                   # the reference's
+    # (b, h, kv, sq, skv, d, causal, layout)
+    cases = [(b, h, h, s, s, d, c, "dense")                 # the reference's
              for b, h, s, d in ((1, 1, 128, 64), (2, 4, 200, 64),
                                 (1, 2, 384, 128), (2, 1, 65, 32))
              for c in (True, False)]
-    cases += [(1, 8, 2, s, s, 128, True, False)
+    cases += [(1, 8, 2, s, s, 128, True, "dense")
               for s in (65, 130, 200, 4097)]
-    cases += [(1, 2, 2, 64, 200, 32, False, False),          # Sq != Skv
-              (1, 2, 2, 64, 200, 32, True, False),
-              (1, 2, 2, 8, 20, 32, True, False),
-              (1, 2, 2, 200, 65, 32, True, False)]
-    cases += [(2, 8, kv, 96, 96, 32, True, False)           # G = 1, 4, 8
+    cases += [(1, 2, 2, 64, 200, 32, False, "dense"),        # Sq != Skv
+              (1, 2, 2, 64, 200, 32, True, "dense"),
+              (1, 2, 2, 8, 20, 32, True, "dense"),
+              (1, 2, 2, 200, 65, 32, True, "dense")]
+    cases += [(2, 8, kv, 96, 96, 32, True, "dense")          # G = 1, 4, 8
               for kv in (8, 2, 1)]
-    cases += [(2, 4, 2, 200, 200, 64, c, True)              # strided
+    cases += [(2, 4, 2, 200, 200, 64, c, "model")           # strided
               for c in (True, False)]
-    train = (TRAIN_BATCH, 32, 8, TRAIN_SEQ, TRAIN_SEQ, 128, True, True)
+    # the bf16 kernel's 128 x 128 tile: its edges, Sq != Skv around it, and
+    # a batch stride that is not dense, at every head dim
+    cases += [(1, 8, 2, s, s, 128, c, "dense")
+              for s in (1, 127, 128, 129, 255) for c in (True, False)]
+    cases += [(1, 4, 2, sq, skv, d, c, "dense")
+              for sq, skv, d in ((127, 129, 128), (129, 127, 64),
+                                 (128, 255, 32), (255, 128, 128),
+                                 (1, 129, 64))
+              for c in (True, False)]
+    cases += [(2, 4, 2, 257, 257, d, True, "batch_slice")
+              for d in (32, 64, 128)]
+    train = (TRAIN_BATCH, 32, 8, TRAIN_SEQ, TRAIN_SEQ, 128, True, "model")
     cases.append(train)
     max_err = 0.0
+    flash_attention.tensor_core_launches = 0
+    flash_attention.cuda_core_launches = 0
     for dtype in (torch.bfloat16, torch.float32):
-        for b, h, kv, sq, skv, d, causal, ml in cases:
-            q, k, v = inputs(b, h, kv, sq, skv, d, dtype, ml)
+        for b, h, kv, sq, skv, d, causal, layout in cases:
+            q, k, v = inputs(b, h, kv, sq, skv, d, dtype, layout)
             got = flash_attention(q, k, v, causal=causal)
             want = flash_attention_plain(q, k, v, causal=causal)
             torch.cuda.synchronize()
@@ -330,15 +357,25 @@ def phase_flash_attention(dev) -> dict:
                                        **KERNEL_TOL[dtype])
             max_err = max(max_err, err)
             log("attention", f"flash_attention {str(dtype)[6:]} B={b} H={h} "
-                f"KV={kv} Sq={sq} Skv={skv} d={d} causal={causal}"
-                f"{' strided' if ml else ''}: max abs err {err:.3g}")
+                f"KV={kv} Sq={sq} Skv={skv} d={d} causal={causal} {layout}: "
+                f"max abs err {err:.3g}")
             del q, k, v, got, want
         torch.cuda.empty_cache()
-    log("attention", f"all {2 * len(cases)} cases within {KERNEL_TOL}")
+    routes = (flash_attention.tensor_core_launches,
+              flash_attention.cuda_core_launches)
+    if routes != (len(cases), len(cases)):
+        raise RuntimeError(f"flash_attention routes (tensor cores, CUDA "
+                           f"cores) {routes}: every bf16 call must take the "
+                           f"tensor cores and every f32 call the CUDA cores, "
+                           f"{len(cases)} each")
+    log("attention", f"all {2 * len(cases)} cases within {KERNEL_TOL}; "
+        f"{routes[0]} bf16 launches on the tensor cores, {routes[1]} f32 "
+        f"on CUDA cores")
+    log("attention", "bf16 kernel (ptxas -v): " + bf16_kernel_resources())
 
     # the main path's call: one layer's forward attention in the train step
     b, h, kv, s, _, d = train[:6]
-    q, k, v = inputs(b, h, kv, s, s, d, torch.bfloat16, model_layout=True)
+    q, k, v = inputs(b, h, kv, s, s, d, torch.bfloat16, "model")
     dense = [x.contiguous() for x in (q, k, v)]   # SDPA's own layout
 
     def sdpa(q, k, v):
@@ -356,13 +393,51 @@ def phase_flash_attention(dev) -> dict:
     torch.cuda.empty_cache()
     log("attention", f"flash_attention bf16 train shape B={b} H={h} KV={kv} "
         f"S={s} d={d} causal: " + json.dumps(main) + f", roofline share "
-        f"{main['bound_ms'] / main['ms']:.4f}")
+        f"{main['bound_ms'] / main['ms']:.4f} (library: SDPA, which rounds "
+        f"P to bf16; the kernel feeds P as two bf16 halves)")
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                      "flash_attention.cu",
+                      "flash_attention_wgmma.cu",
             "replaces": "src/repro/kernels/flash_attention/"
                         "flash_attention.py:32",
             "max_abs_err": max_err, **main}
+
+
+def bf16_kernel_resources() -> str:
+    """Registers and spills of each head dim's instantiation of the bf16
+    kernel, from its ptxas -v build log, and its dynamic shared memory."""
+    from repro_torch.kernels import _build
+    lib = _build.lib_path("flash_attention")
+    log_lines = lib.with_name(lib.name + ".log").read_text().splitlines()
+    smem = importlib.import_module(
+        "repro_torch.kernels.flash_attention.flash_attention"
+    )._kernel_lib().flash_attention_bf16_smem_bytes
+    out, hd = [], None
+    for line in log_lines:
+        found = re.search(r"flash_attention_wgmma_kernelILi(\d+)E", line)
+        if "Compiling entry function" in line:
+            hd = int(found.group(1)) if found else None
+        elif hd is not None and "spill" in line:
+            spills = re.findall(r"(\d+) bytes spill", line)
+        elif hd is not None and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            out.append(f"d={hd}: {regs} registers, spill stores/loads "
+                       f"{'/'.join(spills)} bytes, {smem(hd)} bytes of "
+                       f"dynamic shared memory")
+            hd = None
+    if len(out) != len((32, 64, 128)):
+        raise RuntimeError(f"bf16 kernel entries not found in {lib}.log")
+    # the library's machine code: tensor-core products and TMA loads, and
+    # no bf16 instantiation of the CUDA-core kernel
+    sass = subprocess.run([str(Path(_build._nvcc()).with_name("cuobjdump")),
+                           "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=120).stdout
+    counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
+    if not all(counts.values()) or "flash_attention_kernelI13__nv_bfloat16" \
+            in sass:
+        raise RuntimeError(f"flash_attention SASS: {counts}, or a bf16 "
+                           f"CUDA-core kernel is left")
+    return "; ".join(out) + f"; SASS {counts}"
 
 
 def phase_serve(card: str) -> int:
@@ -469,10 +544,12 @@ def phase_profile(r) -> None:
     device_profile("profile", "2 decode steps", step, reps=2)
 
 
-def device_profile(phase: str, what: str, step, reps: int) -> None:
+def device_profile(phase: str, what: str, step, reps: int,
+                   watch: str = "") -> None:
     """Busy time of the device kernels of ``reps`` warm calls of ``step``,
     the device's idle share over the span from the first kernel's start to
-    the last one's end, and the kernels that take the most time."""
+    the last one's end, the kernels that take the most time, and those
+    whose name holds ``watch`` wherever they rank."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -498,9 +575,11 @@ def device_profile(phase: str, what: str, step, reps: int) -> None:
     log(phase, f"{what}: {len(kernels)} device kernels, busy "
         f"{busy:.3f} ms over a {span:.3f} ms device span (idle share "
         f"{1 - busy / span:.3f})")
-    for name, (ms, n) in sorted(by_name.items(), key=lambda x: -x[1][0])[:8]:
-        log(phase, f"{ms:8.3f} ms {100 * ms / busy:5.1f}%  x{n:<4d} "
-            f"{name[:90]}")
+    ranked = sorted(by_name.items(), key=lambda x: -x[1][0])
+    for rank, (name, (ms, n)) in enumerate(ranked, 1):
+        if rank <= 8 or (watch and watch in name):
+            log(phase, f"{ms:8.3f} ms {100 * ms / busy:5.1f}%  x{n:<4d} "
+                f"#{rank} {name[:90]}")
 
 
 def phase_train(card: str) -> int:
@@ -516,9 +595,13 @@ def phase_train(card: str) -> int:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     flash_attention.launches = 0
+    flash_attention.tensor_core_launches = 0
+    flash_attention.cuda_core_launches = 0
     r = train.train(cfg, shape, steps=TRAIN_STEPS, device="cuda",
                     log=lambda m: log("train", m))
     launches = flash_attention.launches
+    routes = (flash_attention.tensor_core_launches,
+              flash_attention.cuda_core_launches)
     # remat="full" checkpoints each layer: its forward runs once in the
     # forward pass and once more when backward recomputes it, and each run
     # launches the kernel once (the backward itself is the plain version)
@@ -528,6 +611,10 @@ def phase_train(card: str) -> int:
     if launches != want:
         raise RuntimeError(f"flash_attention launched {launches} times, "
                            f"expected {want}")
+    if routes != (want, 0):
+        raise RuntimeError(f"flash_attention routes (tensor cores, CUDA "
+                           f"cores) {routes}: every bf16 launch must take "
+                           f"the tensor cores")
     if len(r.losses) != TRAIN_STEPS or not all(
             math.isfinite(x) for x in r.losses):
         raise RuntimeError(f"train losses not finite: {r.losses}")
@@ -538,7 +625,8 @@ def phase_train(card: str) -> int:
     log("train", f"{cfg.name} ({cfg.num_layers} layers, d_model "
         f"{cfg.d_model}, {n / 1e9:.3f} B params) {TRAIN_BATCH} x "
         f"{TRAIN_SEQ} tokens: flash_attention launches {launches} = 2 x "
-        f"{cfg.num_layers} layers x {TRAIN_STEPS} steps (remat='full')")
+        f"{cfg.num_layers} layers x {TRAIN_STEPS} steps (remat='full'), all "
+        f"on the tensor cores")
     log("train", f"losses {[round(x, 4) for x in r.losses]}")
     log("train", f"step times (s) {[round(t, 4) for t in r.step_times]}; "
         f"steps after the first {1e3 * step_s:.1f} ms, {tokens / step_s:.1f} "
@@ -552,7 +640,8 @@ def phase_train(card: str) -> int:
 
     def one_step():
         state["s"], _ = step_fn(state["s"], data.batch(TRAIN_STEPS))
-    device_profile("train", "1 train step", one_step, reps=1)
+    device_profile("train", "1 train step", one_step, reps=1,
+                   watch="flash_attention")
 
     check_adamw_step(r.model, state["s"], data.batch(TRAIN_STEPS + 1),
                      opt_cfg)

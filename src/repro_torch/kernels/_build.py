@@ -28,8 +28,8 @@ _loaded: Dict[str, ctypes.CDLL] = {}
 
 
 def kernel_names() -> List[str]:
-    return sorted(p.parent.parent.name
-                  for p in KERNELS_DIR.glob("*/csrc/*.cu"))
+    return sorted({p.parent.parent.name
+                   for p in KERNELS_DIR.glob("*/csrc/*.cu")})
 
 
 def _sources(name: str) -> List[Path]:

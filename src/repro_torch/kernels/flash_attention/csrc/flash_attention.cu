@@ -1,5 +1,6 @@
-// Blocked online-softmax attention (the forward of flash attention), for
-// Hopper (sm_90a).
+// Blocked online-softmax attention (the forward of flash attention) in f32
+// on CUDA cores, for Hopper (sm_90a). bf16 calls go to the tensor-core
+// kernel of flash_attention_wgmma.cu.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/flash_attention.py
 // ::_flash_kernel (pallas_call at line 107). Same function: q [B, H, Sq, d]
@@ -18,10 +19,9 @@
 // loaded into the P.V sum) and query rows at or past Sq are never written.
 //
 // Bound on an H100 at the training shape (B=2, H=32, KV=8, S=4096, d=128,
-// causal, bf16): operations. 2*B*H*S^2*d flops (QK and PV over the causal
-// half, ~0.28 ms at 989 TFLOP/s) against ~168 MB of q, k, v and o read or
-// written once (q and o 67 MB each, k and v 17 MB each: ~0.05 ms at
-// 3.35 TB/s).
+// causal) in f32: operations. 2*B*H*S^2*d flops (QK and PV over the causal
+// half, ~4.1 ms at 67 TFLOP/s outside the tensor cores) against ~336 MB of
+// q, k, v and o read or written once (~0.1 ms at 3.35 TB/s).
 //
 // What the design does about that bound, in this first version:
 //   * One block of 256 threads per (b*h, tile of BQ query rows). It loops
@@ -29,7 +29,7 @@
 //     tile skip) in place of the TPU's sequential grid axis. Blocks are
 //     launched heaviest-first (last query tile first) to shorten the tail.
 //   * The Q tile and a two-stage ring of K/V tiles sit in shared memory in
-//     the input type, copied with 16-byte cp.async, so the next tile's loads
+//     f32, copied with 16-byte cp.async, so the next tile's loads
 //     fly while the current one is computed. Rows are padded by 16 bytes so
 //     that the score phase's 16-byte row reads hit distinct banks.
 //   * Scores, the online softmax and the accumulator never leave the block:
@@ -37,15 +37,13 @@
 //     columns of the accumulator in registers; the 16 lanes sharing a row
 //     reduce its max and sum with 4 shuffles, and the probabilities go
 //     through shared memory only within that half-warp.
-//   * The products are f32 FMAs on CUDA cores: bf16 operands are widened
-//     exactly to f32 and summed in f32, as the reference casts to f32 before
-//     its dots. This runs far below the tensor-core rate that bounds the
-//     kernel; mma.sync / wgmma tiles with TMA loads are later work.
+//   * The products are f32 FMAs on CUDA cores, as the reference's f32 dots.
 //
 // Plain C interface, loaded with ctypes (repro_torch/kernels/_build.py).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "smem_limit.cuh"
 
 namespace {
 
@@ -68,16 +66,7 @@ struct Params {
   long long qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-// 16 bytes of shared memory as f32: 4 floats or 8 bf16 values.
+// 16 bytes of shared memory: 4 floats.
 __device__ __forceinline__ void load16(const float* p, float* out) {
   const float4 a = *reinterpret_cast<const float4*>(p);
   out[0] = a.x;
@@ -85,28 +74,16 @@ __device__ __forceinline__ void load16(const float* p, float* out) {
   out[2] = a.z;
   out[3] = a.w;
 }
-__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+// N consecutive shared-memory floats; 16-byte loads where the run is a
+// whole number of 16-byte chunks (the caller keeps it aligned).
+template <int N>
+__device__ __forceinline__ void load_n(const float* p, float* out) {
+  if constexpr (N % 4 == 0) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
-
-// N consecutive shared-memory elements as f32; 16-byte loads where the run
-// is a whole number of 16-byte chunks (the caller keeps it aligned).
-template <int N, typename T>
-__device__ __forceinline__ void load_f32(const T* p, float* out) {
-  constexpr int kEpc = 16 / static_cast<int>(sizeof(T));
-  if constexpr (N % kEpc == 0) {
-#pragma unroll
-    for (int c = 0; c < N / kEpc; ++c) load16(p + c * kEpc, out + c * kEpc);
+    for (int c = 0; c < N / 4; ++c) load16(p + c * 4, out + c * 4);
   } else {
 #pragma unroll
-    for (int e = 0; e < N; ++e) out[e] = to_f32(p[e]);
+    for (int e = 0; e < N; ++e) out[e] = p[e];
   }
 }
 
@@ -136,29 +113,30 @@ __device__ __forceinline__ float half_warp_sum(float x) {
   return x;
 }
 
-// Dynamic shared memory: Q [BQ][LD] and K/V [2 stages][2][BK][LD] in the
-// input type (LD = d plus 16 bytes of padding), then f32 P [BQ][BK + 16].
-// At most 189,440 bytes (f32, d = 128), within Hopper's 227 KB a block.
-constexpr size_t smem_bytes(int elem_size, int hd, int bq, int bk) {
-  return (static_cast<size_t>(bq) + 4 * static_cast<size_t>(bk)) *
-             (static_cast<size_t>(hd) + 16 / elem_size) * elem_size +
-         static_cast<size_t>(bq) * (bk + 16) * sizeof(float);
+// Dynamic shared memory: Q [BQ][LD] and K/V [2 stages][2][BK][LD]
+// (LD = d plus 16 bytes of padding), then P [BQ][BK + 16]. At most 189,440
+// bytes (d = 128), within Hopper's 227 KB a block.
+constexpr size_t smem_bytes(int hd, int bq, int bk) {
+  return ((static_cast<size_t>(bq) + 4 * static_cast<size_t>(bk)) *
+              (static_cast<size_t>(hd) + 4) +
+          static_cast<size_t>(bq) * (bk + 16)) *
+         sizeof(float);
 }
 
-template <typename T, int HD, int RQ, int CK>
+template <int HD, int RQ, int CK>
 __global__ void __launch_bounds__(kThreads, 2)
     flash_attention_kernel(const Params prm) {
   constexpr int BQ = 16 * RQ, BK = 16 * CK;
-  constexpr int EPC = 16 / static_cast<int>(sizeof(T));  // elements / 16 B
+  constexpr int EPC = 4;  // floats per 16 bytes
   constexpr int LD = HD + EPC;
   constexpr int PLD = BK + 16;
   constexpr int CHUNKS = HD / EPC;  // 16-byte chunks per row
   constexpr int DPT = HD / 16;      // accumulator columns per thread
 
   extern __shared__ __align__(16) unsigned char smem[];
-  T* q_s = reinterpret_cast<T*>(smem);
-  T* kv_s = q_s + BQ * LD;
-  float* p_s = reinterpret_cast<float*>(kv_s + 4 * BK * LD);
+  float* q_s = reinterpret_cast<float*>(smem);
+  float* kv_s = q_s + BQ * LD;
+  float* p_s = kv_s + 4 * BK * LD;
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int qt = prm.n_q_tiles - 1 - static_cast<int>(blockIdx.x);
@@ -168,10 +146,12 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int q0 = qt * BQ;
   const int q_rows = min(BQ, Sq - q0);
 
-  const T* qg = static_cast<const T*>(prm.q) + b * prm.qb + h * prm.qh;
-  const T* kg = static_cast<const T*>(prm.k) + b * prm.kb + kvh * prm.kh;
-  const T* vg = static_cast<const T*>(prm.v) + b * prm.vb + kvh * prm.vh;
-  T* og = static_cast<T*>(prm.o) + b * prm.ob + h * prm.oh;
+  const float* qg = static_cast<const float*>(prm.q) + b * prm.qb + h * prm.qh;
+  const float* kg =
+      static_cast<const float*>(prm.k) + b * prm.kb + kvh * prm.kh;
+  const float* vg =
+      static_cast<const float*>(prm.v) + b * prm.vb + kvh * prm.vh;
+  float* og = static_cast<float*>(prm.o) + b * prm.ob + h * prm.oh;
 
   // KV tiles up to the causal frontier of the last real row of this tile.
   const int n_kv = (Skv + BK - 1) / BK;
@@ -181,7 +161,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   // Q tile; rows past Sq are zero-filled so no stale bits enter a sum.
   for (int i = tid; i < BQ * CHUNKS; i += kThreads) {
     const int r = i / CHUNKS, c = i - r * CHUNKS;
-    T* dst = q_s + r * LD + c * EPC;
+    float* dst = q_s + r * LD + c * EPC;
     if (r < q_rows)
       cp_async16(dst, qg + static_cast<long long>(q0 + r) * prm.qs + c * EPC);
     else
@@ -191,8 +171,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   auto load_tile = [&](int t, int stage) {
     const int k0 = t * BK;
     const int rows = min(BK, Skv - k0);
-    T* ks = kv_s + stage * 2 * BK * LD;
-    T* vs = ks + BK * LD;
+    float* ks = kv_s + stage * 2 * BK * LD;
+    float* vs = ks + BK * LD;
     for (int i = tid; i < rows * CHUNKS; i += kThreads) {
       const int r = i / CHUNKS, c = i - r * CHUNKS;
       cp_async16(ks + r * LD + c * EPC,
@@ -223,8 +203,8 @@ __global__ void __launch_bounds__(kThreads, 2)
     cp_async_wait_one();
     __syncthreads();
 
-    const T* ks = kv_s + stage * 2 * BK * LD;
-    const T* vs = ks + BK * LD;
+    const float* ks = kv_s + stage * 2 * BK * LD;
+    const float* vs = ks + BK * LD;
     const int k0 = t * BK;
 
     // 1. Scores: row ty + 16 i against key tx + 16 j, f32 FMAs over d.
@@ -238,11 +218,11 @@ __global__ void __launch_bounds__(kThreads, 2)
       float kf[CK][8];
 #pragma unroll
       for (int j = 0; j < CK; ++j)
-        load_f32<8>(ks + (tx + 16 * j) * LD + d0, kf[j]);
+        load_n<8>(ks + (tx + 16 * j) * LD + d0, kf[j]);
 #pragma unroll
       for (int i = 0; i < RQ; ++i) {
         float qf[8];
-        load_f32<8>(q_s + (ty + 16 * i) * LD + d0, qf);
+        load_n<8>(q_s + (ty + 16 * i) * LD + d0, qf);
 #pragma unroll
         for (int j = 0; j < CK; ++j)
 #pragma unroll
@@ -282,7 +262,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     const int rows = min(BK, Skv - k0);
     for (int c = 0; c < rows; ++c) {
       float vf[DPT];
-      load_f32<DPT>(vs + c * LD + tx * DPT, vf);
+      load_n<DPT>(vs + c * LD + tx * DPT, vf);
 #pragma unroll
       for (int i = 0; i < RQ; ++i) {
         const float p = p_s[(ty + 16 * i) * PLD + c];
@@ -298,63 +278,49 @@ __global__ void __launch_bounds__(kThreads, 2)
     const int row = q0 + ty + 16 * i;
     if (row < Sq) {
       const float li = l[i] == 0.f ? 1.f : l[i];  // fully masked rows -> 0
-      T* dst = og + static_cast<long long>(row) * prm.os + tx * DPT;
+      float* dst = og + static_cast<long long>(row) * prm.os + tx * DPT;
 #pragma unroll
-      for (int e = 0; e < DPT; ++e) store(dst + e, acc[i][e] / li);
+      for (int e = 0; e < DPT; ++e) dst[e] = acc[i][e] / li;
     }
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 int launch(const Params& prm, int BH, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes(sizeof(T), HD, 16 * kRQ, 16 * kCK);
-  auto kernel = flash_attention_kernel<T, HD, kRQ, kCK>;
-  // Set once per instantiation, so launches inside a CUDA graph capture
-  // make no further runtime calls than the launch itself.
-  static bool configured = false;
-  if (!configured && smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+  constexpr size_t smem = smem_bytes(HD, 16 * kRQ, 16 * kCK);
+  auto kernel = flash_attention_kernel<HD, kRQ, kCK>;
+  static unsigned long long set_on = 0;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = allow_smem(kernel, smem, set_on);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  configured = true;
   kernel<<<dim3(prm.n_q_tiles, BH), kThreads, smem, stream>>>(prm);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int by_head_dim(const Params& prm, int BH, int hd, cudaStream_t stream) {
-  if (hd == 32) return launch<T, 32>(prm, BH, stream);
-  if (hd == 64) return launch<T, 64>(prm, BH, stream);
-  if (hd == 128) return launch<T, 128>(prm, BH, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. hd in {32, 64, 128}.
+// f32 only; hd in {32, 64, 128}.
 // Pointers are device pointers, 16-byte aligned, with the strides (in
 // elements) of the batch, head and sequence dims given in `strides` as
 // q, k, v, o triples; the last dim is contiguous and every stride a multiple
 // of 16 bytes. Returns the cudaError_t of the launch (0 on success).
 // Launches on `stream`, does not synchronise and allocates nothing.
-int flash_attention_launch(int dtype, const void* q, const void* k,
-                           const void* v, void* o, int B, int H, int KV,
-                           int Sq, int Skv, int hd, int causal, float scale,
-                           const long long* strides, cudaStream_t stream) {
+int flash_attention_f32_launch(const void* q, const void* k, const void* v,
+                               void* o, int B, int H, int KV, int Sq, int Skv,
+                               int hd, int causal, float scale,
+                               const long long* strides, cudaStream_t stream) {
   if (B < 1 || H < 1 || KV < 1 || H % KV || Sq < 1 || Skv < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   Params prm{q, k, v, o, H, H / KV, Sq, Skv, (Sq + kBQ - 1) / kBQ, causal,
              scale, strides[0], strides[1], strides[2], strides[3],
              strides[4], strides[5], strides[6], strides[7], strides[8],
              strides[9], strides[10], strides[11]};
-  if (dtype == 0)
-    return by_head_dim<float>(prm, B * H, hd, stream);
-  if (dtype == 1)
-    return by_head_dim<__nv_bfloat16>(prm, B * H, hd, stream);
+  if (hd == 32) return launch<32>(prm, B * H, stream);
+  if (hd == 64) return launch<64>(prm, B * H, stream);
+  if (hd == 128) return launch<128>(prm, B * H, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

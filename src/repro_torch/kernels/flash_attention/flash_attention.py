@@ -1,10 +1,17 @@
-"""Wrapper of the CUDA flash-attention kernel (``csrc/flash_attention.cu``).
+"""Wrapper of the CUDA flash-attention kernels.
 
 Blocked online-softmax attention, the forward of the no-cache attention in
-training: the kernel keeps scores, the running max and denominator and the
-accumulator on chip in f32 and never writes a score to device memory. It
-replaces the Pallas TPU kernel of ``repro.kernels.flash_attention``; the
-source's header gives its bound on the card and its known limits.
+training: the kernels keep scores, the running max and denominator and the
+accumulator on chip in f32 and never write a score to device memory. They
+replace the Pallas TPU kernel of ``repro.kernels.flash_attention``, by dtype:
+
+* bf16 (the training path): ``csrc/flash_attention_wgmma.cu``, on the
+  tensor cores (TMA loads, wgmma products, a warp-specialised block);
+* f32: ``csrc/flash_attention.cu``, f32 FMAs on CUDA cores.
+
+Each source's header gives its bound on the card and its design. Both are
+counted: ``flash_attention.launches`` in all, and
+``tensor_core_launches`` / ``cuda_core_launches`` by route.
 
 The reference has no backward kernel (no ``custom_vjp``) and its kernel
 cannot be differentiated, so none is written here: on CUDA tensors the
@@ -23,8 +30,14 @@ import torch
 from .. import _build
 from .ref import flash_attention_plain
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (32, 64, 128)
+# Query rows a block of the bf16 kernel: its q tiles run on the grid's y
+# axis, B*H on x; the f32 kernel has B*H on y.
+BF16_BQ = 128
+GRID_Y_MAX, GRID_X_MAX = 65535, 2 ** 31 - 1
+# A TMA tensor map takes byte strides below 2^40 and dims up to 2^32.
+TMA_STRIDE_LIMIT, TMA_DIM_LIMIT = 2 ** 40, 2 ** 32
 # The backward recomputes the plain version for as many kv heads at once as
 # keep one [B, heads, Sq, Skv] f32 tensor within this many elements (1 GiB);
 # autograd of the plain version holds a handful of such tensors at a time.
@@ -34,10 +47,11 @@ BACKWARD_CHUNK_ELEMS = 2 ** 28
 @functools.lru_cache(maxsize=None)
 def _kernel_lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
-    lib.flash_attention_launch.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-        + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
-    lib.flash_attention_launch.restype = ctypes.c_int
+    for fn in (lib.flash_attention_bf16_launch,
+               lib.flash_attention_f32_launch):
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                       + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -55,20 +69,25 @@ def _check(q, k, v):
     if sq < 1 or skv < 1:
         raise ValueError(f"empty sequence: Sq={sq}, Skv={skv}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"q, k, v must share one dtype of {list(_DTYPES)}, "
+        raise TypeError(f"q, k, v must share one dtype of {_DTYPES}, "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
     devices = {x.device for x in (q, k, v)}
     if len(devices) != 1:
         raise ValueError(f"inputs lie on several devices: {devices}")
 
 
-def _launch(q, k, v, causal) -> torch.Tensor:
+def _check_launch(q, k, v):
+    """What only the kernels refuse, raised before any library is built."""
     b, h, sq, d = q.shape
     kv, skv = k.shape[1], k.shape[2]
     if d not in HEAD_DIMS:
         raise ValueError(f"the kernel takes head dims {HEAD_DIMS}, got {d}")
-    if b * h > 65535:
-        raise ValueError(f"B*H = {b * h} exceeds the grid's 65535")
+    if q.dtype == torch.bfloat16:
+        if -(-sq // BF16_BQ) > GRID_Y_MAX or b * h > GRID_X_MAX:
+            raise ValueError(f"{-(-sq // BF16_BQ)} q tiles x B*H = {b * h} "
+                             f"exceed the grid's {GRID_Y_MAX} x {GRID_X_MAX}")
+    elif b * h > GRID_Y_MAX:
+        raise ValueError(f"B*H = {b * h} exceeds the grid's {GRID_Y_MAX}")
     es = q.element_size()
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.stride(3) != 1:
@@ -76,19 +95,50 @@ def _launch(q, k, v, causal) -> torch.Tensor:
         if x.data_ptr() % 16 or any(s * es % 16 for s in x.stride()[:3]):
             raise ValueError(f"{name} must be 16-byte aligned with strides of "
                              f"whole 16-byte chunks, got {x.stride()}")
+        if q.dtype == torch.bfloat16 and (
+                any(s * es >= TMA_STRIDE_LIMIT for s in x.stride()[:3])
+                or max(x.shape[:3]) > TMA_DIM_LIMIT):
+            raise ValueError(f"{name}'s strides {x.stride()} or shape "
+                             f"{tuple(x.shape)} exceed a TMA tensor map's "
+                             f"limits (strides below 2^40 bytes)")
+    if max(sq, skv) >= 2 ** 31:
+        raise ValueError(f"sequence lengths {sq}, {skv} exceed int32")
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _launch(q, k, v, causal) -> torch.Tensor:
+    """One kernel launch, chosen by dtype: bf16 on the tensor cores, f32 on
+    CUDA cores."""
+    _check_launch(q, k, v)
+    b, h, sq, d = q.shape
+    kv, skv = k.shape[1], k.shape[2]
     lib = _kernel_lib()
     out = torch.empty_like(q)     # q's layout: [B, S, H, d] views stay so
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
-    err = lib.flash_attention_launch(
-        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), b, h, kv, sq, skv, d, int(causal),
-        1.0 / (d ** 0.5), strides,
-        torch.cuda.current_stream(q.device).cuda_stream)
+    tensor_cores = q.dtype == torch.bfloat16
+    fn = (lib.flash_attention_bf16_launch if tensor_cores
+          else lib.flash_attention_f32_launch)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
+             kv, sq, skv, d, int(causal), 1.0 / (d ** 0.5), strides,
+             _stream(q.device))
+    if err == -1:
+        raise RuntimeError("flash_attention: the CUDA driver has no "
+                           "cuTensorMapEncodeTiled")
+    if err <= -1000:
+        raise RuntimeError(f"flash_attention: cuTensorMapEncodeTiled refused "
+                           f"a tensor map with CUresult {-1000 - err}")
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed with CUDA error "
                            f"{err}")
     flash_attention.launches += 1
+    if tensor_cores:
+        flash_attention.tensor_core_launches += 1
+    else:
+        flash_attention.cuda_core_launches += 1
     return out
 
 
@@ -137,9 +187,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Inputs may be strided views (the model passes its [B, S, H, d]
     activations transposed); the output has q's layout.
 
-    Head dims 32, 64 and 128 in f32 or bf16. The tile is fixed at 64 query
-    rows by 64 keys, so the reference's ``bq`` / ``bk`` options (its TPU tile
-    of 128) are not taken.
+    Head dims 32, 64 and 128 in f32 or bf16. The tiles are fixed (bf16: 128
+    query rows by 128 keys; f32: 64 by 64), so the reference's ``bq`` /
+    ``bk`` options are not taken.
 
     CPU tensors take the plain version, with ordinary autograd; CUDA tensors
     launch the kernel (backward through the plain version), and anything the
@@ -154,3 +204,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+flash_attention.tensor_core_launches = 0
+flash_attention.cuda_core_launches = 0

@@ -7,6 +7,7 @@ bf16 4e-2, tests/test_kernels.py).
 """
 
 import importlib
+import math
 
 import numpy as np
 import pytest
@@ -182,10 +183,13 @@ def test_function_backward_matches_autograd_of_plain(fake_kernel, chunk,
 
 def test_cpu_tensors_never_count_a_launch():
     q, k, v = _t(*_qkv(np.random.default_rng(0), 1, 2, 9, 16))
-    before = flash_attention.launches
+    before = (flash_attention.launches, flash_attention.tensor_core_launches,
+              flash_attention.cuda_core_launches)
     flash_attention(q, k, v)
     flash_attention(q, k[:, :1], v[:, :1])       # GQA
-    assert flash_attention.launches == before
+    flash_attention(*(x.bfloat16() for x in (q, k, v)))
+    assert (flash_attention.launches, flash_attention.tensor_core_launches,
+            flash_attention.cuda_core_launches) == before
 
 
 @pytest.mark.parametrize("bad", ["dtype", "mixed_dtype", "shape", "heads",
@@ -212,16 +216,28 @@ def test_flash_attention_rejects_what_the_kernel_does_not_take(bad):
 
 
 @pytest.mark.parametrize("bad", ["hd", "grid", "misaligned", "last_dim",
-                                 "stride"])
+                                 "stride", "grid_bf16", "tma_stride",
+                                 "stride_bf16"])
 def test_kernel_launch_checks_raise_before_building(bad):
-    """What only the CUDA kernel refuses is checked before the library is
+    """What only the CUDA kernels refuse is checked before the library is
     built or a pointer is passed (these raise here, with no nvcc)."""
     rng = np.random.default_rng(5)
     d = 16 if bad == "hd" else 32
     q, k, v = _t(*_qkv(rng, 1, 2, 8, d))
-    if bad == "grid":                 # B*H past the grid's 65535
+    if bad == "grid":                 # f32: B*H past the grid's y of 65535
         q = torch.zeros(1, 65536, 1, d)
         k = v = torch.zeros(1, 1, 1, d)
+    elif bad == "grid_bf16":          # bf16: q tiles of 128 past y's 65535
+        q = torch.zeros(1, 1, 1, d, dtype=torch.bfloat16).expand(
+            1, 1, 65535 * 128 + 1, d)
+        k = v = torch.zeros(1, 1, 1, d, dtype=torch.bfloat16)
+    elif bad == "tma_stride":         # bf16: a byte stride of 2^40
+        q = torch.zeros(1, 2, 8, d, dtype=torch.bfloat16).as_strided(
+            (1, 2, 8, d), (2 ** 39, 8 * d, d, 1))
+        k, v = (x.bfloat16() for x in (k, v))
+    elif bad == "stride_bf16":        # rows of 36 bf16: not 16-byte chunks
+        q = torch.zeros(1, 2, 8, d + 4, dtype=torch.bfloat16)[..., :d]
+        k, v = (x.bfloat16() for x in (k, v))
     elif bad == "misaligned":         # 4 bytes past a 16-byte boundary
         q = torch.zeros(q.numel() + 1)[1:].view(q.shape)
     elif bad == "last_dim":
@@ -251,4 +267,158 @@ def test_kernel_on_the_card_matches_plain_version():
             torch.testing.assert_close(
                 got.float(), flash_attention_plain(q, k, v, causal=causal
                                                    ).float(), **tol)
+    # the bf16 kernel past one 128-row tile, in the model's strided layout
+    q, k, v = (torch.randn(2, 257, heads, 128, generator=gen, device="cuda")
+               .bfloat16().transpose(1, 2) for heads in (8, 2, 2))
+    tensor_core = flash_attention.tensor_core_launches
+    got = flash_attention(q, k, v, causal=True)
+    assert flash_attention.tensor_core_launches == tensor_core + 1
+    torch.testing.assert_close(got.float(),
+                               flash_attention_plain(q, k, v).float(),
+                               rtol=1e-2, atol=1e-3)
 
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_bf16_route_takes_head_counts_past_the_f32_grid(hd):
+    """The bf16 kernel puts B*H on the grid's x axis (2^31 - 1), so a head
+    count the f32 kernel's y axis refuses passes its checks."""
+    q = torch.zeros(1, 65536, 1, hd, dtype=torch.bfloat16)
+    k = v = torch.zeros(1, 1, 1, hd, dtype=torch.bfloat16)
+    FA_MOD._check_launch(q, k, v)
+    with pytest.raises(ValueError):
+        FA_MOD._check_launch(q.float(), k.float(), v.float())
+
+
+class _FakeLib:
+    """Stands in for the built library: records which entry was called."""
+
+    def __init__(self, rc=0):
+        self.calls, self.rc = [], rc
+
+    def _entry(self, name):
+        def fn(*args):
+            self.calls.append((name, args[4:11]))   # B, H, KV, Sq, Skv, d, causal
+            return self.rc
+        return fn
+
+    @property
+    def flash_attention_bf16_launch(self):
+        return self._entry("bf16")
+
+    @property
+    def flash_attention_f32_launch(self):
+        return self._entry("f32")
+
+
+@pytest.fixture
+def fake_lib(monkeypatch):
+    lib = _FakeLib()
+    monkeypatch.setattr(FA_MOD, "_kernel_lib", lambda: lib)
+    monkeypatch.setattr(FA_MOD, "_stream", lambda device: 0)
+    for name in ("launches", "tensor_core_launches", "cuda_core_launches"):
+        monkeypatch.setattr(flash_attention, name, 0)
+    return lib
+
+
+def test_dispatch_bf16_to_tensor_cores_and_f32_to_cuda_cores(fake_lib):
+    """bf16 reaches the tensor-core entry, f32 the CUDA-core entry, and each
+    counts its launch by route and in all."""
+    q, k, v = _t(*_qkv(np.random.default_rng(6), 2, 4, 16, 64, hkv=2))
+    FA_MOD._launch(*(x.bfloat16() for x in (q, k, v)), causal=True)
+    assert fake_lib.calls == [("bf16", (2, 4, 2, 16, 16, 64, 1))]
+    assert (flash_attention.launches, flash_attention.tensor_core_launches,
+            flash_attention.cuda_core_launches) == (1, 1, 0)
+    FA_MOD._launch(q, k, v, causal=False)
+    assert fake_lib.calls[1] == ("f32", (2, 4, 2, 16, 16, 64, 0))
+    assert (flash_attention.launches, flash_attention.tensor_core_launches,
+            flash_attention.cuda_core_launches) == (2, 1, 1)
+
+
+@pytest.mark.parametrize("rc,match", [(-1, "cuTensorMapEncodeTiled"),
+                                      (-1001, "CUresult 1"),
+                                      (98, "CUDA error 98")])
+def test_failed_launch_raises_and_counts_nothing(fake_lib, rc, match):
+    fake_lib.rc = rc
+    q, k, v = _t(*_qkv(np.random.default_rng(7), 1, 2, 8, 32),
+                 dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match=match):
+        FA_MOD._launch(q, k, v, causal=True)
+    assert (flash_attention.launches,
+            flash_attention.tensor_core_launches) == (0, 0)
+
+
+# the port's bar for a kernel against its plain version in bf16
+# (chip_smoke.py's KERNEL_TOL)
+BF16_KERNEL_TOL = dict(rtol=1e-2, atol=1e-3)
+
+
+def _emulate_bf16_kernel(q, k, v, *, causal, split_p, tile=128):
+    """The bf16 kernel's arithmetic, tile by tile, on the CPU: bf16 inputs;
+    f32 scores scaled in log2 units; f32 running max, sum and accumulator
+    over 128 x 128 tiles; P fed to P.V as two bf16 halves, hi = bf16(p) and
+    lo = bf16(p - hi) (``split_p``), or rounded once to bf16."""
+    b, h, sq, d = q.shape
+    skv, g = k.shape[2], h // k.shape[1]
+    qf = q.float()
+    kf, vf = (x.float().repeat_interleave(g, 1) for x in (k, v))
+    c = math.log2(math.e) / math.sqrt(d)
+    out = torch.empty(b, h, sq, d)
+    n_kv = -(-skv // tile)
+    for q0 in range(0, sq, tile):
+        qt = qf[:, :, q0:q0 + tile]
+        rows = torch.arange(q0, q0 + qt.shape[2])
+        m = torch.full(qt.shape[:3], -1e30)
+        l = torch.zeros(qt.shape[:3])
+        acc = torch.zeros(qt.shape)
+        for k0 in range(0, tile * (min(n_kv, q0 // tile + 1) if causal
+                                   else n_kv), tile):
+            kt, vt = kf[:, :, k0:k0 + tile], vf[:, :, k0:k0 + tile]
+            s = (qt @ kt.transpose(-1, -2)) * c
+            if causal:
+                cols = torch.arange(k0, k0 + kt.shape[2])
+                s = s.masked_fill(rows[:, None] < cols[None, :], -1e30)
+            m_new = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(s - m_new[..., None])
+            l = l * alpha + p.sum(-1)
+            hi = p.bfloat16().float()
+            pv = hi @ vt
+            if split_p:
+                pv = pv + (p - hi).bfloat16().float() @ vt
+            acc = acc * alpha[..., None] + pv
+            m = m_new
+        out[:, :, q0:q0 + tile] = acc / torch.where(l == 0, 1.0, l)[..., None]
+    return out.bfloat16()
+
+
+def test_bf16_kernel_design_needs_p_split_into_two_halves():
+    """Why the bf16 kernel feeds P to P.V as hi + lo: at S = 1024, d = 128,
+    causal, P rounded once to bf16 misses the port's bar against the plain
+    version (where a few large p*v terms cancel), and the two halves keep
+    within it."""
+    rng = np.random.default_rng(0)
+    q, k, v = _t(*_qkv(rng, 1, 4, 1024, 128), dtype=torch.bfloat16)
+    want = flash_attention_plain(q, k, v, causal=True).float()
+    split = _emulate_bf16_kernel(q, k, v, causal=True, split_p=True)
+    torch.testing.assert_close(split.float(), want, **BF16_KERNEL_TOL)
+    once = _emulate_bf16_kernel(q, k, v, causal=True, split_p=False)
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(once.float(), want, **BF16_KERNEL_TOL)
+
+
+@pytest.mark.parametrize("sq,skv,causal,hkv", [(1, 1, True, 2),
+                                               (129, 129, True, 1),
+                                               (127, 255, False, 2),
+                                               (255, 128, True, 2)])
+def test_bf16_kernel_emulation_matches_plain_version_at_tile_edges(
+        sq, skv, causal, hkv):
+    """The tile-by-tile emulation (ragged last tiles, skipped causal tiles,
+    GQA) computes the plain version's function within the kernel bar."""
+    rng = np.random.default_rng(sq + skv)
+    q, k, v = _t(*_qkv(rng, 1, 2, sq, 64, skv=skv, hkv=hkv),
+                 dtype=torch.bfloat16)
+    got = _emulate_bf16_kernel(q, k, v, causal=causal, split_p=True)
+    torch.testing.assert_close(
+        got.float(), flash_attention_plain(q, k, v, causal=causal).float(),
+        **BF16_KERNEL_TOL)
