@@ -11,25 +11,35 @@ lines:
              (one nvcc per kernel, started together).
 3. kernels — flash_decode against its plain PyTorch version on the card, in
              bf16 and f32, at the serving shape, at odd cache lengths and at
-             one layer's long cache; times the kernel, the plain version and
-             one PyTorch library call computing the same function (device
-             time per call, from a replayed CUDA graph of many calls).
+             one layer's long cache, at the plan's split count and at one,
+             seven and one split a tile (lengths that leave whole splits
+             empty), bf16 on the tensor cores and f32 (and bf16 in 24-row
+             tiles) on CUDA cores, printing each call's route, split count
+             and device kernels;
+             times the kernel, the plain version and one PyTorch library
+             call computing the same function (device time per call, from a
+             replayed CUDA graph of many calls) at the serving shape, at one
+             layer's long cache in bf16 (also at seven split counts) and
+             f32, and at one chat user's 8192-token cache.
 3b. attention — flash_attention against its plain version in bf16 and f32,
              causal and not, at the reference test's shapes, S = 65 / 130 /
              200 / 4097, Sq != Skv, GQA groups of 1, 4 and 8, and in the
              model's strided layout, the training shape included; at the
              bf16 kernel's tile edges (S = 1, 127, 128, 129, 255), Sq !=
              Skv around 128 and a batch slice with a batch stride that is
-             not dense. Checks that every bf16 call went to the tensor-core
-             kernel and every f32 call to the CUDA-core one, prints the bf16
-             kernel's registers, spills and shared memory, and times the
-             kernel, the plain version and SDPA at the training shape.
+             not dense, and at head dim 16 at S = 1, 127, 128, 129. Checks
+             that every bf16 call went to the tensor-core kernel and every
+             f32 call to the CUDA-core one, prints the bf16 kernel's
+             registers, spills and shared memory, and times the kernel, the
+             plain version and SDPA at the training shape.
 4. serve   — llama3-8b at full width and depth (random weights from a seed)
              through ``repro_torch.launch.serve``: batch 4, prompt 128, 32
              generated tokens. Checks finite logits, the kernel's launch
-             count, prefill against the no-cache forward, and one decode
-             step through the kernel against the einsum cache branch.
-5. profile — device time by kernel over two decode steps.
+             count (all on the tensor cores) and its device kernels, prefill
+             against the no-cache forward, and one decode step through the
+             kernel against the einsum cache branch.
+5. profile — device time by kernel over two decode steps, the split and
+             combine kernels of flash_decode wherever they rank.
 6. train   — llama3-8b at full width and 8 layers (random weights from a
              seed, synthetic data) through ``repro_torch.launch.train``:
              4 steps of 2 x 4096 tokens. Checks finite losses and the
@@ -39,6 +49,10 @@ lines:
              same gradients, holds one bf16 loss and layer 0's attention
              through the kernel against the plain (blockwise) branch, and
              an f32 loss and gradients at 2 layers through both branches.
+6b. train smoke — ``python -m repro_torch.launch.train --smoke --steps 4``
+             on the card (the smoke config: head dim 16, 4 x 128 tokens).
+             Checks finite losses and that every flash_attention launch took
+             the bf16 tensor-core kernel.
 7. compile — the Cascade compiler of the port on the host: Table I
              (DENSE_APPS x {unpipelined, full}, place_moves=120,
              verify=True) with each app's critical-path and EDP ratios,
@@ -48,13 +62,17 @@ lines:
              through maxplus, held to numpy's longest_path_maxplus; and
              gaussian_blur, sharpen and sobel_mag2 run through stencil on
              the gaussian, unsharp and harris frames (integer pixels from a
-             seed), held to the plain version. Checks both launch counts.
+             seed), held to the plain version. Checks both launch counts
+             and prints maxplus's device kernels (a K-split call runs two).
 8. maxplus — the max-plus kernel against its plain version (bit for bit, in
              f32) at the reference test's shapes, at every closure size of
              the path, ragged, with half the entries at the NEG_INF floor,
-             and at n = 4096; times one squaring at each size of the path
-             (the kernel, and at the largest the plain version) and at
-             n = 4096. No PyTorch call computes it.
+             and at n = 4096, each also with NaN entries (NaN at the same
+             outputs); every tile and K-split choice at the path's sizes,
+             checked and timed; the SASS form of its running max
+             (FMNMX.NAN); times one squaring at each size of the path (the
+             kernel, and at the largest the plain version) and at n = 4096.
+             No PyTorch call computes it.
 9. stencil — the 3x3 stencil kernel against its plain version at the
              reference test's shapes and the three frames, four weight
              sets; times kernel, plain version and conv2d at each frame.
@@ -232,38 +250,65 @@ def phase_build() -> None:
 
 def phase_kernels(dev) -> dict:
     from repro_torch.kernels.flash_decode import flash_decode, flash_decode_ref
+    fd = importlib.import_module(
+        "repro_torch.kernels.flash_decode.flash_decode")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     gen = torch.Generator(device=dev).manual_seed(0)
-    b, kv, g, hd = 4, 8, 4, 128
+    kv, g, hd, bk = 8, 4, 128, 32
 
     def inputs(t, lens, dtype, sets=1):
         out = []
         for _ in range(sets):
             q, k, v = (torch.randn(shape, generator=gen, device=dev,
                                    dtype=torch.float32).to(dtype)
-                       for shape in ((b, kv, g, hd), (b, kv, t, hd),
-                                     (b, kv, t, hd)))
+                       for shape in ((len(lens), kv, g, hd),
+                                     (len(lens), kv, t, hd),
+                                     (len(lens), kv, t, hd)))
             out.append((q, k, v, torch.tensor(lens, dtype=torch.int32,
                                               device=dev)))
         return out
 
-    # correctness: serve shape, odd cache lengths, one layer's long cache
-    cases = [(160, [1, 37, 128, 160]), (255, [1, 100, 254, 255]),
-             (257, [257, 3, 129, 256]), (32768, [32768, 32767, 16385, 1])]
+    # correctness: serve shape, odd cache lengths, one layer's long cache;
+    # at the plan's split count, unsplit, 7 splits and one split a tile; bf16
+    # on the tensor cores, f32 (and bf16 in 24-row tiles) on CUDA cores
+    cases = [(160, [1, 37, 128, 160], bk), (255, [1, 100, 254, 255], bk),
+             (257, [257, 3, 129, 256], bk), (257, [257, 3, 129, 256], 24),
+             (32768, [32768, 32767, 16385, 1], bk)]
     max_err = 0.0
     for dtype in (torch.bfloat16, torch.float32):
-        for t, lens in cases:
+        for t, lens, tile in cases:
             q, k, v, ln = inputs(t, lens, dtype)[0]
-            got = flash_decode(q, k, v, ln)
-            want = flash_decode_ref(q, k, v, ln)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            torch.testing.assert_close(got.float(), want.float(),
-                                       **KERNEL_TOL[dtype])
-            max_err = max(max_err, err)
-            log("kernels", f"flash_decode {str(dtype)[6:]} B={b} KV={kv} "
-                f"G={g} hd={hd} T={t} lengths={lens}: max abs err {err:.3g} "
-                f"(tol {KERNEL_TOL[dtype]})")
-            del q, k, v, got, want
+            want = flash_decode_ref(q, k, v, ln).float()
+            for n_split in (None, 1, 7, -(-t // tile)):
+                p = fd.plan(len(lens), kv, g, t, hd, q.element_size(), tile,
+                            sms, n_split)
+                before = (flash_decode.device_launches,
+                          flash_decode.tensor_core_launches)
+                got = (flash_decode(q, k, v, ln, bk=tile) if n_split is None
+                       else fd._launch(q, k, v, ln, tile, p))
+                torch.cuda.synchronize()
+                kernels = flash_decode.device_launches - before[0]
+                tc = flash_decode.tensor_core_launches - before[1]
+                if kernels != 1 + (p.n_split > 1) or tc != p.tensor_cores \
+                        or p.tensor_cores != (dtype == torch.bfloat16
+                                              and tile % 16 == 0):
+                    raise RuntimeError(f"flash_decode {dtype} bk={tile} "
+                                       f"n_split={p.n_split} ran {kernels} "
+                                       f"device kernels, {tc} on the tensor "
+                                       f"cores")
+                err = (got.float() - want).abs().max().item()
+                torch.testing.assert_close(got.float(), want,
+                                           **KERNEL_TOL[dtype])
+                max_err = max(max_err, err)
+                log("kernels", f"flash_decode {str(dtype)[6:]} B={len(lens)} "
+                    f"KV={kv} G={g} hd={hd} T={t} lengths={lens} bk={tile}: "
+                    f"{'tensor' if p.tensor_cores else 'CUDA'} cores, n_split="
+                    f"{p.n_split}{' (plan)' if n_split is None else ''}, "
+                    f"{p.stages} stages, {kernels} device kernels: max abs "
+                    f"err {err:.3g} (tol "
+                    f"{KERNEL_TOL[dtype]})")
+                del got
+            del q, k, v, want
 
     def timed(t, lens, dtype, sets, iters):
         arg_sets = inputs(t, lens, dtype, sets)
@@ -275,19 +320,37 @@ def phase_kernels(dev) -> dict:
                                    flash_decode_ref(q, k, v, ln).float(),
                                    rtol=TOL[dtype], atol=TOL[dtype])
         bound_ms, bound_by = decode_bound(q, k, ln)
-        return {"ms": time_ms(flash_decode, arg_sets, iters),
-                "plain_ms": time_ms(flash_decode_ref, arg_sets, iters),
-                "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": time_ms(sdpa_decode, lib_sets, iters)}
+        r = {"ms": time_ms(flash_decode, arg_sets, iters),
+             "plain_ms": time_ms(flash_decode_ref, arg_sets, iters),
+             "bound_ms": bound_ms, "bound_by": bound_by,
+             "library_ms": time_ms(sdpa_decode, lib_sets, iters)}
+        p = fd.plan(len(lens), kv, g, t, hd, q.element_size(), bk, sms)
+        nbytes = 2 * kv * hd * sum(lens) * q.element_size()
+        log("kernels", f"flash_decode {str(dtype)[6:]} B={len(lens)} T={t} "
+            f"lengths={lens[0]}: " + json.dumps(r) + f", "
+            f"{'tensor' if p.tensor_cores else 'CUDA'} cores, n_split="
+            f"{p.n_split}, {p.stages} stages, {nbytes / r['ms'] / 1e6:.0f} "
+            f"GB/s achieved, roofline share {r['bound_ms'] / r['ms']:.3f}")
+        return r
 
     # the main path's call: the serve cache (160 slots) at the mean length of
     # its 31 decode steps; 40 input sets (105 MB) rotate past the 50 MB L2
     main = timed(160, [144] * 4, torch.bfloat16, sets=40, iters=400)
-    log("kernels", "flash_decode bf16 serve shape T=160 lengths=144: "
-        + json.dumps(main))
-    long = timed(32768, [32768] * 4, torch.bfloat16, sets=1, iters=20)
-    log("kernels", "flash_decode bf16 long cache T=32768 (537 MB K/V): "
-        + json.dumps(long) + f", {537 / long['ms']:.0f} GB/s achieved")
+    timed(32768, [32768] * 4, torch.bfloat16, sets=1, iters=20)
+    # the split count at one layer's long cache: the plan's against others
+    q, k, v, ln = inputs(32768, [32768] * 4, torch.bfloat16)[0]
+    sweep = {}
+    for n_split in (4, 8, 9, 12, 16, 33, 66):
+        p = fd.plan(4, kv, g, 32768, hd, 2, bk, sms, n_split)
+        sweep[n_split] = round(1e3 * time_ms(
+            lambda *a, p=p: fd._launch(*a, bk, p), [(q, k, v, ln)], 20), 2)
+    log("kernels", f"flash_decode bf16 B=4 T=32768, us a call by n_split: "
+        f"{json.dumps(sweep)}; the plan takes "
+        f"{fd.plan(4, kv, g, 32768, hd, 2, bk, sms).n_split}")
+    del q, k, v, ln
+    timed(8192, [8192], torch.bfloat16, sets=4, iters=100)   # one chat user
+    timed(32768, [32768] * 4, torch.float32, sets=1, iters=10)
+    torch.cuda.empty_cache()
     return {"name": "flash_decode", "route": "cuda",
             "source": "src/repro_torch/kernels/flash_decode/csrc/flash_decode.cu",
             "replaces": "src/repro/kernels/flash_decode/flash_decode.py:29",
@@ -341,6 +404,9 @@ def phase_flash_attention(dev) -> dict:
               for c in (True, False)]
     cases += [(2, 4, 2, 257, 257, d, True, "batch_slice")
               for d in (32, 64, 128)]
+    # head dim 16 (the smoke configs') at the bf16 tile's edges, GQA
+    cases += [(2, 4, 2, s, s, 16, c, "dense")
+              for s in (1, 127, 128, 129) for c in (True, False)]
     train = (TRAIN_BATCH, 32, 8, TRAIN_SEQ, TRAIN_SEQ, 128, True, "model")
     cases.append(train)
     max_err = 0.0
@@ -425,7 +491,7 @@ def bf16_kernel_resources() -> str:
                        f"{'/'.join(spills)} bytes, {smem(hd)} bytes of "
                        f"dynamic shared memory")
             hd = None
-    if len(out) != len((32, 64, 128)):
+    if len(out) != len((16, 32, 64, 128)):
         raise RuntimeError(f"bf16 kernel entries not found in {lib}.log")
     # the library's machine code: tensor-core products and TMA loads, and
     # no bf16 instantiation of the CUDA-core kernel
@@ -447,20 +513,38 @@ def phase_serve(card: str) -> int:
 
     torch.cuda.reset_peak_memory_stats()
     flash_decode.launches = 0
+    flash_decode.device_launches = 0
+    flash_decode.tensor_core_launches = 0
     r = serve.main(["--arch", ARCH, "--batch", str(BATCH),
                     "--prompt-len", str(PROMPT), "--gen", str(GEN)])
-    launches = flash_decode.launches
+    launches, kernels = flash_decode.launches, flash_decode.device_launches
+    if flash_decode.tensor_core_launches != launches:
+        raise RuntimeError(f"flash_decode: {flash_decode.tensor_core_launches}"
+                           f" of {launches} calls on the tensor cores")
     cfg = r.model.cfg
     want = cfg.num_layers * (GEN - 1)
     if launches != want:
         raise RuntimeError(f"flash_decode launched {launches} times, "
                            f"expected {want}")
+    # the plan follows the cache's slots, not the lengths: one split count
+    # for every decode step
+    t = r.cache["self"]["k"].shape[3]
+    n_split = importlib.import_module(
+        "repro_torch.kernels.flash_decode.flash_decode").plan(
+        BATCH, cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, t,
+        cfg.head_dim, r.cache["self"]["k"].element_size(), 32,
+        torch.cuda.get_device_properties(0).multi_processor_count).n_split
+    if kernels != launches * (1 + (n_split > 1)):
+        raise RuntimeError(f"flash_decode ran {kernels} device kernels in "
+                           f"{launches} calls at n_split={n_split}")
     if r.tokens.shape != (BATCH, GEN) or not torch.isfinite(
             r.logits.float()).all():
         raise RuntimeError("serve produced non-finite logits or a bad shape")
     log("serve", f"{cfg.name} ({cfg.num_layers} layers, d_model "
         f"{cfg.d_model}): flash_decode launches {launches} = "
-        f"{cfg.num_layers} layers x {GEN - 1} decode steps")
+        f"{cfg.num_layers} layers x {GEN - 1} decode steps, all on the "
+        f"tensor cores; {kernels} device kernels (a {t}-slot cache: "
+        f"n_split={n_split}, split and combine)")
 
     peak = torch.cuda.max_memory_allocated() / 2**30
     log("serve", f"prefill {BATCH * PROMPT / r.prefill_s:.1f} tok/s "
@@ -541,7 +625,8 @@ def phase_profile(r) -> None:
         with torch.inference_mode():
             r.model.decode_step(r.params, {"tokens": r.tokens[:, -1:]},
                                 r.cache, r.next_pos)
-    device_profile("profile", "2 decode steps", step, reps=2)
+    device_profile("profile", "2 decode steps", step, reps=2,
+                   watch="flash_decode")
 
 
 def device_profile(phase: str, what: str, step, reps: int,
@@ -650,6 +735,39 @@ def phase_train(card: str) -> int:
     torch.cuda.empty_cache()
     check_train_branches(cfg, params, data.batch(0))
     return launches
+
+
+def phase_train_smoke(card: str) -> None:
+    """``python -m repro_torch.launch.train --smoke --steps 4`` on the card:
+    the smoke config's head dim is 16, so every flash_attention launch must
+    take the bf16 tensor-core kernel at d = 16."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import train
+
+    for name in ("launches", "tensor_core_launches", "cuda_core_launches"):
+        setattr(flash_attention, name, 0)
+    t0 = time.perf_counter()
+    r = train.main(["--smoke", "--steps", "4"])
+    secs = time.perf_counter() - t0
+    cfg = r.model.cfg
+    want = 4 * (2 if cfg.remat == "full" else 1) * cfg.num_layers
+    routes = (flash_attention.launches, flash_attention.tensor_core_launches,
+              flash_attention.cuda_core_launches)
+    if cfg.head_dim != 16 or r.model._impl(128) != "flash" or \
+            r.model.cfg.dtype != "bfloat16":
+        raise RuntimeError(f"train --smoke: head dim {cfg.head_dim}, dtype "
+                           f"{cfg.dtype}, impl {r.model._impl(128)}")
+    if routes != (want, want, 0):
+        raise RuntimeError(f"train --smoke: flash_attention (all, tensor "
+                           f"cores, CUDA cores) {routes}, want "
+                           f"{(want, want, 0)}")
+    if len(r.losses) != 4 or not all(math.isfinite(x) for x in r.losses):
+        raise RuntimeError(f"train --smoke losses: {r.losses}")
+    log("train-smoke", f"{cfg.name} (head dim {cfg.head_dim}, "
+        f"{cfg.num_layers} layers, remat={cfg.remat!r}): flash_attention "
+        f"launches {want} = 4 steps x {want // 4} a step, all on the bf16 "
+        f"tensor-core kernel at d = 16; losses "
+        f"{[round(x, 4) for x in r.losses]}; {secs:.1f} s on {card}")
 
 
 def check_adamw_step(model, state, batch, opt_cfg) -> None:
@@ -808,10 +926,35 @@ def stencil_bound(h: int, w: int):
                                        else "operations")
 
 
+def nan_equal(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Equal bit for bit where not NaN, and NaN at the same positions."""
+    return torch.equal(got.isnan(), want.isnan()) and torch.equal(
+        got.nan_to_num(0.0), want.nan_to_num(0.0))
+
+
+def maxplus_sass() -> str:
+    """The max-plus library's running max in its machine code: one
+    FMNMX.NAN (PTX max.NaN.f32), no plain FMNMX (fmaxf) and no compare-and-
+    select."""
+    from repro_torch.kernels import _build
+    lib = _build.lib_path("maxplus")
+    sass = subprocess.run([str(Path(_build._nvcc()).with_name("cuobjdump")),
+                           "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=120).stdout
+    counts = {"FMNMX.NAN": len(re.findall(r"FMNMX\.NAN\b", sass)),
+              "FMNMX": len(re.findall(r"FMNMX(?!\.NAN)\b", sass)),
+              "FSETP": sass.count("FSETP"), "FSEL": sass.count("FSEL")}
+    if not counts["FMNMX.NAN"] or counts["FMNMX"] or counts["FSEL"]:
+        raise RuntimeError(f"maxplus SASS: {counts}")
+    return json.dumps(counts)
+
+
 def phase_maxplus(dev, path: list) -> dict:
     """``path``: (n, launches) of each longest path the compile phase ran."""
     from repro_torch.kernels.maxplus import (NEG_INF, maxplus_matmul,
                                              maxplus_matmul_plain)
+    mp = importlib.import_module("repro_torch.kernels.maxplus.maxplus")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     gen = torch.Generator(device=dev).manual_seed(2)
 
     def operand(rows, cols):
@@ -819,6 +962,15 @@ def phase_maxplus(dev, path: list) -> dict:
         matrix, so that the floor is reached."""
         x = torch.randn(rows, cols, generator=gen, device=dev)
         x[torch.rand(rows, cols, generator=gen, device=dev) < 0.5] = NEG_INF
+        return x
+
+    def with_nan(x):
+        """x with NaN at about one entry in ten thousand (at least one)."""
+        x = x.clone()
+        rows, cols = x.shape
+        idx = torch.randint(0, rows * cols, (max(1, rows * cols // 10000),),
+                            generator=gen, device=dev)
+        x.view(-1)[idx] = float("nan")
         return x
 
     shapes = [(8, 8, 8), (100, 130, 70), (128, 128, 128), (200, 50, 300),
@@ -829,6 +981,7 @@ def phase_maxplus(dev, path: list) -> dict:
     max_err = 0.0
     for m, k, n in shapes:
         a, b = operand(m, k), operand(k, n)
+        p = mp.plan(m, n, k, sms)
         got, want = maxplus_matmul(a, b), maxplus_matmul_plain(a, b)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
@@ -836,10 +989,17 @@ def phase_maxplus(dev, path: list) -> dict:
             raise RuntimeError(f"maxplus {m}x{k}x{n}: kernel differs from its "
                                f"plain version, max abs err {err}")
         max_err = max(max_err, err)
-        log("maxplus", f"M={m} K={k} N={n}: equal to the plain version bit "
-            f"for bit ({(got == NEG_INF).float().mean().item():.3f} of "
-            f"outputs at the floor)")
-        del a, b, got, want
+        an, bn = with_nan(a), with_nan(b)
+        got, want = maxplus_matmul(an, bn), maxplus_matmul_plain(an, bn)
+        if not nan_equal(got, want) or not want.isnan().any():
+            raise RuntimeError(f"maxplus {m}x{k}x{n} with NaN: kernel differs "
+                               f"from its plain version")
+        log("maxplus", f"M={m} K={k} N={n} ({p.tile}x{p.tile} tiles, "
+            f"{p.splits} K split{'s' if p.splits > 1 else ''}): equal to the "
+            f"plain version bit for bit ({(got == NEG_INF).float().mean().item():.3f}"
+            f" of outputs at the floor); with NaN entries, NaN at the same "
+            f"{int(want.isnan().sum())} outputs")
+        del a, b, an, bn, got, want
     # the floor is the TPU kernel's function, not its oracle's
     a = torch.tensor([[NEG_INF, NEG_INF], [0., 1.]], device=dev)
     b = torch.tensor([[-500., 2.], [-700., 3.]], device=dev)
@@ -849,11 +1009,42 @@ def phase_maxplus(dev, path: list) -> dict:
         raise RuntimeError(f"maxplus floor: got {got.tolist()}")
     log("maxplus", f"floor example: {got.tolist()} (the oracle without a "
         f"floor gives -1000000512 at [0, 0])")
+    log("maxplus", "SASS of the running max: " + maxplus_sass())
+
+    def square(p=None):
+        """One squaring through the wrapper (``plan``'s choice) or, given a
+        plan, through the kernel's launch with that tile and K split."""
+        if p is None:
+            return lambda x: maxplus_matmul(x, x)
+        return lambda x: mp._launch(x, x, p)
+
+    # every tile and K-split choice at each closure size of the path:
+    # checked bit for bit (NaN included) and timed; the plan's choice marked
+    for n in sizes:
+        x = with_nan(operand(n, n))
+        want = maxplus_matmul_plain(x, x)
+        a = torch.randn(n, n, generator=gen, device=dev)
+        chosen = mp.plan(n, n, n, sms)
+        row = {}
+        for tile in mp.TILES:
+            for splits in (1, 2, 4, 8, 16):
+                p = mp.plan(n, n, n, sms, tile=tile, splits=splits)
+                key = f"{p.tile}/{p.splits}"
+                if key in row:
+                    continue
+                if not nan_equal(square(p)(x), want):
+                    raise RuntimeError(f"maxplus n={n} tile {tile}, {p.splits} "
+                                       f"splits: differs from the plain version")
+                row[key] = round(1e3 * time_ms(square(p), [(a,)], 50), 2)
+        log("maxplus", f"n={n}: each (tile/K splits) choice equal to the "
+            f"plain version, NaN included; us a squaring: {json.dumps(row)}; "
+            f"the plan takes {chosen.tile}/{chosen.splits}")
+        del x, want, a
 
     def timed(n, iters, plain_iters):
         a = torch.randn(n, n, generator=gen, device=dev)
         bound_ms, bound_by = maxplus_bound(n, n, n)
-        return {"ms": time_ms(lambda x: maxplus_matmul(x, x), [(a,)], iters),
+        return {"ms": time_ms(square(), [(a,)], iters),
                 "plain_ms": time_ms(lambda x: maxplus_matmul_plain(x, x),
                                     [(a,)], plain_iters),
                 "bound_ms": bound_ms, "bound_by": bound_by,
@@ -861,7 +1052,7 @@ def phase_maxplus(dev, path: list) -> dict:
 
     # one squaring at each closure size of the path, and the plain version
     # at the largest; the path's kernel time and what it spends over bound
-    ms_at = {n: time_ms(lambda x: maxplus_matmul(x, x),
+    ms_at = {n: time_ms(square(),
                         [(torch.randn(n, n, generator=gen, device=dev),)],
                         200) for n in sizes}
     path_ms = sum(k * ms_at[n] for n, k in path)
@@ -871,10 +1062,15 @@ def phase_maxplus(dev, path: list) -> dict:
         f"launches: {path_ms:.4f} ms, {over_ms:.4f} ms above their bounds")
     main = timed(sizes[-1], iters=200, plain_iters=10)
     log("maxplus", f"n={sizes[-1]} (the path's largest), one squaring: "
-        + json.dumps(main))
+        + json.dumps(main) + f", roofline share "
+        f"{main['bound_ms'] / main['ms']:.3f}")
     big = timed(4096, iters=5, plain_iters=1)
+    a = torch.randn(4096, 4096, generator=gen, device=dev)
+    again = [time_ms(square(), [(a,)], 5) for _ in range(5)]
+    del a
     log("maxplus", "n=4096, one squaring: " + json.dumps(big)
-        + f", roofline share {big['bound_ms'] / big['ms']:.3f}")
+        + f", roofline share {big['bound_ms'] / big['ms']:.3f}; five more "
+        f"readings of 5 squarings (ms): {json.dumps(again)}")
     torch.cuda.empty_cache()
     return {"name": "maxplus", "route": "cuda",
             "source": "src/repro_torch/kernels/maxplus/csrc/maxplus.cu",
@@ -972,6 +1168,7 @@ def phase_compile(dev, card: str):
     gen = torch.Generator(device=dev).manual_seed(4)
     S.stencil3x3.launches = 0
     maxplus_matmul.launches = 0
+    maxplus_matmul.device_launches = 0
     paths, golden = [], []
     for label, r in designs:
         m, verts = timing_matrix(r.design, c.timing)
@@ -985,6 +1182,7 @@ def phase_compile(dev, card: str):
         golden.append((app, op, x, getattr(S, op)(x)))
     torch.cuda.synchronize()
     mp, st = maxplus_matmul.launches, S.stencil3x3.launches
+    mp_kernels = maxplus_matmul.device_launches
     path = [(m.shape[0], max(1, math.ceil(math.log2(max(m.shape[0], 2)))))
             for _, m, _, _ in paths]
     want_mp = sum(k for _, k in path)
@@ -992,7 +1190,8 @@ def phase_compile(dev, card: str):
         raise RuntimeError(f"launches: maxplus {mp} (want {want_mp}), "
                            f"stencil {st} (want 4)")
     log("compile", f"launches: maxplus {mp} = sum over the {len(designs)} "
-        f"designs of max(1, ceil(log2 n)); stencil {st} (1 gaussian_blur, "
+        f"designs of max(1, ceil(log2 n)), {mp_kernels} device kernels (a "
+        f"K-split squaring runs two); stencil {st} (1 gaussian_blur, "
         f"1 sharpen, 2 in sobel_mag2)")
 
     for label, m, src, arr in paths:
@@ -1039,6 +1238,8 @@ def main() -> int:
     decode["launches"] = phase_serve(card)
     torch.cuda.empty_cache()
     attn["launches"] = phase_train(card)
+    torch.cuda.empty_cache()
+    phase_train_smoke(card)
     torch.cuda.empty_cache()
     path, mp_launches, st_launches = phase_compile(dev, card)
     maxplus = phase_maxplus(dev, path)

@@ -6,6 +6,7 @@ it (the tests do); a missing card is an error, never a quiet fallback.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Union
 
 import torch
@@ -22,3 +23,15 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {str(dev)!r}; use 'cuda' or 'cpu'")
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (read once per device, so
+    a kernel wrapper can size its grid without a runtime call per launch)."""
+    return _sm_count(device.index if device.index is not None
+                     else torch.cuda.current_device())

@@ -302,7 +302,7 @@ int launch(const Params& prm, int BH, cudaStream_t stream) {
 
 extern "C" {
 
-// f32 only; hd in {32, 64, 128}.
+// f32 only; hd in {16, 32, 64, 128}.
 // Pointers are device pointers, 16-byte aligned, with the strides (in
 // elements) of the batch, head and sequence dims given in `strides` as
 // q, k, v, o triples; the last dim is contiguous and every stride a multiple
@@ -318,6 +318,7 @@ int flash_attention_f32_launch(const void* q, const void* k, const void* v,
              scale, strides[0], strides[1], strides[2], strides[3],
              strides[4], strides[5], strides[6], strides[7], strides[8],
              strides[9], strides[10], strides[11]};
+  if (hd == 16) return launch<16>(prm, B * H, stream);
   if (hd == 32) return launch<32>(prm, B * H, stream);
   if (hd == 64) return launch<64>(prm, B * H, stream);
   if (hd == 128) return launch<128>(prm, B * H, stream);

@@ -33,10 +33,11 @@
 //   * Tensor maps are 4-D (d, S, heads, B) over the view's byte strides, so
 //     strided views need no copy. Rows past Sq or Skv load as zeros. A row
 //     of d bf16 values is swizzled at 128 bytes (d = 64, 128; two boxes a
-//     row at d = 128) or 64 bytes (d = 32); the wgmma descriptors name the
-//     same swizzle.
+//     row at d = 128), 64 bytes (d = 32) or 32 bytes (d = 16); the wgmma
+//     descriptors name the same swizzle.
 //   * S = Q K^T: wgmma m64n128k16 with both operands K-major in shared
-//     memory, accumulated in 64 f32 registers a thread.
+//     memory, accumulated in 64 f32 registers a thread (one k16 step at
+//     d = 16).
 //   * The online softmax runs on that fragment: the four threads sharing a
 //     row reduce its max with two shuffles; exp2f with scale*log2(e)
 //     folded in; masks only on tiles that cross the causal frontier or Skv;
@@ -80,7 +81,13 @@ struct Geom {
   static constexpr int kBoxes = HD / kBoxCols;    // boxes a tile row
   static constexpr int kBoxBytes = 128 * kSwizzle;
   static constexpr int kTileBytes = kBoxes * kBoxBytes;
-  static constexpr uint64_t kLayout = kSwizzle == 128 ? 1 : 2;  // B128, B64
+  // the descriptor's layout type: B128, B64, B32
+  static constexpr uint64_t kLayout =
+      kSwizzle == 128 ? 1 : (kSwizzle == 64 ? 2 : 3);
+  static constexpr CUtensorMapSwizzle kMapSwizzle =
+      kSwizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                      : (kSwizzle == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                        : CU_TENSOR_MAP_SWIZZLE_32B);
   static constexpr size_t kSmem =
       static_cast<size_t>(kTileBytes) * (1 + 2 * kStages) +
       8 * (2 * kStages + 1) + 1024;  // tiles, barriers, alignment slack
@@ -174,6 +181,7 @@ __device__ __forceinline__ void reg_fence(uint32_t (&r)[N][4]) {
 template <int HD>
 __device__ __forceinline__ void wgmma_pv(float (&o)[HD / 2],
                                          const uint32_t* a, uint64_t db) {
+  if constexpr (HD == 16) wgmma_rs_n16(o, a, db, 1);
   if constexpr (HD == 32) wgmma_rs_n32(o, a, db, 1);
   if constexpr (HD == 64) wgmma_rs_n64(o, a, db, 1);
   if constexpr (HD == 128) wgmma_rs_n128(o, a, db, 1);
@@ -422,8 +430,7 @@ int make_map(CUtensorMap* map, EncodeTiled encode, const void* ptr, int S,
   return static_cast<int>(encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
       gstrides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      G::kSwizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                         : CU_TENSOR_MAP_SWIZZLE_64B,
+      G::kMapSwizzle,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
 }
 
@@ -455,7 +462,7 @@ int launch(const void* q, const void* k, const void* v, const Params& prm,
 
 extern "C" {
 
-// bf16 only; hd in {32, 64, 128}. Pointers are device pointers, 16-byte
+// bf16 only; hd in {16, 32, 64, 128}. Pointers are device pointers, 16-byte
 // aligned, with the strides (in elements) of the batch, head and sequence
 // dims given in `strides` as q, k, v, o triples; the last dim is
 // contiguous and every stride a multiple of 16 bytes below 2^40 bytes.
@@ -473,6 +480,7 @@ int flash_attention_bf16_launch(const void* q, const void* k, const void* v,
   const Params prm{static_cast<__nv_bfloat16*>(o), strides[9], strides[10],
                    strides[11], H, H / KV, Sq, Skv, (Sq + kBQ - 1) / kBQ,
                    causal, scale * 1.4426950408889634f};
+  if (hd == 16) return launch<16>(q, k, v, prm, B, KV, strides, stream);
   if (hd == 32) return launch<32>(q, k, v, prm, B, KV, strides, stream);
   if (hd == 64) return launch<64>(q, k, v, prm, B, KV, strides, stream);
   if (hd == 128) return launch<128>(q, k, v, prm, B, KV, strides, stream);
@@ -482,6 +490,7 @@ int flash_attention_bf16_launch(const void* q, const void* k, const void* v,
 // Dynamic shared memory a block of the kernel takes at head dim hd, in
 // bytes (0 for a head dim it does not take).
 int flash_attention_bf16_smem_bytes(int hd) {
+  if (hd == 16) return static_cast<int>(Geom<16>::kSmem);
   if (hd == 32) return static_cast<int>(Geom<32>::kSmem);
   if (hd == 64) return static_cast<int>(Geom<64>::kSmem);
   if (hd == 128) return static_cast<int>(Geom<128>::kSmem);

@@ -31,7 +31,7 @@ from .. import _build
 from .ref import flash_attention_plain
 
 _DTYPES = (torch.float32, torch.bfloat16)
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128)
 # Query rows a block of the bf16 kernel: its q tiles run on the grid's y
 # axis, B*H on x; the f32 kernel has B*H on y.
 BF16_BQ = 128
@@ -187,7 +187,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Inputs may be strided views (the model passes its [B, S, H, d]
     activations transposed); the output has q's layout.
 
-    Head dims 32, 64 and 128 in f32 or bf16. The tiles are fixed (bf16: 128
+    Head dims 16, 32, 64 and 128 in f32 or bf16. The tiles are fixed (bf16: 128
     query rows by 128 keys; f32: 64 by 64), so the reference's ``bq`` /
     ``bk`` options are not taken.
 

@@ -3,7 +3,8 @@
 // Replaces the TPU kernel src/repro/kernels/maxplus/maxplus.py
 // ::_maxplus_kernel (pallas_call at line 69). Same function, f32:
 //     C[i, j] = max(NEG_INF, max_k (A[i, k] + B[k, j])),   NEG_INF = -1e9,
-// the TPU kernel's output tile starting at NEG_INF being its floor.
+// the TPU kernel's output tile starting at NEG_INF being its floor. NaN
+// propagates, as jnp.maximum and torch.maximum propagate it.
 //
 // Bound on an H100: operations. Each (i, j, k) costs one FADD and one
 // FMNMX; (max, +) has no tensor-core path and sm_90 has no fused add-max.
@@ -11,25 +12,34 @@
 // lanes), and FMNMX runs at 64 results a clock on compute capability 9.0
 // (CUDA C++ Programming Guide, arithmetic instruction throughput), so the
 // least time is M * N * K / (64 * 132 SMs * clock) either way: 4.1 ms for
-// n = 4096 at 1.98 GHz. Bytes (A, B read once, C written once) are far
-// below that at every n the compiler produces.
+// n = 4096 at 1.98 GHz, 0.0116 ms for n = 579. Bytes (A, B read once, C
+// written once) are far below that at every n the compiler produces.
 //
 // What the design does about that bound:
-//   * Each block owns a 128 x 128 output tile; 256 threads each keep an
-//     8 x 8 register micro-tile of running maxima, so every shared-memory
-//     operand feeds 8 add/max pairs.
+//   * The card has to be full before any of that rate is reached, and the
+//     compile's closures are small (n = 69-579): one 128 x 128 tile a block
+//     gave 25 blocks for 132 SMs at n = 579. So the wrapper picks the tile
+//     by size: 128 x 128 (256 threads of 8 x 8) once those tiles alone give
+//     every SM a block, else 64 x 64 (256 threads of 4 x 4), and below that
+//     it splits K over gridDim.z. Each split writes its partial maxima to a
+//     workspace and a second kernel takes their max. (max, +) is exact and
+//     order-free, so the split result equals the unsplit one bit for bit,
+//     NaN included; each split keeps the NEG_INF floor, which max leaves as
+//     it is.
+//   * Every shared-memory operand feeds TM (or TN) add/max pairs from a
+//     thread's register micro-tile of running maxima.
 //   * A K loop inside the block (the TPU's sequential grid axis) stages
 //     16-deep slices of A (transposed, k-major, padded against bank
 //     conflicts) and B in shared memory, double-buffered with 4-byte
 //     cp.async so the next slice is in flight while this one is reduced.
-//   * A thread's rows and columns are two groups of 4, 64 apart, so its
-//     float4 shared-memory reads are contiguous across the warp.
+//   * A thread's rows and columns are groups of 4, 64 apart, so its float4
+//     shared-memory reads are contiguous across the warp.
 //   * Ragged M / N / K edges are masked in the kernel, not padded by the
 //     wrapper: an out-of-range element is staged as NEG_INF, so a masked k
 //     adds at most -2e9, under the floor, exactly as the TPU kernel's
-//     NEG_INF padding does. Adds and max are exact and order-free, so the
-//     result equals the plain version bit for bit (fmaxf drops NaN where
-//     torch.max keeps it; timing matrices hold none).
+//     NEG_INF padding does.
+//   * The running max is PTX max.NaN.f32 (one FMNMX.NAN), not fmaxf, which
+//     returns the other operand when one is NaN.
 //
 // Plain C interface, loaded with ctypes (repro_torch/kernels/_build.py).
 
@@ -37,10 +47,16 @@
 
 namespace {
 
-constexpr int kBM = 128, kBN = 128, kBK = 16;
-constexpr int kThreads = 256;
-constexpr int kPadA = 4;  // keeps float4 alignment, 2-way store conflicts
+constexpr int kBK = 16;
+constexpr int kThreads = 256;  // 16 x 16
+constexpr int kPadA = 4;       // keeps float4 alignment, 2-way store conflicts
 constexpr float kNegInf = -1e9f;
+
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
 
 __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -55,47 +71,56 @@ __device__ __forceinline__ void cp_async_wait_one() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
+// One BM x BN output tile over the K range [z * kc, (z + 1) * kc) of split
+// z = blockIdx.z, written to C + z * M * N. A thread's TM x TN micro-tile is
+// (TM / 4) x (TN / 4) groups of 4 x 4, the groups 64 rows (columns) apart.
+template <int BM, int BN, int TM, int TN>
 __global__ void __launch_bounds__(kThreads)
     maxplus_kernel(const float* __restrict__ A, const float* __restrict__ B,
-                   float* __restrict__ C, int M, int N, int K) {
-  __shared__ __align__(16) float As[2][kBK][kBM + kPadA];  // As[k][m]
-  __shared__ __align__(16) float Bs[2][kBK][kBN];          // Bs[k][n]
+                   float* __restrict__ C, int M, int N, int K, int kc) {
+  static_assert(BM / TM == 16 && BN / TN == 16, "16 x 16 threads");
+  constexpr int GM = TM / 4, GN = TN / 4;    // groups of 4 a thread
+  constexpr int SM = BM / GM, SN = BN / GN;  // their spacing: 64
+  __shared__ __align__(16) float As[2][kBK][BM + kPadA];  // As[k][m]
+  __shared__ __align__(16) float Bs[2][kBK][BN];          // Bs[k][n]
 
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int kb = blockIdx.z * kc, ke = min(K, kb + kc);
+  float* Cz = C + static_cast<size_t>(blockIdx.z) * M * N;
 
   auto load = [&](int kt, int s) {
-    const int k0 = kt * kBK;
+    const int k0 = kb + kt * kBK;
     // A: consecutive threads walk along a row of A (coalesced reads) and
     // store it transposed.
-    for (int e = tid; e < kBM * kBK; e += kThreads) {
+    for (int e = tid; e < BM * kBK; e += kThreads) {
       const int kk = e % kBK, mm = e / kBK;
       const int gm = m0 + mm, gk = k0 + kk;
       float* dst = &As[s][kk][mm];
-      if (gm < M && gk < K)
+      if (gm < M && gk < ke)
         cp_async4(dst, A + static_cast<size_t>(gm) * K + gk);
       else
         *dst = kNegInf;
     }
-    for (int e = tid; e < kBK * kBN; e += kThreads) {
-      const int nn = e % kBN, kk = e / kBN;
+    for (int e = tid; e < kBK * BN; e += kThreads) {
+      const int nn = e % BN, kk = e / BN;
       const int gk = k0 + kk, gn = n0 + nn;
       float* dst = &Bs[s][kk][nn];
-      if (gk < K && gn < N)
+      if (gk < ke && gn < N)
         cp_async4(dst, B + static_cast<size_t>(gk) * N + gn);
       else
         *dst = kNegInf;
     }
   };
 
-  float acc[8][8];
+  float acc[TM][TN];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < TM; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = kNegInf;
+    for (int j = 0; j < TN; ++j) acc[i][j] = kNegInf;
 
-  const int n_k = (K + kBK - 1) / kBK;
+  const int n_k = (ke - kb + kBK - 1) / kBK;
   load(0, 0);
   cp_async_commit();
   for (int kt = 0; kt < n_k; ++kt) {
@@ -107,32 +132,65 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
 #pragma unroll
     for (int k = 0; k < kBK; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[s][k][ty * 4]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&As[s][k][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[s][k][tx * 4]);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(&Bs[s][k][64 + tx * 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+      float a[TM], b[TN];
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+      for (int g = 0; g < GM; ++g) {
+        const float4 x =
+            *reinterpret_cast<const float4*>(&As[s][k][g * SM + ty * 4]);
+        a[4 * g] = x.x, a[4 * g + 1] = x.y, a[4 * g + 2] = x.z,
+        a[4 * g + 3] = x.w;
+      }
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaxf(acc[i][j], a[i] + b[j]);
+      for (int g = 0; g < GN; ++g) {
+        const float4 x =
+            *reinterpret_cast<const float4*>(&Bs[s][k][g * SN + tx * 4]);
+        b[4 * g] = x.x, b[4 * g + 1] = x.y, b[4 * g + 2] = x.z,
+        b[4 * g + 3] = x.w;
+      }
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j)
+          acc[i][j] = max_nan(acc[i][j], a[i] + b[j]);
     }
     __syncthreads();
   }
 
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
+  for (int i = 0; i < TM; ++i) {
+    const int row = m0 + (i / 4) * SM + ty * 4 + i % 4;
     if (row >= M) continue;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
-      if (col < N) C[static_cast<size_t>(row) * N + col] = acc[i][j];
+    for (int j = 0; j < TN; ++j) {
+      const int col = n0 + (j / 4) * SN + tx * 4 + j % 4;
+      if (col < N) Cz[static_cast<size_t>(row) * N + col] = acc[i][j];
     }
   }
+}
+
+// C[i] = max over the splits s of W[s, i]: the second pass of a K split.
+__global__ void __launch_bounds__(kThreads)
+    maxplus_reduce_kernel(const float* __restrict__ W, float* __restrict__ C,
+                          long long mn, int splits) {
+  const long long step = static_cast<long long>(gridDim.x) * kThreads;
+  for (long long i = static_cast<long long>(blockIdx.x) * kThreads +
+                     threadIdx.x;
+       i < mn; i += step) {
+    float x = W[i];
+    for (int s = 1; s < splits; ++s) x = max_nan(x, W[s * mn + i]);
+    C[i] = x;
+  }
+}
+
+template <int BM, int TM>
+int launch_tiles(const float* A, const float* B, float* C, int M, int N,
+                 int K, int kc, int splits, cudaStream_t stream) {
+  const dim3 grid((N + BM - 1) / BM, (M + BM - 1) / BM, splits);
+  if (grid.y > 65535u || grid.z > 65535u)
+    return static_cast<int>(cudaErrorInvalidValue);
+  maxplus_kernel<BM, BM, TM, TM><<<grid, kThreads, 0, stream>>>(A, B, C, M, N,
+                                                                K, kc);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -140,13 +198,33 @@ __global__ void __launch_bounds__(kThreads)
 extern "C" {
 
 // A [M, K], B [K, N], C [M, N]: device pointers of contiguous float32
-// tensors, M, N, K >= 1. Returns the cudaError_t of the launch (0 on
-// success). Launches on `stream`, does not synchronise, allocates nothing.
-int maxplus_launch(const float* A, const float* B, float* C, int M, int N,
-                   int K, cudaStream_t stream) {
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  if (grid.y > 65535u) return static_cast<int>(cudaErrorInvalidValue);
-  maxplus_kernel<<<grid, kThreads, 0, stream>>>(A, B, C, M, N, K);
+// tensors, M, N, K >= 1. `tile` is 128 or 64 (a block's BM = BN); K is cut
+// into splits of `k_chunk` (a multiple of 16) rows: with one split (k_chunk
+// >= K) the kernel writes C; with more it writes W [splits, M, N] and a
+// second kernel reduces W into C. Returns the cudaError_t of the launches
+// (0 on success). Launches on `stream`, does not synchronise, allocates
+// nothing.
+int maxplus_launch(const float* A, const float* B, float* C, float* W, int M,
+                   int N, int K, int tile, int k_chunk, cudaStream_t stream) {
+  if (M < 1 || N < 1 || K < 1 || k_chunk < 1 || k_chunk % kBK)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int splits = (K + k_chunk - 1) / k_chunk;
+  if (splits > 1 && W == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  float* out = splits > 1 ? W : C;
+  int err;
+  if (tile == 128)
+    err = launch_tiles<128, 8>(A, B, out, M, N, K, k_chunk, splits, stream);
+  else if (tile == 64)
+    err = launch_tiles<64, 4>(A, B, out, M, N, K, k_chunk, splits, stream);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (err != 0 || splits == 1) return err;
+  const long long mn = static_cast<long long>(M) * N;
+  const long long blocks = (mn + kThreads - 1) / kThreads;
+  maxplus_reduce_kernel<<<static_cast<unsigned>(blocks < 4096 ? blocks
+                                                              : 4096),
+                          kThreads, 0, stream>>>(W, C, mn, splits);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -97,6 +97,25 @@ def test_gqa_head_grouping(hq, hkv, causal):
     _close(flash_attention_plain(*_t(q, k, v), causal=causal), want, 2e-3)
 
 
+# head dim 16 (the smoke configs'): causal and not, GQA, odd S, S != Skv
+@pytest.mark.parametrize("b,h,hkv,sq,skv", [(1, 4, 4, 127, 127),
+                                            (2, 4, 2, 129, 129),
+                                            (1, 8, 1, 65, 65),
+                                            (1, 2, 2, 1, 1),
+                                            (1, 4, 2, 64, 200)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_head_dim_16_matches_pallas_kernel(b, h, hkv, sq, skv, causal):
+    rng = np.random.default_rng(b * sq + h + hkv + skv)
+    q, k, v = _qkv(rng, b, h, sq, 16, skv=skv, hkv=hkv)
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    want = (ref_flash(jq, jk, jv, causal=causal) if h == hkv
+            else ref_gqa(jq, jk, jv, causal=causal))
+    got = flash_attention(*_t(q, k, v), causal=causal)
+    _close(got, want, 2e-3)
+    FA_MOD._check_launch(*_t(q, k, v))             # the kernels take d = 16
+    FA_MOD._check_launch(*_t(q, k, v, dtype=torch.bfloat16))
+
+
 @pytest.mark.parametrize("sq,skv,causal", [(40, 40, True), (8, 20, True),
                                            (20, 8, False)])
 def test_attention_ref_matches_reference(sq, skv, causal):
@@ -222,7 +241,7 @@ def test_kernel_launch_checks_raise_before_building(bad):
     """What only the CUDA kernels refuse is checked before the library is
     built or a pointer is passed (these raise here, with no nvcc)."""
     rng = np.random.default_rng(5)
-    d = 16 if bad == "hd" else 32
+    d = 80 if bad == "hd" else 32      # 80: zamba2's head dim
     q, k, v = _t(*_qkv(rng, 1, 2, 8, d))
     if bad == "grid":                 # f32: B*H past the grid's y of 65535
         q = torch.zeros(1, 65536, 1, d)
@@ -279,7 +298,7 @@ def test_kernel_on_the_card_matches_plain_version():
 
 
 
-@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
 def test_bf16_route_takes_head_counts_past_the_f32_grid(hd):
     """The bf16 kernel puts B*H on the grid's x axis (2^31 - 1), so a head
     count the f32 kernel's y axis refuses passes its checks."""
@@ -333,6 +352,15 @@ def test_dispatch_bf16_to_tensor_cores_and_f32_to_cuda_cores(fake_lib):
     assert fake_lib.calls[1] == ("f32", (2, 4, 2, 16, 16, 64, 0))
     assert (flash_attention.launches, flash_attention.tensor_core_launches,
             flash_attention.cuda_core_launches) == (2, 1, 1)
+
+
+@pytest.mark.parametrize("dtype,entry", [("bfloat16", "bf16"),
+                                         ("float32", "f32")])
+def test_head_dim_16_reaches_its_kernel(fake_lib, dtype, entry):
+    q, k, v = _t(*_qkv(np.random.default_rng(9), 1, 4, 129, 16, hkv=2),
+                 dtype=getattr(torch, dtype))
+    FA_MOD._launch(q, k, v, causal=True)
+    assert fake_lib.calls == [(entry, (1, 4, 2, 129, 129, 16, 1))]
 
 
 @pytest.mark.parametrize("rc,match", [(-1, "cuTensorMapEncodeTiled"),
@@ -418,6 +446,20 @@ def test_bf16_kernel_emulation_matches_plain_version_at_tile_edges(
     rng = np.random.default_rng(sq + skv)
     q, k, v = _t(*_qkv(rng, 1, 2, sq, 64, skv=skv, hkv=hkv),
                  dtype=torch.bfloat16)
+    got = _emulate_bf16_kernel(q, k, v, causal=causal, split_p=True)
+    torch.testing.assert_close(
+        got.float(), flash_attention_plain(q, k, v, causal=causal).float(),
+        **BF16_KERNEL_TOL)
+
+
+@pytest.mark.parametrize("s", [1, 127, 128, 129])
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_kernel_emulation_at_head_dim_16(s, causal):
+    """At d = 16 the bf16 kernel's Q K^T is one k16 step and its P V one
+    n16 product; its tile-by-tile arithmetic (P as hi + lo) stays within the
+    kernel bar of the plain version at the 128-row tile's edges."""
+    rng = np.random.default_rng(s + 16)
+    q, k, v = _t(*_qkv(rng, 2, 4, s, 16, hkv=2), dtype=torch.bfloat16)
     got = _emulate_bf16_kernel(q, k, v, causal=causal, split_p=True)
     torch.testing.assert_close(
         got.float(), flash_attention_plain(q, k, v, causal=causal).float(),

@@ -8,6 +8,7 @@ timing matrix's ``SRC`` vertex, where the input launches start.
 """
 
 import functools
+import importlib
 
 import numpy as np
 import pytest
@@ -161,3 +162,82 @@ def test_kernel_on_the_card_equals_plain_version():
         b = torch.randn(k, n, generator=gen, device="cuda")
         a[:, ::3] = NEG_INF
         assert torch.equal(maxplus_matmul(a, b), maxplus_matmul_plain(a, b))
+
+
+# ---------------------------------------------------------------------------
+# NaN, and the tile and K-split choice
+
+MP_MOD = importlib.import_module("repro_torch.kernels.maxplus.maxplus")
+SMS = 132                                        # an H100's SMs
+# the 13 longest paths' closure sizes of Table I and the pins
+PATH_SIZES = (69, 71, 87, 89, 130, 143, 235, 249, 266, 347, 355, 411, 579)
+
+
+def _nan_equal(got, want):
+    """Equal bit for bit where finite, and NaN at the same positions."""
+    got, want = np.asarray(got), np.asarray(want)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_array_equal(np.nan_to_num(got, nan=0.0),
+                                  np.nan_to_num(want, nan=0.0))
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 8, 8), (100, 130, 70), (1, 257, 1),
+                                   (150, 90, 60)])
+def test_nan_propagates_as_in_the_pallas_kernel(m, k, n):
+    """NaN entries of A and B give NaN at the same outputs as the Pallas
+    kernel's jnp.maximum, ragged edges and the floor included."""
+    rng = np.random.default_rng(m + k + n)
+    a = rng.normal(size=(m, k)).astype("float32")
+    b = rng.normal(size=(k, n)).astype("float32")
+    a[rng.random((m, k)) < 0.3] = NEG_INF
+    a[rng.integers(0, m), rng.integers(0, k)] = np.nan
+    b[rng.integers(0, k), rng.integers(0, n)] = np.nan
+    want = np.asarray(ref_maxplus_matmul(jnp.asarray(a), jnp.asarray(b)))
+    got = maxplus_matmul(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    assert np.isnan(want).any()
+    _nan_equal(got, want)
+
+
+def _emulate_split(a, b, p):
+    """The kernel's K split, on the CPU: each split floors its own partial
+    product over K rows [z * k_chunk, (z + 1) * k_chunk), and a second pass
+    takes the splits' max."""
+    k = a.shape[1]
+    parts = [maxplus_matmul_plain(a[:, k0:k0 + p.k_chunk].contiguous(),
+                                  b[k0:k0 + p.k_chunk].contiguous())
+             for k0 in range(0, k, p.k_chunk)]
+    assert len(parts) == p.splits
+    out = parts[0]
+    for x in parts[1:]:
+        out = torch.maximum(out, x)
+    return out
+
+
+@pytest.mark.parametrize("n", PATH_SIZES + (1000,))
+def test_plan_fills_the_card_and_its_split_is_exact(n):
+    """Below the size where 128 x 128 tiles give every SM a block, the plan
+    takes 64 x 64 tiles and splits K into whole 16-deep slices, none empty;
+    the split result equals the plain version bit for bit, NaN included."""
+    p = MP_MOD.plan(n, n, n, SMS)
+    assert p.tile == 64 and p.k_chunk % MP_MOD.K_STEP == 0
+    assert (p.splits - 1) * p.k_chunk < n <= p.splits * p.k_chunk
+    blocks = -(-n // 64) ** 2 * p.splits
+    assert blocks <= MP_MOD.SPLIT_BLOCKS_PER_SM * SMS + -(-n // 64) ** 2
+    if n < 1000:
+        assert p.splits > 1
+    rng = np.random.default_rng(n)
+    m = min(n, 150)                         # rows do not enter the split
+    a = torch.from_numpy(rng.normal(size=(m, n)).astype("float32"))
+    b = torch.from_numpy(rng.normal(size=(n, 40)).astype("float32"))
+    a[rng.random((m, n)) < 0.5] = NEG_INF
+    a[3, n // 2] = float("nan")
+    _nan_equal(_emulate_split(a, b, p), maxplus_matmul_plain(a, b))
+
+
+def test_plan_keeps_128_tiles_where_they_fill_the_card():
+    assert MP_MOD.plan(4096, 4096, 4096, SMS) == MP_MOD.Plan(128, 4096, 1)
+    assert MP_MOD.plan(64, 64, 1000, SMS, tile=128, splits=3) == \
+        MP_MOD.Plan(128, 336, 3)
+    assert MP_MOD.plan(64, 64, 20, SMS, splits=100) == MP_MOD.Plan(64, 16, 2)
+    with pytest.raises(ValueError, match="tile"):
+        MP_MOD.plan(64, 64, 64, SMS, tile=32)

@@ -475,3 +475,22 @@ def test_train_on_cuda_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         T.main(["--smoke", "--steps", "1"])
+
+
+def test_smoke_cli_trains_head_dim_16_through_flash(fake_kernel, monkeypatch):
+    """``train --smoke --steps 4 --device cpu``: the smoke config has head
+    dim 16 and its 128-token sequences take the "flash" branch; every call
+    passes the CUDA kernels' launch checks (d = 16 is a head dim they take)
+    and is counted, 2 x layers a step under remat="full"."""
+    def launch(q, k, v, causal):
+        FA_MOD._check_launch(q, k, v)
+        FA_MOD._check_launch(*(x.bfloat16() for x in (q, k, v)))
+        flash_attention.launches += 1
+        return flash_attention_plain(q, k, v, causal=causal)
+    monkeypatch.setattr(FA_MOD, "_launch", launch)
+    r = T.main(["--smoke", "--steps", "4", "--device", "cpu"])
+    cfg = r.model.cfg
+    assert cfg.head_dim == 16 and r.model._impl(128) == "flash"
+    assert len(r.losses) == 4 and all(np.isfinite(r.losses))
+    per_step = (2 if cfg.remat == "full" else 1) * cfg.num_layers
+    assert flash_attention.launches == 4 * per_step
