@@ -64,6 +64,18 @@ lines:
              the gaussian, unsharp and harris frames (integer pixels from a
              seed), held to the plain version. Checks both launch counts
              and prints maxplus's device kernels (a K-split call runs two).
+7b. engines — the compiler's torch engines on the card, at the reference
+             benchmarks' sizes (benchmarks/pnr_kernels.py's and
+             benchmarks/sta_pipeline.py's five design points, seed 0):
+             torch place and route against numpy place and A* on the host
+             (legal, the same result twice, cost and wirelength at or below
+             the host's), the torch STA report against the scalar walk
+             (field by field) and the post-PnR loop on all three engines
+             (byte-identical), with place / route seconds and ms per
+             analyze and per loop; then Table I with
+             pnr_backend=sta_backend="torch" (compiled and verified, beside
+             the host run), and with sta_backend="torch" alone the host
+             run's design digests and the three STRAIGHT_LINE_PINS.
 8. maxplus — the max-plus kernel against its plain version (bit for bit, in
              f32) at the reference test's shapes, at every closure size of
              the path, ragged, with half the entries at the NEG_INF floor,
@@ -1126,8 +1138,9 @@ def phase_stencil(dev) -> dict:
 
 
 def phase_compile(dev, card: str):
-    """Returns (n, maxplus launches) of each longest path run, and the
-    maxplus and stencil launch counts of the path."""
+    """Returns (n, maxplus launches) of each longest path run, the maxplus
+    and stencil launch counts of the path, and the host run's Table I as
+    {(app, flow): CompileResult}."""
     from repro_torch.core import DENSE_APPS, CascadeCompiler, PassConfig
     from repro_torch.core.netlist import design_digest
     from repro_torch.core.sta import longest_path_maxplus, timing_matrix
@@ -1136,13 +1149,14 @@ def phase_compile(dev, card: str):
                                              maxplus_matmul)
 
     c = CascadeCompiler()
-    designs = []
+    designs, table1 = [], {}
     t0 = time.perf_counter()
     for app, spec in DENSE_APPS.items():
         r0, r1 = (c.compile(spec, getattr(PassConfig, flow)(
             place_moves=TABLE1_MOVES), verify=True)
             for flow in ("unpipelined", "full"))
         designs += [(f"{app} unpipelined", r0), (f"{app} full", r1)]
+        table1[(app, "unpipelined")], table1[(app, "full")] = r0, r1
         log("compile", f"{app}: critical path {r0.sta.critical_path_ns:.3f}"
             f" -> {r1.sta.critical_path_ns:.3f} ns (ratio "
             f"{r0.sta.critical_path_ns / r1.sta.critical_path_ns:.2f}), EDP "
@@ -1222,7 +1236,181 @@ def phase_compile(dev, card: str):
     del golden, paths
     torch.cuda.empty_cache()
     log("compile", f"on {card}")
-    return path, mp, st
+    return path, mp, st, table1
+
+
+# the compiler's device engines: the design points of
+# benchmarks/pnr_kernels.py and benchmarks/sta_pipeline.py (the same five),
+# seed 0; the post-PnR loop at sta_pipeline's test bar of 40 rounds
+ENGINE_POINTS = (("gaussian", 1), ("camera", 2), ("harris", 1),
+                 ("mttkrp", 2), ("harris", 4))
+STA_LOOP_ITERS = 40
+STA_REPEATS = 20
+
+
+def sta_fields(rep) -> tuple:
+    return (rep.critical_path_ns, rep.max_freq_mhz, rep.clock_period_ns,
+            rep.n_segments, rep.critical_path, rep.arrival_out)
+
+
+def loop_state(design, res) -> tuple:
+    return (res.history, res.stop_reason, res.iterations, res.initial_ns,
+            res.final_ns, res.registers_added,
+            sorted((k, sorted(rb.reg_hops)) for k, rb in design.routes.items()),
+            [b.n_regs for b in design.netlist.branches])
+
+
+def phase_engines(dev, card: str, table1: dict) -> None:
+    """The compiler's torch engines on the card: place and route against
+    numpy and A* on the host, STA and the post-PnR loop against the scalar
+    walk, Table I through them."""
+    import copy
+
+    from repro_torch.core import (ALL_APPS, DENSE_APPS, CascadeCompiler,
+                                  PassConfig, PostPnRParams, analyze,
+                                  analyze_vec, generate_timing_model,
+                                  lower_design, post_pnr_pipeline)
+    from repro_torch.core.interconnect import Fabric
+    from repro_torch.core.netlist import design_digest, extract_netlist
+    from repro_torch.core.place import PlaceParams, place
+    from repro_torch.core.route import RouteParams, check_legal, route
+
+    # every engine copies its result to the host before it returns, so the
+    # host clock spans the device work
+    t_phase = time.perf_counter()
+    fabric = Fabric()
+
+    def pnr(nl, backend):
+        stats = {}
+        t0 = time.perf_counter()
+        placement = place(nl, fabric, PlaceParams(seed=0, backend=backend),
+                          stats=stats, device=dev)
+        t1 = time.perf_counter()
+        design = route(nl, placement, fabric, RouteParams(backend=backend),
+                       device=dev)
+        t2 = time.perf_counter()
+        check_legal(nl, placement, fabric, design)
+        hops = {k: [(h.src, h.dst) for h in rb.hops]
+                for k, rb in design.routes.items()}
+        return {"place_s": t1 - t0, "route_s": t2 - t1,
+                "cost": stats["best_cost"], "wl": design.total_wirelength(),
+                "stats": stats, "result": (placement, hops)}
+
+    for app, mult in ENGINE_POINTS:
+        nl = extract_netlist(ALL_APPS[app].build(mult))
+        host = pnr(nl, "numpy")
+        first, warm = pnr(nl, "torch"), pnr(nl, "torch")
+        if warm["result"] != first["result"]:
+            raise RuntimeError(f"{app}x{mult}: torch PnR differs run to run")
+        if warm["cost"] > host["cost"] or warm["wl"] > host["wl"]:
+            raise RuntimeError(
+                f"{app}x{mult}: torch cost {warm['cost']:.1f} / wirelength "
+                f"{warm['wl']} above numpy {host['cost']:.1f} / A* "
+                f"{host['wl']}")
+        st = warm["stats"]
+        log("engines", f"PnR {app}x{mult} ({len(nl.nodes)} nodes): place "
+            f"numpy {host['place_s']:.3f} s, torch {first['place_s']:.3f} s "
+            f"first / {warm['place_s']:.3f} s warm ({st['replicas']} "
+            f"replicas, {st['moves_evaluated']} moves evaluated, "
+            f"{st['moves_accepted']} accepted); cost {host['cost']:.1f} -> "
+            f"{warm['cost']:.1f} (ratio {warm['cost'] / host['cost']:.3f}); "
+            f"route A* {host['route_s']:.3f} s, torch {first['route_s']:.3f}"
+            f" s first / {warm['route_s']:.3f} s warm; wirelength "
+            f"{host['wl']} -> {warm['wl']}; legal, same result twice")
+
+    c = CascadeCompiler(device=dev)
+    for app, mult in ENGINE_POINTS:
+        r = c.compile(ALL_APPS[app], PassConfig(post_pnr=False), unroll=mult)
+        design = r.design
+        tm = generate_timing_model(design.fabric)
+        want = analyze(design, tm)
+        if sta_fields(analyze(design, tm, backend="torch",
+                              device=dev)) != sta_fields(want):
+            raise RuntimeError(f"{app}x{mult}: torch STA report differs "
+                               f"from the scalar walk")
+        L = lower_design(design, tm)
+        analyze_vec(design, tm, backend="torch", lowering=L, device=dev)
+        ms = {}
+        for backend, fn in (
+                ("scalar", lambda: analyze(design, tm)),
+                ("numpy", lambda: analyze_vec(design, tm, lowering=L)),
+                ("torch", lambda: analyze_vec(design, tm, backend="torch",
+                                              lowering=L, device=dev))):
+            t0 = time.perf_counter()
+            for _ in range(STA_REPEATS):
+                fn()
+            ms[backend] = (time.perf_counter() - t0) * 1e3 / STA_REPEATS
+        loops = {}
+        for backend in ("scalar", "numpy", "torch"):
+            d = copy.deepcopy(design)
+            t0 = time.perf_counter()
+            res = post_pnr_pipeline(
+                d, tm, PostPnRParams(max_iters=STA_LOOP_ITERS),
+                sta_backend=backend,
+                lowering=None if backend == "scalar" else L, device=dev)
+            loops[backend] = ((time.perf_counter() - t0) * 1e3,
+                              loop_state(d, res))
+        for backend in ("numpy", "torch"):
+            if loops[backend][1] != loops["scalar"][1]:
+                raise RuntimeError(f"{app}x{mult}: the {backend} post-PnR "
+                                   f"loop differs from the scalar loop")
+        state = loops["scalar"][1]
+        log("engines", f"STA {app}x{mult} ({L.n_verts} vertices, "
+            f"{L.n_levels} levels, {L.n_sites} register sites): torch report"
+            f" == scalar, field by field; ms per analyze scalar "
+            f"{ms['scalar']:.3f}, numpy {ms['numpy']:.3f}, torch "
+            f"{ms['torch']:.3f}; post-PnR loop ({state[2]} rounds, "
+            f"{state[1]}, {state[3]:.3f} -> {state[4]:.3f} ns, "
+            f"{state[5]} registers) byte-identical, ms scalar "
+            f"{loops['scalar'][0]:.1f}, numpy {loops['numpy'][0]:.1f}, "
+            f"torch {loops['torch'][0]:.1f}")
+
+    t0 = time.perf_counter()
+    dev_runs = {}
+    for (app, flow), host_r in table1.items():
+        r = c.compile(DENSE_APPS[app], getattr(PassConfig, flow)(
+            place_moves=TABLE1_MOVES, pnr_backend="torch",
+            sta_backend="torch"), verify=True)
+        if "verify" not in r.pass_stats["pipeline"]:
+            raise RuntimeError(f"{app} {flow}: not verified")
+        dev_runs[(app, flow)] = r
+    secs = time.perf_counter() - t0
+    for app in DENSE_APPS:
+        h0, h1 = (table1[(app, f)] for f in ("unpipelined", "full"))
+        d0, d1 = (dev_runs[(app, f)] for f in ("unpipelined", "full"))
+        log("engines", f"Table I {app} on the torch engines: critical path "
+            f"{d0.sta.critical_path_ns:.3f} -> {d1.sta.critical_path_ns:.3f}"
+            f" ns (ratio {d0.sta.critical_path_ns / d1.sta.critical_path_ns:.2f};"
+            f" host {h0.sta.critical_path_ns:.3f} -> "
+            f"{h1.sta.critical_path_ns:.3f}, ratio "
+            f"{h0.sta.critical_path_ns / h1.sta.critical_path_ns:.2f}), EDP "
+            f"ratio {d0.power.edp_js / d1.power.edp_js:.2f} (host "
+            f"{h0.power.edp_js / h1.power.edp_js:.2f}); verified")
+    log("engines", f"Table I: {len(dev_runs)} designs with pnr_backend="
+        f"sta_backend='torch' (place_moves={TABLE1_MOVES}, verify=True) in "
+        f"{secs:.2f} s")
+
+    t0 = time.perf_counter()
+    for (app, flow), host_r in table1.items():
+        r = c.compile(DENSE_APPS[app], getattr(PassConfig, flow)(
+            place_moves=TABLE1_MOVES, sta_backend="torch"))
+        if design_digest(r.design) != design_digest(host_r.design):
+            raise RuntimeError(f"{app} {flow}: sta_backend='torch' changed "
+                               f"the design digest")
+    for app, (digest, cp, regs) in STRAIGHT_LINE_PINS.items():
+        r = c.compile(DENSE_APPS[app], PassConfig.full(place_moves=40,
+                                                       sta_backend="torch"))
+        got = (design_digest(r.design), round(r.sta.critical_path_ns, 6),
+               r.design.physical_register_count())
+        if got != (digest, cp, regs):
+            raise RuntimeError(f"{app} pin with sta_backend='torch': got "
+                               f"{got}, want {(digest, cp, regs)}")
+    log("engines", f"sta_backend='torch' alone: the {len(table1)} Table I "
+        f"design digests equal the host run's and the "
+        f"{len(STRAIGHT_LINE_PINS)} STRAIGHT_LINE_PINS hold "
+        f"({time.perf_counter() - t0:.2f} s)")
+    log("engines", f"phase took {time.perf_counter() - t_phase:.1f} s on "
+        f"{card}")
 
 
 def main() -> int:
@@ -1241,7 +1429,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train_smoke(card)
     torch.cuda.empty_cache()
-    path, mp_launches, st_launches = phase_compile(dev, card)
+    path, mp_launches, st_launches, table1 = phase_compile(dev, card)
+    phase_engines(dev, card, table1)
     maxplus = phase_maxplus(dev, path)
     stencil = phase_stencil(dev)
     maxplus["launches"], stencil["launches"] = mp_launches, st_launches

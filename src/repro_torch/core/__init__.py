@@ -1,10 +1,14 @@
 """Cascade core — the default compile flow of the paper's CGRA compiler.
 
-The framework-free host modules of ``repro.core`` carried over as this
-package's own copies: the fabric and timing model, the app DFGs, the
-pipelining passes, numpy simulated-annealing placement, A* routing, scalar
-STA, the post-PnR register-insertion loop, the schedule/power reports, the
-interpreter simulator and ``CascadeCompiler`` over ``DEFAULT_SCHEDULE``.
+The host modules of ``repro.core`` carried over as this package's own
+copies: the fabric and timing model, the app DFGs, the pipelining passes,
+numpy simulated-annealing placement, A* routing, scalar STA, the post-PnR
+register-insertion loop, the schedule/power reports, the interpreter
+simulator and ``CascadeCompiler`` over ``DEFAULT_SCHEDULE``.  The
+reference's jitted device engines are torch programs here: the lowered
+STA (``sta_vec``, ``sta_backend="numpy"``/``"torch"``), the
+parallel-tempering placer (``place_torch``) and the batched wavefront
+router (``route_torch``), both ``pnr_backend="torch"``.
 ``sta.timing_matrix`` feeds ``repro_torch.kernels.maxplus.longest_path``.
 
 Public API:
@@ -41,6 +45,7 @@ from .sim import (clear_ref_memo, dfg_fingerprint, equivalent,
                   sparse_equivalent)
 from .sta import (STAReport, analyze, longest_path_maxplus,
                   sdf_simulate_fmax, timing_matrix)
+from .sta_vec import IncrementalSTA, LoweredSTA, analyze_vec, lower_design
 from .timing_model import TECH_NS, TimingModel, generate_timing_model
 from .unroll import max_copies, subfabric_for
 
@@ -58,6 +63,7 @@ __all__ = [
     "RoutedDesign", "TimingModel", "TECH_NS", "generate_timing_model",
     "analyze", "sdf_simulate_fmax", "STAReport", "timing_matrix",
     "longest_path_maxplus",
+    "LoweredSTA", "IncrementalSTA", "lower_design", "analyze_vec",
     "match_dfg", "match_netlist", "MatchPlan",
     "check_matched_dfg", "check_matched_netlist",
     "arrival_cycles_dfg", "compute_pipelining", "collapse_reg_chains",

@@ -51,12 +51,17 @@ class PassConfig:
     seed: int = 0
     place_moves: int = 400            # per node
     #: Place-and-route kernel backend (``repro_torch.core.config.
-    #: PNR_BACKENDS``: ``"scalar"`` / ``"numpy"``; ``"torch"`` raises).
-    #: Drivers copy ``CASCADE_PNR_BACKEND`` here — the compiler never
-    #: reads the env var itself.
+    #: PNR_BACKENDS``: ``"scalar"`` / ``"numpy"`` / ``"torch"``, the last on
+    #: the compiler's device).  Drivers copy ``CASCADE_PNR_BACKEND`` here —
+    #: the compiler never reads the env var itself.
     pnr_backend: str = "numpy"
+    #: Parallel-tempering replica count for the torch placer (0 = the
+    #: size-adaptive default); ignored by the scalar/numpy backends.
+    pnr_replicas: int = 0
     #: Timing-engine backend (``repro_torch.core.config.STA_BACKENDS``:
-    #: ``"scalar"``; the others raise).  Drivers copy
+    #: ``"scalar"`` / ``"numpy"`` / ``"torch"``, the last on the
+    #: compiler's device).  All backends are bit-identical (see
+    #: :mod:`repro_torch.core.sta_vec`).  Drivers copy
     #: ``CASCADE_STA_BACKEND`` here.
     sta_backend: str = "scalar"
     #: Pass schedule: ``None`` -> default flow; ``"default"``; or an
@@ -98,12 +103,18 @@ class CompileResult:
 
 
 class CascadeCompiler:
+    """``device`` is where the ``"torch"`` place, route and STA backends
+    run: ``None`` is the card (without CUDA they raise), ``"cpu"`` the CPU.
+    The host backends ignore it."""
+
     def __init__(self, fabric: Optional[Fabric] = None,
                  timing: Optional[TimingModel] = None,
-                 energy: Optional[EnergyParams] = None):
+                 energy: Optional[EnergyParams] = None,
+                 device=None):
         self.fabric = fabric or Fabric()
         self.timing = timing or generate_timing_model(self.fabric)
         self.energy = energy or EnergyParams()
+        self.device = device
 
     def compile(self, app: AppSpec, config: Optional[PassConfig] = None,
                 unroll: Optional[int] = None,
@@ -116,7 +127,8 @@ class CascadeCompiler:
         t0 = time.time()
         ctx = CompileContext(app=app, config=cfg, fabric=self.fabric,
                              timing=self.timing, energy=self.energy,
-                             unroll=unroll, verify=verify)
+                             unroll=unroll, verify=verify,
+                             device=self.device)
         PassPipeline.from_config(cfg).run(ctx)
         return CompileResult(
             app=app, config=cfg, design=ctx.design, sta=ctx.sta,

@@ -18,10 +18,11 @@ The knobs of the default compile flow:
                          into ``PassConfig.sta_backend``; the library never
                          reads it implicitly.
 
-Only ``scalar`` / ``numpy`` place and route, ``scalar`` STA and the
-``interpreter`` simulator run in this package; the other names are kept so
-that a config means the same here as in the reference, and raise
-``NotImplementedError`` where they are dispatched (see ``ROADMAP.md``).
+Every place, route and STA backend runs in this package (``torch`` on the
+compiler's device); of the simulators only the ``interpreter`` does.  The
+``numpy`` and ``torch`` simulator names are kept so that a config means the
+same here as in the reference, and raise ``NotImplementedError`` where they
+are dispatched (see ``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -42,8 +43,8 @@ def env_flag(name: str, default: bool = False) -> bool:
 
 #: The place-and-route kernel backends (``PassConfig.pnr_backend`` /
 #: ``PlaceParams.backend`` / ``RouteParams.backend``).  ``scalar`` and
-#: ``numpy`` are the bit-identical SA/A* pair; ``torch`` names the
-#: parallel-tempering placer and batched router, not ported yet.
+#: ``numpy`` are the bit-identical SA/A* pair; ``torch`` is the
+#: parallel-tempering placer and batched router on a torch device.
 PNR_BACKENDS = ("scalar", "numpy", "torch")
 
 #: The simulator backends (``sim`` ``backend=`` argument).  ``interpreter``
@@ -53,8 +54,8 @@ SIM_BACKENDS = ("interpreter", "numpy", "torch")
 
 #: The application-STA backends (``PassConfig.sta_backend`` / the
 #: ``backend=`` argument of :func:`repro_torch.core.sta.analyze`).
-#: ``scalar`` is the node-by-node oracle; ``numpy`` and ``torch`` name the
-#: lowered level propagation, not ported yet.
+#: ``scalar`` is the node-by-node oracle; ``numpy`` and ``torch`` run the
+#: lowered level propagation (``torch`` on a torch device), bit-identical.
 STA_BACKENDS = ("scalar", "numpy", "torch")
 
 

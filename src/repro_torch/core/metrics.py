@@ -64,7 +64,8 @@ def evaluate_design(design: RoutedDesign, tm: TimingModel,
                     energy: EnergyParams, iterations: int,
                     stall_factor: float = 0.0,
                     rep: Optional[STAReport] = None,
-                    sta_backend: str = "scalar") -> DesignMetrics:
+                    sta_backend: str = "scalar",
+                    device=None) -> DesignMetrics:
     """Project the design's *current* state into a :class:`DesignMetrics`.
 
     Runs application STA (or reuses ``rep`` if the caller already analyzed
@@ -74,11 +75,12 @@ def evaluate_design(design: RoutedDesign, tm: TimingModel,
     states return bit-equal numbers, which is what lets the power-cap
     controller and the frontier sweep promise byte-identity with the
     report passes.  ``sta_backend`` selects the timing engine
-    (only ``scalar`` in this package: the vectorized engines of the
-    reference's ``sta_vec`` are not ported yet).
+    (``scalar`` / ``numpy`` / ``torch`` — bit-identical, see
+    :mod:`repro_torch.core.sta_vec`); ``device`` is read by ``torch`` only.
     """
     rep = rep if rep is not None else analyze(design, tm,
-                                              backend=sta_backend)
+                                              backend=sta_backend,
+                                              device=device)
     sched = schedule_round2(design, iterations, stall_factor=stall_factor)
     pr = power_report(design, rep.max_freq_mhz, sched, energy)
     return DesignMetrics(sta=rep, schedule=sched, power=pr)

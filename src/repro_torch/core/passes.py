@@ -66,6 +66,7 @@ class CompileContext:
     energy: EnergyParams
     unroll: Optional[int] = None
     verify: bool = False
+    device: object = None                    # of the "torch" backends
 
     # artifacts ------------------------------------------------------------
     graph: Optional[DFG] = None              # after "build"
@@ -283,9 +284,10 @@ def _run_place(ctx: CompileContext):
           else generate_timing_model(fabric))
     pp = PlaceParams(alpha=cfg.placement_alpha, gamma=cfg.placement_gamma,
                      seed=cfg.seed, moves_per_node=cfg.place_moves,
-                     backend=cfg.pnr_backend)
+                     backend=cfg.pnr_backend,
+                     replicas=cfg.pnr_replicas or None)
     place_stats: dict = {}
-    placement = place(nl, fabric, pp, stats=place_stats)
+    placement = place(nl, fabric, pp, stats=place_stats, device=ctx.device)
     ctx.netlist, ctx.place_fabric, ctx.place_timing = nl, fabric, tm
     ctx.placement = placement
     return {"fabric": fabric.name, "copies": ctx.copies,
@@ -298,7 +300,8 @@ def _run_route(ctx: CompileContext):
     ctx.require(netlist=ctx.netlist, placement=ctx.placement,
                 place_fabric=ctx.place_fabric)
     design = route(ctx.netlist, ctx.placement, ctx.place_fabric,
-                   RouteParams(backend=ctx.config.pnr_backend))
+                   RouteParams(backend=ctx.config.pnr_backend),
+                   device=ctx.device)
     design.unroll_copies = ctx.copies
     design.source_dfg = ctx.source_dfg
     ctx.design = design
@@ -348,7 +351,8 @@ def _post_pnr(ctx: CompileContext):
     ctx.require(design=ctx.design, place_timing=ctx.place_timing)
     ppr = post_pnr_pipeline(ctx.design, ctx.place_timing,
                             _post_pnr_params(ctx),
-                            sta_backend=ctx.config.sta_backend)
+                            sta_backend=ctx.config.sta_backend,
+                            device=ctx.device)
     ctx.post_pnr = ppr
     return {"initial_ns": ppr.initial_ns, "final_ns": ppr.final_ns,
             "registers_added": ppr.registers_added, "stop": ppr.stop_reason}
@@ -380,7 +384,8 @@ def _metrics_of(ctx: CompileContext) -> DesignMetrics:
         iters, stall = _iterations_and_stall(ctx)
         ctx.metrics = evaluate_design(ctx.design, ctx.place_timing,
                                       ctx.energy, iters, stall_factor=stall,
-                                      sta_backend=ctx.config.sta_backend)
+                                      sta_backend=ctx.config.sta_backend,
+                                      device=ctx.device)
     return ctx.metrics
 
 

@@ -63,9 +63,18 @@ class PlaceParams:
     debug: Optional[bool] = None   # None -> CASCADE_PLACE_DEBUG env flag
     resync_tol: float = 1e-6  # drift tolerance for the debug assertions
     # kernel backend: None resolves to "numpy"/"scalar" from ``vectorized``
-    # (back-compat); "torch" names the parallel-tempering annealer, which
-    # is not ported yet and raises NotImplementedError
+    # (back-compat); "torch" runs the parallel-tempering annealer of
+    # :mod:`repro_torch.core.place_torch` on a torch device (``replicas``
+    # chains on a geometric temperature ladder, spread ``replica_spread``
+    # apart, exchanging states after every temperature step; ``restarts``
+    # is subsumed by the replica ensemble there).  ``replicas``/
+    # ``replica_spread`` default to a netlist-size-adaptive policy (small
+    # netlists get more, colder replicas plus a doubled ensemble budget —
+    # they are cheap and their single-chain cost has high variance to beat).
     backend: Optional[str] = None
+    replicas: Optional[int] = None
+    replica_spread: Optional[float] = None
+    proposal_block: int = 32  # torch: move proposals evaluated per step
 
     def resolved_backend(self) -> str:
         b = self.backend or ("numpy" if self.vectorized else "scalar")
@@ -147,7 +156,8 @@ def _net_cost_batch(pos: np.ndarray, term_mat: np.ndarray,
 def place(nl: Netlist, fabric: Fabric,
           params: Optional[PlaceParams] = None,
           stats: Optional[dict] = None,
-          region: Optional[Region] = None) -> Dict[str, Tile]:
+          region: Optional[Region] = None,
+          device=None) -> Dict[str, Tile]:
     """Anneal a placement; returns node -> tile.
 
     ``stats`` (optional dict) is filled with kernel counters: mode, move /
@@ -159,13 +169,12 @@ def place(nl: Netlist, fabric: Fabric,
     path, which share them — are filtered to in-region tiles, so a move
     outside the region is structurally rejected before it is ever scored.
     A final containment assertion backstops the invariant.
+
+    ``device`` is read by the ``"torch"`` backend only: ``None`` is the
+    card, and without CUDA that raises unless the CPU is asked for.
     """
     p = params or PlaceParams()
     backend = p.resolved_backend()
-    if backend == "torch":
-        raise NotImplementedError(
-            "place backend 'torch' (the parallel-tempering placer) is not "
-            "ported yet; see ROADMAP.md, 'torch parallel-tempering placer'")
     vectorized = backend != "scalar"
     debug = place_debug() if p.debug is None else p.debug
     t_start = time.perf_counter()
@@ -197,7 +206,21 @@ def place(nl: Netlist, fabric: Fabric,
     resyncs = 0
 
     best_pos, best_cost = None, math.inf
-    for restart in range(max(1, p.restarts)):
+    extra: dict = {}
+    if backend == "torch":
+        from .place_torch import anneal_torch
+
+        best_pos, best_cost, tstats = anneal_torch(nets, cls, sites, p,
+                                                   device=device)
+        moves_evaluated = tstats["moves_evaluated"]
+        moves_accepted = tstats["moves_accepted"]
+        resyncs = tstats["resyncs"]
+        extra = {k: tstats[k] for k in
+                 ("replicas", "devices", "best_replica", "replica_costs")}
+        restarts = 0          # the replica ensemble subsumes restarts
+    else:
+        restarts = max(1, p.restarts)
+    for restart in range(restarts):
         pos = np.zeros((n, 2), dtype=np.int64)
         site_of: Dict[int, int] = {}
         occupant: Dict[Tuple[str, int], int] = {}
@@ -322,6 +345,7 @@ def place(nl: Netlist, fabric: Fabric,
             "resyncs": resyncs,
             "best_cost": float(best_cost),
             "place_seconds": time.perf_counter() - t_start,
+            **extra,
         })
         if region is not None:
             stats["region"] = (region.row0, region.col0,

@@ -25,7 +25,7 @@ from typing import Callable, Dict, List, Optional, Set, Tuple
 
 from .branch_delay import MatchPlan
 from .netlist import RoutedDesign
-from .sta import STAReport, _vectorized_engine, analyze
+from .sta import STAReport, analyze
 from .timing_model import TimingModel
 
 
@@ -210,25 +210,35 @@ class _ScalarEngine:
         pass
 
 
-def _make_engine(design: RoutedDesign, tm: TimingModel, sta_backend: str):
+def _make_engine(design: RoutedDesign, tm: TimingModel, sta_backend: str,
+                 lowering=None, device=None):
     if sta_backend == "scalar":
         return _ScalarEngine(design, tm)
-    _vectorized_engine(sta_backend)
+    from .sta_vec import IncrementalSTA
+    return IncrementalSTA(design, tm, backend=sta_backend, lowering=lowering,
+                          device=device)
 
 
 def post_pnr_pipeline(design: RoutedDesign, tm: TimingModel,
                       params: Optional[PostPnRParams] = None,
                       round_hook: Optional[RoundHook] = None,
-                      sta_backend: str = "scalar") -> PostPnRResult:
+                      sta_backend: str = "scalar",
+                      lowering=None, device=None) -> PostPnRResult:
     """The Section V-D register-insertion loop.
 
-    ``sta_backend`` selects the timing engine behind the loop's engine
-    seam: ``"scalar"`` re-walks the netlist every round (the oracle) and is
-    the only one ported; the incremental engines (``"numpy"`` /
-    ``"torch"``) raise ``NotImplementedError``.
+    ``sta_backend`` selects the timing engine: ``"scalar"`` re-walks the
+    netlist every round (the oracle); ``"numpy"`` / ``"torch"`` keep a
+    :class:`~repro_torch.core.sta_vec.IncrementalSTA` alive across rounds
+    (optionally reusing a caller-supplied ``lowering`` of the routed
+    structure): numpy re-propagates only the dirty fanout cone of the
+    edited hops, torch re-runs the level loop on ``device`` (``None``: the
+    card).  All backends produce byte-identical designs, histories, and
+    stop reasons — one shared loop drives an engine seam, so the control
+    flow cannot drift, and the engines' reports are bit-identical by
+    construction.
     """
     p = params or PostPnRParams()
-    engine = _make_engine(design, tm, sta_backend)
+    engine = _make_engine(design, tm, sta_backend, lowering, device)
     # branch topology is frozen during the loop; precompute the match
     # structure once instead of re-toposorting the netlist every round
     match_plan = MatchPlan(design.netlist)

@@ -10,11 +10,12 @@ growing history cost and the nets crossing them are ripped up and rerouted.
 ``RouteParams.backend`` selects the inner-loop kernel: ``"scalar"`` and
 ``"numpy"`` are both this module's Python A* (the router never had a
 separate vectorized path — the names exist so ``PassConfig.pnr_backend``
-means the same thing at both PnR stages).  ``"torch"`` names the batched
-wavefront router, which is not ported yet and raises
-``NotImplementedError``.  The finalization below (region containment
-check, hop construction, register distribution) is shared by every
-backend.
+means the same thing at both PnR stages), while ``"torch"`` swaps in the
+batched wavefront relaxation of :mod:`repro_torch.core.route_torch`, which
+routes every dirty driver of a width class in one batched device program.
+Both backends produce the same ``driver -> branch -> tile path`` map and
+share the finalization below (region containment check, hop construction,
+register distribution), so post-route legality is checked identically.
 
 After routing, each branch distributes its ``n_regs`` pipelining registers
 evenly along its hops (post-PnR pipelining later adds registers at chosen
@@ -77,18 +78,18 @@ def _astar(fabric: Fabric, srcs: Dict[Tile, float], dst: Tile,
 
 def route(nl: Netlist, placement: Dict[str, Tile], fabric: Fabric,
           params: Optional[RouteParams] = None,
-          region: Optional[Region] = None) -> RoutedDesign:
+          region: Optional[Region] = None,
+          device=None) -> RoutedDesign:
     """Route every branch; with ``region`` (multi-app fabric sharing) the
     routes are *fenced*: any edge that would cross the region boundary into
     a foreign sub-fabric costs ``inf``, so the search never relaxes through
     it and no hop of a resident's net can consume a neighbour's routing
-    tracks.  A post-route containment check backstops the fence."""
+    tracks.  A post-route containment check backstops the fence.
+
+    ``device`` is read by the ``"torch"`` backend only: ``None`` is the
+    card, and without CUDA that raises unless the CPU is asked for."""
     p = params or RouteParams()
     backend = p.resolved_backend()
-    if backend == "torch":
-        raise NotImplementedError(
-            "route backend 'torch' (the batched wavefront router) is not "
-            "ported yet; see ROADMAP.md, 'torch batched router'")
     width_class = lambda w: 16 if w >= 16 else 1
 
     # group branches by driver (routing trees)
@@ -96,6 +97,12 @@ def route(nl: Netlist, placement: Dict[str, Tile], fabric: Fabric,
     for b in nl.branches:
         by_driver.setdefault(b.driver, []).append(b)
 
+    if backend == "torch":
+        from .route_torch import route_trees_torch
+        tree_paths = route_trees_torch(nl, placement, fabric, by_driver, p,
+                                       region, device=device)
+        return _finalize(nl, placement, fabric, by_driver, tree_paths,
+                         region)
 
     history: Dict[Tuple[Tile, Tile, int], float] = {}
     usage: Dict[Tuple[Tile, Tile, int], int] = {}
@@ -217,3 +224,54 @@ def _finalize(nl: Netlist, placement: Dict[str, Tile], fabric: Fabric,
             routes[b.key] = rb
     return RoutedDesign(netlist=nl, placement=placement, routes=routes,
                         fabric=fabric)
+
+
+def check_legal(nl: Netlist, placement: Dict[str, Tile], fabric: Fabric,
+                design: Optional[RoutedDesign] = None,
+                region: Optional[Region] = None) -> None:
+    """Raise ``RuntimeError`` unless the placement (and, given, the routed
+    design) is legal for any backend: class-correct tiles, no PE/MEM site
+    shared, IO tiles at most ``IO_CAPACITY`` deep; routes connected from
+    the driver's tile to the sink's over fabric edges, within track
+    capacity; with a ``region``, every tile and hop inside it."""
+    from .place import IO_CAPACITY, TILE_CLASS
+
+    def fail(msg):
+        raise RuntimeError(f"{nl.name}: {msg}")
+
+    if set(placement) != set(nl.nodes):
+        fail("placement does not cover the netlist's nodes")
+    seen, io_load = set(), {}
+    for name, tile in placement.items():
+        kind = TILE_CLASS[nl.nodes[name].kind]
+        if fabric.tile_kind(tile) != kind:
+            fail(f"{name} on {tile}, not a {kind} tile")
+        if region is not None and not region.contains(tile):
+            fail(f"{name} on {tile}, outside {region}")
+        if kind == "io":
+            io_load[tile] = io_load.get(tile, 0) + 1
+        elif tile in seen:
+            fail(f"site conflict at {tile}")
+        else:
+            seen.add(tile)
+    if any(v > IO_CAPACITY for v in io_load.values()):
+        fail("IO tile over capacity")
+    if design is None:
+        return
+    usage: Dict[Tuple[Tile, Tile, int], Set[str]] = {}
+    for (drv, sink, _), rb in design.routes.items():
+        tiles = ([rb.hops[0].src] + [h.dst for h in rb.hops]
+                 if rb.hops else [placement[drv]])
+        if (tiles[0], tiles[-1]) != (placement[drv], placement[sink]):
+            fail(f"route {drv} -> {sink} misses its ends")
+        if any(a.dst != b.src for a, b in zip(rb.hops, rb.hops[1:])) or any(
+                h.dst not in fabric.neighbors(h.src) for h in rb.hops):
+            fail(f"route {drv} -> {sink} is not connected")
+        if region is not None and not all(region.contains(t) for t in tiles):
+            fail(f"route {drv} -> {sink} leaves {region}")
+        wc = 16 if rb.branch.width >= 16 else 1
+        for e in {(h.src, h.dst, wc) for h in rb.hops}:
+            usage.setdefault(e, set()).add(drv)
+    over = [e for e, d in usage.items() if len(d) > fabric.track_capacity(e[2])]
+    if over:
+        fail(f"{len(over)} overused boundaries: {over[:3]}")

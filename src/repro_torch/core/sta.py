@@ -25,24 +25,12 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from .config import STA_BACKENDS
 from .dfg import FIFO, INPUT, MEM, OUTPUT, PE, RF
 from .netlist import RoutedBranch, RoutedDesign
 from .timing_model import TimingModel
 
 # path element: ("node", name) | ("hop", branch_key, hop_index)
 PathElem = Tuple
-
-
-def _vectorized_engine(backend: str):
-    """The lowered STA engines are not ported: raise for their names, and
-    for names that are no backend at all."""
-    if backend not in STA_BACKENDS:
-        raise ValueError(f"unknown STA backend {backend!r}; "
-                         f"expected one of {STA_BACKENDS}")
-    raise NotImplementedError(
-        f"STA backend {backend!r} (the vectorized timing engine) is not "
-        f"ported yet; see ROADMAP.md, 'sta_vec'")
 
 
 @dataclass
@@ -96,15 +84,20 @@ def analyze(design: RoutedDesign, tm: TimingModel,
             rng: Optional[np.random.Generator] = None,
             sigma_lo: float = 0.6,
             clock_granularity_ns: float = 0.0,
-            backend: str = "scalar") -> STAReport:
+            backend: str = "scalar", device=None) -> STAReport:
     """Application STA.  ``backend`` selects the engine: ``"scalar"`` is
-    this module's node-by-node walk (the oracle), the only one ported;
-    ``"numpy"`` / ``"torch"`` name the lowered whole-level propagation and
-    raise ``NotImplementedError``.  The sampled-delay path (``rng``) draws
-    one factor per component *instance* in visit order, so it always runs
-    on the scalar walk regardless of ``backend``."""
+    this module's node-by-node walk (the oracle); ``"numpy"`` / ``"torch"``
+    run the lowered whole-level propagation of
+    :mod:`repro_torch.core.sta_vec`, bit-identical to it (``device`` is
+    read by ``"torch"`` only; ``None`` is the card).  The sampled-delay
+    path (``rng``) draws one factor per component *instance* in visit
+    order, so it always runs on the scalar walk regardless of
+    ``backend``."""
     if backend != "scalar" and rng is None:
-        _vectorized_engine(backend)
+        from .sta_vec import analyze_vec
+        return analyze_vec(design, tm, backend=backend,
+                           clock_granularity_ns=clock_granularity_ns,
+                           device=device)
     nl, fabric = design.netlist, design.fabric
     sample = _Sampler(rng, sigma_lo)
     overhead = tm.sequential_overhead()

@@ -1,15 +1,20 @@
-"""The port's kernels and its smoke trainer on the card.
+"""The port's kernels, its smoke trainer and its compiler engines on the card.
 
-Every test here needs an NVIDIA card and skips without one. The module
-imports torch, numpy and the port only (no jax), so that it also collects
-on a machine with a card and no JAX:
+Every test marked ``requires_cuda`` needs an NVIDIA card and skips without
+one. The module imports torch, numpy and the port only (no jax), so that it
+also collects on a machine with a card and no JAX:
 
     PYTHONPATH=src python -m pytest -q -m requires_cuda tests/test_torch_card.py
 
 Each kernel is held to its plain version at the bars of ``chip_smoke.py``:
 f32 within 2e-3, bf16 within rtol 1e-2 / atol 1e-3, max-plus bit for bit.
+The compiler's torch engines are held to the port's host engines: STA bit
+for bit, place and route by legality, determinism and A*'s wirelength.
+The last test runs anywhere: without CUDA, the torch engines raise unless
+the CPU was asked for.
 """
 
+import copy
 import importlib
 
 import numpy as np
@@ -23,6 +28,14 @@ from repro_torch.kernels.flash_decode import (flash_decode,  # noqa: E402
                                               flash_decode_ref)
 from repro_torch.kernels.maxplus import (NEG_INF, maxplus_matmul,  # noqa: E402
                                          maxplus_matmul_plain)
+from repro_torch.core import (ALL_APPS, CascadeCompiler,  # noqa: E402
+                              IncrementalSTA, PassConfig, PostPnRParams,
+                              analyze, analyze_vec, evaluate_design,
+                              post_pnr_pipeline)
+from repro_torch.core.interconnect import Fabric  # noqa: E402
+from repro_torch.core.netlist import extract_netlist  # noqa: E402
+from repro_torch.core.place import PlaceParams, place  # noqa: E402
+from repro_torch.core.route import RouteParams, check_legal, route  # noqa: E402
 from repro_torch.launch import train as T  # noqa: E402
 
 FD_MOD = importlib.import_module("repro_torch.kernels.flash_decode.flash_decode")
@@ -137,3 +150,107 @@ def test_train_smoke_runs_through_the_tensor_cores(card):
     assert (flash_attention.launches, flash_attention.tensor_core_launches,
             flash_attention.cuda_core_launches) == (want, want, 0)
     assert len(r.losses) == 4 and all(np.isfinite(r.losses))
+
+
+# ---------------------------------------------------------------------------
+# the compiler's torch engines
+# ---------------------------------------------------------------------------
+
+
+def _routed(app, unroll):
+    c = CascadeCompiler(device="cpu")
+    r = c.compile(ALL_APPS[app], PassConfig(post_pnr=False, place_moves=40),
+                  unroll=unroll)
+    return r.design, c.timing
+
+
+def _report(rep):
+    return (rep.critical_path_ns, rep.max_freq_mhz, rep.clock_period_ns,
+            rep.n_segments, rep.critical_path, rep.arrival_out)
+
+
+@pytest.mark.requires_cuda
+def test_torch_sta_on_the_card_equals_numpy_engine(card):
+    """On the card: the float64 level loop gives the numpy engine's report
+    bit for bit, and drives the post-PnR loop to the same state."""
+    for app, unroll in (("gaussian", 1), ("harris", 1), ("mttkrp", 2)):
+        design, tm = _routed(app, unroll)
+        want = analyze(design, tm, backend="numpy")
+        assert _report(analyze(design, tm)) == _report(want)
+        assert _report(analyze(design, tm, backend="torch")) == _report(want)
+        assert (_report(analyze_vec(design, tm, backend="torch",
+                                    device="cuda")) == _report(want))
+        runs = []
+        for backend in ("numpy", "torch"):
+            d = copy.deepcopy(design)
+            res = post_pnr_pipeline(d, tm, PostPnRParams(max_iters=40),
+                                    sta_backend=backend)
+            runs.append((res.history, res.stop_reason, res.registers_added,
+                         {k: sorted(rb.reg_hops)
+                          for k, rb in d.routes.items()}))
+        assert runs[0] == runs[1]
+
+
+@pytest.mark.requires_cuda
+def test_torch_placer_on_the_card_legal_and_deterministic(card):
+    fabric = Fabric()
+    nl = extract_netlist(ALL_APPS["harris"].build(1))
+    pp = PlaceParams(seed=2, moves_per_node=60, backend="torch")
+    s = {}
+    a = place(nl, fabric, pp, stats=s)
+    check_legal(nl, a, fabric)
+    assert place(nl, fabric, pp) == a
+    assert s["devices"] == 1 and len(s["replica_costs"]) == s["replicas"]
+
+
+@pytest.mark.requires_cuda
+def test_torch_router_on_the_card_legal_and_at_most_astar(card):
+    fabric = Fabric()
+    nl = extract_netlist(ALL_APPS["harris"].build(1))
+    pl = place(nl, fabric, PlaceParams(seed=2, moves_per_node=60))
+    got = route(nl, pl, fabric, RouteParams(backend="torch"))
+    check_legal(nl, pl, fabric, got)
+    assert got.total_wirelength() <= route(nl, pl, fabric).total_wirelength()
+    # no RNG, first-index tie-breaks, the same float32 sums: the same trees
+    # run to run, and on the card as on the CPU
+    for other in (route(nl, pl, fabric, RouteParams(backend="torch")),
+                  route(nl, pl, fabric, RouteParams(backend="torch"),
+                        device="cpu")):
+        assert all(got.routes[k].hops == other.routes[k].hops
+                   for k in got.routes)
+
+
+_NO_CUDA_CALLS = ("analyze", "analyze_vec", "IncrementalSTA", "post_pnr",
+                  "evaluate_design", "place", "route", "compile_pnr",
+                  "compile_sta")
+
+
+@pytest.mark.parametrize("call", _NO_CUDA_CALLS)
+def test_torch_engines_raise_without_cuda_unless_cpu_asked(call,
+                                                           monkeypatch):
+    """No quiet fallback: ``device=None`` means the card, and without one
+    every torch engine raises."""
+    design, tm = _routed("gaussian", 1)
+    nl = extract_netlist(ALL_APPS["vecadd"].build(1))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = {
+        "analyze": lambda: analyze(design, tm, backend="torch"),
+        "analyze_vec": lambda: analyze_vec(design, tm, backend="torch"),
+        "IncrementalSTA": lambda: IncrementalSTA(design, tm,
+                                                 backend="torch"),
+        "post_pnr": lambda: post_pnr_pipeline(copy.deepcopy(design), tm,
+                                              sta_backend="torch"),
+        "evaluate_design": lambda: evaluate_design(
+            design, tm, CascadeCompiler().energy, 10, sta_backend="torch"),
+        "place": lambda: place(nl, Fabric(), PlaceParams(backend="torch")),
+        "route": lambda: route(nl, place(nl, Fabric()), Fabric(),
+                               RouteParams(backend="torch")),
+        "compile_pnr": lambda: CascadeCompiler().compile(
+            ALL_APPS["vecadd"], PassConfig(pnr_backend="torch",
+                                           place_moves=2)),
+        "compile_sta": lambda: CascadeCompiler().compile(
+            ALL_APPS["vecadd"], PassConfig(sta_backend="torch",
+                                           place_moves=2)),
+    }
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        calls[call]()

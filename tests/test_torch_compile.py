@@ -24,10 +24,8 @@ from repro_torch.core import (ALL_APPS, CONTROL_APPS, DENSE_APPS,  # noqa: E402
 from repro_torch.core.netlist import design_digest  # noqa: E402
 from repro_torch.core.sta import timing_matrix  # noqa: E402
 
-# the package exports functions named like these modules
-place_mod, route_mod, sim_mod, sta_mod = (
-    importlib.import_module(f"repro_torch.core.{m}")
-    for m in ("place", "route", "sim", "sta"))
+# the package exports a function named like this module
+sim_mod = importlib.import_module("repro_torch.core.sim")
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -97,8 +95,7 @@ def test_pass_config_defaults_match_reference(field, factory):
 def test_pass_config_keeps_only_reference_fields():
     ref_fields = {f.name for f in dataclasses.fields(RefPassConfig)}
     assert set(_FIELDS) <= ref_fields
-    assert {"pnr_replicas", "power_cap_mw", "explore",
-            "region"}.isdisjoint(_FIELDS)
+    assert {"power_cap_mw", "explore", "region"}.isdisjoint(_FIELDS)
 
 
 def _compile_with(**kw):
@@ -112,28 +109,10 @@ def _simulate(backend):
                          if nd.kind == "input"}, 4, backend=backend)
 
 
-@pytest.mark.parametrize("what,backend", [
-    ("pnr", "torch"), ("sta", "numpy"), ("sta", "torch"),
-    ("analyze", "torch"), ("sim", "numpy"), ("sim", "torch"),
-    ("place", "torch"), ("route", "torch")])
+@pytest.mark.parametrize("what,backend", [("sim", "numpy"), ("sim", "torch")])
 def test_unported_backends_raise(what, backend):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if what == "pnr":
-            _compile_with(pnr_backend=backend)
-        elif what == "sta":
-            _compile_with(sta_backend=backend)
-        elif what == "analyze":
-            c = CascadeCompiler()
-            r = c.compile(DENSE_APPS["gaussian"],
-                          PassConfig.unpipelined(place_moves=2))
-            sta_mod.analyze(r.design, c.timing, backend=backend)
-        elif what == "sim":
-            _simulate(backend)
-        elif what == "place":
-            place_mod.place(None, None, place_mod.PlaceParams(backend=backend))
-        else:
-            route_mod.route(None, {}, None,
-                            route_mod.RouteParams(backend=backend))
+        _simulate(backend)
 
 
 @pytest.mark.parametrize("what", ["pnr", "sta", "sim"])
@@ -164,8 +143,8 @@ def test_backend_env_knobs(monkeypatch, var, fn, value, want):
 
 
 _LAZY = re.compile(
-    r"^\s*from\s+\.(place_jax|route_jax|sta_vec|sim_vec|cache)\b|"
-    r"^\s*from\s+\.\s+import\s+(place_jax|route_jax|sta_vec|sim_vec|cache)\b",
+    r"^\s*from\s+\.(sim_vec|cache)\b|"
+    r"^\s*from\s+\.\s+import\s+(sim_vec|cache)\b",
     re.MULTILINE)
 
 
