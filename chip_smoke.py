@@ -76,6 +76,19 @@ lines:
              pnr_backend=sta_backend="torch" (compiled and verified, beside
              the host run), and with sta_backend="torch" alone the host
              run's design digests and the three STRAIGHT_LINE_PINS.
+7c. sim    — the vectorized simulator (benchmarks/sim_throughput.py's
+             workloads, seed 0): every dense and control app at 1024 cycles
+             and harris at 4096, every sparse app at 64 tokens, through
+             simulate / simulate_sparse with backend="torch" (the sim_dense
+             and sim_sparse kernels, one launch a call; launch counts
+             checked), held bit for bit to the interpreter, numpy and the
+             kernels' plain versions on the card; the harris x 4096 ratio
+             against the interpreter (the reference's contract: >= 10x;
+             fails below 1x), the kernels' device ms and one traced harris
+             run; Table I's ten routed netlists through equivalent(n=32) on
+             all three backends and their 128-cycle streams against the
+             plain version; the deadlock diagnostic of a starved graph,
+             identical on every backend.
 8. maxplus — the max-plus kernel against its plain version (bit for bit, in
              f32) at the reference test's shapes, at every closure size of
              the path, ragged, with half the entries at the NEG_INF floor,
@@ -642,11 +655,12 @@ def phase_profile(r) -> None:
 
 
 def device_profile(phase: str, what: str, step, reps: int,
-                   watch: str = "") -> None:
+                   watch: str = "") -> int:
     """Busy time of the device kernels of ``reps`` warm calls of ``step``,
     the device's idle share over the span from the first kernel's start to
     the last one's end, the kernels that take the most time, and those
-    whose name holds ``watch`` wherever they rank."""
+    whose name holds ``watch`` wherever they rank. Returns the number of
+    device kernels recorded."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -661,7 +675,7 @@ def device_profile(phase: str, what: str, step, reps: int,
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
         log(phase, "no device time recorded: not measured")
-        return
+        return 0
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     span = (max(e.time_range.end for e in kernels)
             - min(e.time_range.start for e in kernels)) / 1e3
@@ -677,6 +691,7 @@ def device_profile(phase: str, what: str, step, reps: int,
         if rank <= 8 or (watch and watch in name):
             log(phase, f"{ms:8.3f} ms {100 * ms / busy:5.1f}%  x{n:<4d} "
                 f"#{rank} {name[:90]}")
+    return len(kernels)
 
 
 def phase_train(card: str) -> int:
@@ -1413,6 +1428,319 @@ def phase_engines(dev, card: str, table1: dict) -> None:
         f"{card}")
 
 
+# the simulator: benchmarks/sim_throughput.py's workloads (seed 0: every
+# dense and control app at 1024 cycles, harris at 4096, every sparse app at
+# 64 tokens with max_cycles 64 x 40), Table I's routed netlists through the
+# compiler's verify check (equivalent, n = 32) and a graph that deadlocks
+SIM_SEED, SIM_CYCLES, SIM_HARRIS_CYCLES, SIM_TOKENS = 0, 1024, 4096, 64
+SIM_WARM = 3                    # warm repeats, best taken, as the benchmark
+SIM_NETLIST_CYCLES = 128
+# 32-bit integer ops at the H100's f32 peak outside the tensor cores (its
+# int32 rate is at most that)
+INT32_OPS_PER_S = PEAK_FLOPS[torch.float32]
+
+
+def sim_inputs(g, length: int, rng) -> dict:
+    return {n: rng.integers(0, 0x10000, size=length).tolist()
+            for n, nd in g.nodes.items() if nd.kind == "input"}
+
+
+def best_s(fn, repeat: int):
+    """(best host seconds of ``repeat`` calls, the last call's result)."""
+    best, out = float("inf"), None
+    for _ in range(repeat):
+        t0 = time.perf_counter()
+        out = fn()
+        best = min(best, time.perf_counter() - t0)
+    return best, out
+
+
+def event_ms(fn, reps: int) -> float:
+    """Device ms per call over ``reps`` calls, between two CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def sim_bound(nbytes: int, ops: int):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def stream_err(got: dict, want: dict) -> int:
+    """Largest absolute difference between two sets of output streams,
+    which must have the same names and lengths."""
+    if got.keys() != want.keys() or any(len(got[k]) != len(want[k])
+                                        for k in got):
+        raise RuntimeError("sim: the streams' names or lengths differ")
+    return max((abs(a - b) for k in got for a, b in zip(got[k], want[k])),
+               default=0)
+
+
+def deadlock_message(run) -> str:
+    """The RuntimeError ``run`` raises; raises if it does not."""
+    try:
+        run()
+    except RuntimeError as e:
+        return str(e)
+    raise AssertionError("sim: the starved graph did not deadlock")
+
+
+def starved_graph():
+    """tests/test_sim_backends.py's deadlock: ``b`` dries up after one
+    token, so ``mix`` starves on its port 1 with one token of ``a`` left."""
+    from repro_torch.core.dfg import DFG, INPUT, OUTPUT, PE
+    g = DFG("starve")
+    a, b = g.add(INPUT, name="a"), g.add(INPUT, name="b")
+    pe = g.add(PE, name="mix", op="add")
+    g.connect(a, pe, port=0)
+    g.connect(b, pe, port=1)
+    o = g.add(OUTPUT, name="o")
+    g.connect(pe, o)
+    return g.validate()
+
+
+def trace_sim_child() -> None:
+    """One traced harris run through ``simulate(backend="torch")``, warm:
+    the device kernels, busy time and idle share (run by ``phase_sim`` in a
+    process of its own)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core import DENSE_APPS, simulate
+    g = DENSE_APPS["harris"].build(1)
+    ins = sim_inputs(g, SIM_HARRIS_CYCLES, np.random.default_rng(SIM_SEED))
+    if not device_profile(
+            "sim", f"harris x {SIM_HARRIS_CYCLES} cycles through "
+            f"simulate(backend='torch')",
+            lambda: simulate(g, ins, SIM_HARRIS_CYCLES, backend="torch"),
+            reps=1, watch="sim_dense"):
+        raise RuntimeError("sim: the traced harris run recorded no device "
+                           "kernel")
+
+
+def phase_sim(dev, card: str, table1: dict):
+    """The vectorized simulator: interpreter, numpy, the kernels through
+    ``simulate(backend="torch")`` and their plain versions on the card,
+    bit for bit. Returns the kernels' entries of the results line."""
+    from repro_torch.core import (CONTROL_APPS, DENSE_APPS, SPARSE_APPS,
+                                  clear_ref_memo, equivalent, simulate,
+                                  simulate_sparse)
+    from repro_torch.core.sim_vec import (_feed_matrix, _input_matrix,
+                                          lower_dense, lower_sparse)
+    from repro_torch.kernels.sim import (sim_dense, sim_dense_plain,
+                                         sim_sparse, sim_sparse_plain,
+                                         stage_plan)
+    from repro_torch.kernels.sim.sim import pack_dense, pack_sparse
+
+    t_phase = time.perf_counter()
+    dense = [(n, s, SIM_HARRIS_CYCLES if n == "harris" else SIM_CYCLES)
+             for n, s in list(DENSE_APPS.items()) + list(CONTROL_APPS.items())]
+    sparse_rng = np.random.default_rng(SIM_SEED)
+    sparse = [(n, s, sim_inputs(s.build(1), SIM_TOKENS, sparse_rng))
+              for n, s in SPARSE_APPS.items()]
+    starve = starved_graph()
+
+    # the main path: the entry points with backend="torch", counts from 0
+    sim_dense.launches = sim_sparse.launches = 0
+    runs = {}
+    for name, spec, cycles in dense:
+        g = spec.build(1)
+        ins = sim_inputs(g, cycles, np.random.default_rng(SIM_SEED))
+        first, got = best_s(lambda: simulate(g, ins, cycles, backend="torch"),
+                            1)
+        warm, again = best_s(lambda: simulate(g, ins, cycles,
+                                              backend="torch"), SIM_WARM)
+        if again != got:
+            raise RuntimeError(f"sim {name}: the kernel differs run to run")
+        runs[name] = (g, ins, cycles, got, first, warm)
+    for name, spec, ins in sparse:
+        g, mc = spec.build(1), SIM_TOKENS * 40
+        first, got = best_s(lambda: simulate_sparse(g, ins, mc,
+                                                    backend="torch"), 1)
+        warm, again = best_s(lambda: simulate_sparse(g, ins, mc,
+                                                     backend="torch"),
+                             SIM_WARM)
+        if again != got:
+            raise RuntimeError(f"sim {name}: the kernel differs run to run")
+        runs[name] = (g, ins, mc, got, first, warm)
+    verify_in = {}
+    for (app, flow), r in table1.items():
+        ref, final = DENSE_APPS[app].build(1), r.design.netlist.to_dfg()
+        rng = np.random.default_rng(0)             # the verify pass's inputs
+        ins = {n: rng.integers(0, 255, size=48).tolist()
+               for n, nd in ref.nodes.items() if nd.kind == "input"}
+        clear_ref_memo()
+        ok = equivalent(ref, final, ins, n=32, backend="torch")
+        streams = simulate(final, ins, SIM_NETLIST_CYCLES, backend="torch")
+        verify_in[(app, flow)] = (ref, final, ins, ok, streams)
+    starve_in = {"a": [1, 2, 3], "b": [5]}
+    diag = {"torch": deadlock_message(lambda: simulate_sparse(
+        starve, starve_in, 64, backend="torch"))}
+    torch.cuda.synchronize()
+    launches = {"dense": sim_dense.launches, "sparse": sim_sparse.launches}
+    want = {"dense": len(dense) * (1 + SIM_WARM) + 3 * len(table1),
+            "sparse": len(sparse) * (1 + SIM_WARM) + 1}
+    if launches != want:
+        raise RuntimeError(f"sim launches {launches}, want {want}")
+    log("sim", f"main path: sim_dense {launches['dense']} launches, "
+        f"sim_sparse {launches['sparse']} (one a simulate call)")
+
+    # the same runs on the interpreter, numpy and the plain versions
+    ratio, results, err = None, {}, {"dense": 0, "sparse": 0}
+    for name, spec, cycles in dense:
+        g, ins, _, got, first, warm = runs[name]
+        t_int, want_ = best_s(lambda: simulate(g, ins, cycles), 1)
+        t_np, np_out = best_s(lambda: simulate(g, ins, cycles,
+                                               backend="numpy"), 1)
+        prog = lower_dense(g)
+        in_t = torch.from_numpy(_input_matrix(prog, ins, cycles)).to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = sim_dense_plain(prog, in_t, cycles)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        plain_out = {o: plain[i].tolist()
+                     for i, o in enumerate(prog.output_names)}
+        err["dense"] = max(err["dense"], stream_err(got, plain_out))
+        if not (got == want_ == np_out == plain_out):
+            raise RuntimeError(f"sim {name}: kernel, plain version, numpy "
+                               f"and interpreter streams differ")
+        n_st = len(stage_plan(prog))
+        log("sim", f"dense {name} ({prog.n_nodes} nodes, {n_st} stages) x "
+            f"{cycles} cycles: kernel == plain == numpy == interpreter on "
+            f"{len(got)} output stream(s); s interpreter {t_int:.4f}, numpy "
+            f"{t_np:.4f}, torch {first:.4f} first / {warm:.4f} warm "
+            f"({1e6 * warm / cycles:.2f} us a cycle), plain on the card "
+            f"{plain_s:.3f}")
+        if name == "harris":
+            ratio = t_int / warm
+            ms = event_ms(lambda: sim_dense(prog, in_t, cycles), 5)
+            nbytes = 8 * (len(prog.input_pos) + len(prog.output_pos)) \
+                * cycles + 4 * pack_dense(prog, cycles)[1].size
+            ops = cycles * (prog.n_nodes - len(prog.input_pos)
+                            - len(prog.const_pos))
+            bound_ms, bound_by = sim_bound(nbytes, ops)
+            results["sim_dense"] = {
+                "ms": ms, "plain_ms": 1e3 * plain_s, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": None}
+            log("sim", f"harris x {cycles} cycles: warm torch is "
+                f"{ratio:.2f}x the interpreter (the reference's contract for "
+                f"its warm device backend: >= 10x); kernel {ms:.4f} ms a "
+                f"call on the device ({1e6 * ms / cycles:.1f} ns a "
+                f"cycle, {n_st} stages + 2 barriers a cycle), bound "
+                f"{bound_ms:.3g} ms ({bound_by}; latency-bound: roofline "
+                f"share {bound_ms / ms:.2g})")
+            # in this process, after the earlier phases' traces, the
+            # profiler recorded no device activity for this run; a fresh
+            # process records it
+            sys.stdout.flush()
+            subprocess.run([sys.executable, "-c",
+                            "import chip_smoke; chip_smoke.trace_sim_child()"],
+                           cwd=ROOT, check=True, timeout=300)
+    for name, spec, _ in sparse:
+        g, ins, mc, got, first, warm = runs[name]
+        t_int, want_ = best_s(lambda: simulate_sparse(g, ins, mc), 1)
+        t_np, np_out = best_s(lambda: simulate_sparse(g, ins, mc,
+                                                      backend="numpy"), 1)
+        prog = lower_sparse(g)
+        feed, frem = _feed_matrix(prog, ins)
+        feed_t, frem_t = (torch.from_numpy(x).to(dev) for x in (feed, frem))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = sim_sparse_plain(prog, feed_t, frem_t, mc)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        kern = sim_sparse(prog, feed_t, frem_t, mc)
+        same = all(torch.equal(a, b) for i, (a, b) in enumerate(
+            zip(kern, plain)) if i != 2)
+        for o in range(len(prog.output_names)):
+            k = int(plain[3][o])
+            same = same and torch.equal(kern.outm[o, :k], plain[2][o, :k])
+        plain_out = {o: plain[2][i, :int(plain[3][i])].tolist()
+                     for i, o in enumerate(prog.output_names)}
+        err["sparse"] = max(err["sparse"], stream_err(got, plain_out))
+        if not (same and got == want_ == np_out == plain_out):
+            raise RuntimeError(f"sim {name}: kernel, plain version, numpy "
+                               f"and interpreter differ")
+        rounds = int(plain.rounds)
+        log("sim", f"sparse {name} ({prog.n_buf} buffers, "
+            f"{len(prog.ev_names)} nodes) x {SIM_TOKENS} tokens: kernel == "
+            f"plain (end state and streams) == numpy == interpreter; "
+            f"{rounds} rounds; s interpreter {t_int:.4f}, numpy {t_np:.4f}, "
+            f"torch {first:.4f} first / {warm:.4f} warm, plain on the card "
+            f"{plain_s:.3f}")
+        if name == "mttkrp":
+            ms = event_ms(lambda: sim_sparse(prog, feed_t, frem_t, mc), 5)
+            n_out_tok = int(plain.ocnt.sum())
+            nbytes = 8 * (int(frem.sum()) + n_out_tok) \
+                + 4 * pack_sparse(prog, feed.shape, mc)[1].size
+            items = (len(prog.ev_names) + len(prog.output_names)
+                     + len(prog.input_names) + prog.n_buf)
+            bound_ms, bound_by = sim_bound(nbytes, rounds * items)
+            results["sim_sparse"] = {
+                "ms": ms, "plain_ms": 1e3 * plain_s, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": None}
+            log("sim", f"sparse mttkrp: kernel {ms:.4f} ms a call on the "
+                f"device ({1e3 * ms / rounds:.2f} us a round), bound "
+                f"{bound_ms:.3g} ms ({bound_by}; latency-bound: roofline "
+                f"share {bound_ms / ms:.2g})")
+
+    t0 = time.perf_counter()
+    for (app, flow), (ref, final, ins, ok, streams) in verify_in.items():
+        oks = {"torch": ok}
+        for backend in ("interpreter", "numpy"):
+            clear_ref_memo()
+            oks[backend] = equivalent(ref, final, ins, n=32, backend=backend)
+        want_ = simulate(final, ins, SIM_NETLIST_CYCLES)
+        prog = lower_dense(final)
+        in_t = torch.from_numpy(_input_matrix(prog, ins,
+                                              SIM_NETLIST_CYCLES)).to(dev)
+        plain = sim_dense_plain(prog, in_t, SIM_NETLIST_CYCLES)
+        plain_out = {o: plain[i].tolist()
+                     for i, o in enumerate(prog.output_names)}
+        np_out = simulate(final, ins, SIM_NETLIST_CYCLES, backend="numpy")
+        if not all(oks.values()) or not (streams == want_ == np_out
+                                         == plain_out):
+            raise RuntimeError(f"sim Table I {app} {flow}: equivalent "
+                               f"{oks}, or the streams differ")
+        log("sim", f"Table I {app} {flow}: routed netlist {prog.n_nodes} "
+            f"nodes, {len(stage_plan(prog))} stages; equivalent(n=32) True "
+            f"on interpreter, numpy, torch; {SIM_NETLIST_CYCLES}-cycle "
+            f"streams kernel == plain == numpy == interpreter")
+    log("sim", f"Table I: {len(verify_in)} verify checks on 3 backends in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    for backend, device in (("interpreter", None), ("numpy", None),
+                            ("torch", "cpu")):
+        diag[backend + (f" on {device}" if device else "")] = \
+            deadlock_message(lambda: simulate_sparse(
+                starve, starve_in, 64, backend=backend, device=device))
+    if len(set(diag.values())) != 1 or "p1<-b" not in diag["torch"]:
+        raise RuntimeError(f"sim deadlock diagnostics differ: {diag}")
+    log("sim", f"deadlock diagnostic identical on {', '.join(diag)}: "
+        f"{diag['torch']!r}")
+    log("sim", f"phase took {time.perf_counter() - t_phase:.1f} s on {card}")
+    if ratio is None or ratio <= 1:
+        raise RuntimeError(f"sim: the kernel does not beat the interpreter "
+                           f"on harris x {SIM_HARRIS_CYCLES} ({ratio})")
+    src = "src/repro_torch/kernels/sim/csrc/"
+    return [
+        {"name": "sim_dense", "route": "cuda", "source": src + "sim_dense.cu",
+         "replaces": "src/repro/core/sim_vec.py:440",
+         "launches": launches["dense"], "max_abs_err": err["dense"],
+         **results["sim_dense"]},
+        {"name": "sim_sparse", "route": "cuda",
+         "source": src + "sim_sparse.cu",
+         "replaces": "src/repro/core/sim_vec.py:877",
+         "launches": launches["sparse"], "max_abs_err": err["sparse"],
+         **results["sim_sparse"]}]
+
+
 def main() -> int:
     card = phase_device()
     # f32 comparisons run in full f32: no TF32 in matmuls or convolutions
@@ -1431,13 +1759,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     path, mp_launches, st_launches, table1 = phase_compile(dev, card)
     phase_engines(dev, card, table1)
+    sim = phase_sim(dev, card, table1)
     maxplus = phase_maxplus(dev, path)
     stencil = phase_stencil(dev)
     maxplus["launches"], stencil["launches"] = mp_launches, st_launches
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys}
-                                  for e in (decode, attn, maxplus, stencil)]}),
+                                  for e in (decode, attn, maxplus, stencil,
+                                            *sim)]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

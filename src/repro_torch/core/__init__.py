@@ -8,7 +8,10 @@ simulator and ``CascadeCompiler`` over ``DEFAULT_SCHEDULE``.  The
 reference's jitted device engines are torch programs here: the lowered
 STA (``sta_vec``, ``sta_backend="numpy"``/``"torch"``), the
 parallel-tempering placer (``place_torch``) and the batched wavefront
-router (``route_torch``), both ``pnr_backend="torch"``.
+router (``route_torch``), both ``pnr_backend="torch"``; and the
+vectorized simulator (``sim_vec``, sim backends ``"numpy"`` and
+``"torch"``, the latter through the ``sim_dense`` and ``sim_sparse``
+kernels on the card).
 ``sta.timing_matrix`` feeds ``repro_torch.kernels.maxplus.longest_path``.
 
 Public API:
@@ -43,6 +46,9 @@ from .schedule import Schedule, schedule_round2
 from .sim import (clear_ref_memo, dfg_fingerprint, equivalent,
                   output_latency, simulate, simulate_sparse,
                   sparse_equivalent)
+from .sim_vec import (DenseProgram, SimLoweringError, SparseProgram,
+                      lower_dense, lower_sparse, simulate_dense_vec,
+                      simulate_sparse_vec)
 from .sta import (STAReport, analyze, longest_path_maxplus,
                   sdf_simulate_fmax, timing_matrix)
 from .sta_vec import IncrementalSTA, LoweredSTA, analyze_vec, lower_design
@@ -74,5 +80,7 @@ __all__ = [
     "add_soft_flush", "remove_flush",
     "simulate", "simulate_sparse", "equivalent", "sparse_equivalent",
     "output_latency", "clear_ref_memo", "dfg_fingerprint",
+    "SimLoweringError", "DenseProgram", "SparseProgram", "lower_dense",
+    "lower_sparse", "simulate_dense_vec", "simulate_sparse_vec",
     "max_copies", "subfabric_for",
 ]

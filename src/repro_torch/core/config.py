@@ -18,11 +18,10 @@ The knobs of the default compile flow:
                          into ``PassConfig.sta_backend``; the library never
                          reads it implicitly.
 
-Every place, route and STA backend runs in this package (``torch`` on the
-compiler's device); of the simulators only the ``interpreter`` does.  The
-``numpy`` and ``torch`` simulator names are kept so that a config means the
-same here as in the reference, and raise ``NotImplementedError`` where they
-are dispatched (see ``ROADMAP.md``).
+Every place, route, STA and simulator backend runs in this package
+(``torch`` on the caller's device: the compiler's for place, route and
+STA, the ``device=`` argument of ``simulate`` and ``simulate_sparse`` for
+the simulator).  The simulator's ``torch`` is the reference's ``jax``.
 """
 
 from __future__ import annotations
@@ -48,8 +47,9 @@ def env_flag(name: str, default: bool = False) -> bool:
 PNR_BACKENDS = ("scalar", "numpy", "torch")
 
 #: The simulator backends (``sim`` ``backend=`` argument).  ``interpreter``
-#: is the deque-and-dict oracle; ``numpy`` and ``torch`` name the
-#: vectorized lowerings, not ported yet.
+#: is the deque-and-dict oracle; ``numpy`` and ``torch`` run the vectorized
+#: lowerings of :mod:`repro_torch.core.sim_vec`, ``torch`` through the
+#: ``sim_dense`` / ``sim_sparse`` kernels on the card.
 SIM_BACKENDS = ("interpreter", "numpy", "torch")
 
 #: The application-STA backends (``PassConfig.sta_backend`` / the

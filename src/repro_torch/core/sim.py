@@ -14,9 +14,12 @@ Two simulators:
                     preserves stream contents and introduces no deadlock.
 
 Both accept a ``backend`` argument (``"interpreter"`` / ``"numpy"`` /
-``"torch"``, default interpreter).  Only the interpreter is ported: the
-vectorized lowerings (``"numpy"`` / ``"torch"``) raise
-``NotImplementedError``.  Drivers read ``CASCADE_SIM_BACKEND`` through
+``"torch"``, default interpreter): the vectorized backends in
+:mod:`repro_torch.core.sim_vec` lower the graph once to tensor form and are
+bit-identical to the interpreter over the 16-bit value domain.  ``torch``
+runs on ``device`` (default: the card, as one launch of a hand-written
+CUDA kernel; without CUDA it raises unless ``device="cpu"``, where it runs
+the kernels' plain versions).  Drivers read ``CASCADE_SIM_BACKEND`` through
 :func:`repro_torch.core.config.sim_backend`; library code only ever takes
 the explicit argument.
 
@@ -26,7 +29,7 @@ the ``[PRED_PORT, CONTROL_PORT)`` band resolve to the consuming node's
 PEs); a MEM accumulator with a false predicate holds its state — in the
 sparse simulator it still consumes its input tokens and emits the held
 value (value-gating), so the Kahn network's firing schedule is
-predicate-independent, so its deadlock markings are unique.
+predicate-independent and all three backends agree on deadlock markings.
 """
 
 from __future__ import annotations
@@ -87,22 +90,24 @@ def _dispatch_backend(backend: Optional[str]) -> str:
         raise ValueError(
             f"unknown sim backend {backend!r}; expected one of "
             f"{SIM_BACKENDS}")
-    if name != "interpreter":
-        raise NotImplementedError(
-            f"sim backend {name!r} (the vectorized simulator) is not ported "
-            f"yet; see ROADMAP.md, 'sim_vec'")
     return name
 
 
 def simulate(g: DFG, inputs: Dict[str, Sequence[int]], cycles: int,
-             backend: Optional[str] = None) -> Dict[str, List[int]]:
+             backend: Optional[str] = None,
+             device=None) -> Dict[str, List[int]]:
     """Run ``g`` for ``cycles`` cycles; returns per-OUTPUT sampled streams.
 
     Sequential nodes (REG/RF/FIFO/MEM/pipelined PE) delay their result by
     ``cycle_latency()`` cycles; combinational PEs evaluate within the cycle.
-    ``backend`` must name the interpreter (the default).
+    ``backend`` selects the interpreter (default) or a vectorized backend
+    from :mod:`repro_torch.core.sim_vec`; ``device`` is read by ``torch``.
     """
-    _dispatch_backend(backend)
+    name = _dispatch_backend(backend)
+    if name != "interpreter":
+        from . import sim_vec
+        return sim_vec.simulate_dense_vec(g, inputs, cycles, backend=name,
+                                          device=device)
     return _simulate_interp(g, inputs, cycles)
 
 
@@ -219,8 +224,8 @@ def _memo_key(kind: str, g: DFG, inputs, backend: str) -> tuple:
     return (kind, dfg_fingerprint(g), _inputs_key(inputs), backend)
 
 
-def _ref_dense_outputs(g: DFG, inputs, cycles: int,
-                       backend: str) -> Dict[str, List[int]]:
+def _ref_dense_outputs(g: DFG, inputs, cycles: int, backend: str,
+                       device=None) -> Dict[str, List[int]]:
     key = _memo_key("dense", g, inputs, backend)
     with _REF_MEMO_LOCK:
         hit = _REF_MEMO.get(key)
@@ -229,7 +234,7 @@ def _ref_dense_outputs(g: DFG, inputs, cycles: int,
             ref_memo_stats["hits"] += 1
             return {n: s[:cycles] for n, s in hit[1].items()}
         ref_memo_stats["misses"] += 1
-    out = simulate(g, inputs, cycles, backend=backend)
+    out = simulate(g, inputs, cycles, backend=backend, device=device)
     with _REF_MEMO_LOCK:
         _REF_MEMO[key] = (cycles, out)
         _REF_MEMO.move_to_end(key)
@@ -238,8 +243,8 @@ def _ref_dense_outputs(g: DFG, inputs, cycles: int,
     return out
 
 
-def _ref_sparse_outputs(g: DFG, inputs, max_cycles: int,
-                        backend: str) -> Dict[str, List[int]]:
+def _ref_sparse_outputs(g: DFG, inputs, max_cycles: int, backend: str,
+                        device=None) -> Dict[str, List[int]]:
     key = _memo_key("sparse", g, inputs, backend) + (max_cycles,)
     with _REF_MEMO_LOCK:
         hit = _REF_MEMO.get(key)
@@ -248,7 +253,8 @@ def _ref_sparse_outputs(g: DFG, inputs, max_cycles: int,
             ref_memo_stats["hits"] += 1
             return hit[1]
         ref_memo_stats["misses"] += 1
-    out = simulate_sparse(g, inputs, max_cycles, backend=backend)
+    out = simulate_sparse(g, inputs, max_cycles, backend=backend,
+                          device=device)
     with _REF_MEMO_LOCK:
         _REF_MEMO[key] = (max_cycles, out)
         _REF_MEMO.move_to_end(key)
@@ -258,13 +264,14 @@ def _ref_sparse_outputs(g: DFG, inputs, max_cycles: int,
 
 
 def equivalent(ref: DFG, xform: DFG, inputs: Dict[str, Sequence[int]],
-               n: int = 64, backend: Optional[str] = None) -> bool:
+               n: int = 64, backend: Optional[str] = None,
+               device=None) -> bool:
     """True iff ``xform`` reproduces ``ref``'s output streams modulo latency."""
     name = _dispatch_backend(backend)
     lat_r, lat_x = output_latency(ref), output_latency(xform)
     cycles = n + max(max(lat_x.values(), default=0), max(lat_r.values(), default=0)) + 1
-    out_r = _ref_dense_outputs(ref, inputs, cycles, name)
-    out_x = simulate(xform, inputs, cycles, backend=name)
+    out_r = _ref_dense_outputs(ref, inputs, cycles, name, device)
+    out_x = simulate(xform, inputs, cycles, backend=name, device=device)
     for name_, stream_r in out_r.items():
         if name_ not in out_x:
             return False
@@ -345,15 +352,22 @@ def _deadlock_message(g: DFG, buf_len: Dict[Tuple[str, int], int],
 
 def simulate_sparse(g: DFG, inputs: Dict[str, Sequence[int]],
                     max_cycles: int = 100_000,
-                    backend: Optional[str] = None) -> Dict[str, List[int]]:
+                    backend: Optional[str] = None,
+                    device=None) -> Dict[str, List[int]]:
     """Token-level simulation with backpressure.
 
     Every non-FIFO node has an implicit 1-deep skid buffer per input; FIFO
     nodes have ``depth``-deep queues.  A node fires when every input port has
     a token and every successor buffer has space.  Raises on deadlock.
-    ``backend`` must name the interpreter (the default).
+    ``backend`` selects the interpreter (default) or a vectorized
+    fire-vector backend from :mod:`repro_torch.core.sim_vec`; ``device`` is
+    read by ``torch``.
     """
-    _dispatch_backend(backend)
+    name = _dispatch_backend(backend)
+    if name != "interpreter":
+        from . import sim_vec
+        return sim_vec.simulate_sparse_vec(g, inputs, max_cycles,
+                                           backend=name, device=device)
     return _simulate_sparse_interp(g, inputs, max_cycles)
 
 
@@ -435,7 +449,8 @@ def _simulate_sparse_interp(g: DFG, inputs: Dict[str, Sequence[int]],
 
 def sparse_equivalent(ref: DFG, xform: DFG,
                       inputs: Dict[str, Sequence[int]],
-                      backend: Optional[str] = None) -> bool:
+                      backend: Optional[str] = None, device=None) -> bool:
     name = _dispatch_backend(backend)
-    out_r = _ref_sparse_outputs(ref, inputs, 100_000, name)
-    return out_r == simulate_sparse(xform, inputs, backend=name)
+    out_r = _ref_sparse_outputs(ref, inputs, 100_000, name, device)
+    return out_r == simulate_sparse(xform, inputs, backend=name,
+                                    device=device)

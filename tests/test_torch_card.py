@@ -10,8 +10,10 @@ Each kernel is held to its plain version at the bars of ``chip_smoke.py``:
 f32 within 2e-3, bf16 within rtol 1e-2 / atol 1e-3, max-plus bit for bit.
 The compiler's torch engines are held to the port's host engines: STA bit
 for bit, place and route by legality, determinism and A*'s wirelength.
-The last test runs anywhere: without CUDA, the torch engines raise unless
-the CPU was asked for.
+The simulator kernels are held to their plain versions on the card and to
+the numpy backend, bit for bit. The last tests run anywhere: without CUDA,
+the torch engines and the torch sim backend raise unless the CPU was asked
+for.
 """
 
 import copy
@@ -30,12 +32,18 @@ from repro_torch.kernels.maxplus import (NEG_INF, maxplus_matmul,  # noqa: E402
                                          maxplus_matmul_plain)
 from repro_torch.core import (ALL_APPS, CascadeCompiler,  # noqa: E402
                               IncrementalSTA, PassConfig, PostPnRParams,
-                              analyze, analyze_vec, evaluate_design,
-                              post_pnr_pipeline)
+                              analyze, analyze_vec, equivalent,
+                              evaluate_design, lower_dense, lower_sparse,
+                              post_pnr_pipeline, simulate, simulate_sparse,
+                              sparse_equivalent)
+from repro_torch.core.dfg import DFG  # noqa: E402
+from repro_torch.core.sim_vec import _feed_matrix, _input_matrix  # noqa: E402
 from repro_torch.core.interconnect import Fabric  # noqa: E402
 from repro_torch.core.netlist import extract_netlist  # noqa: E402
 from repro_torch.core.place import PlaceParams, place  # noqa: E402
 from repro_torch.core.route import RouteParams, check_legal, route  # noqa: E402
+from repro_torch.kernels.sim import (sim_dense, sim_dense_plain,  # noqa: E402
+                                     sim_sparse, sim_sparse_plain)
 from repro_torch.launch import train as T  # noqa: E402
 
 FD_MOD = importlib.import_module("repro_torch.kernels.flash_decode.flash_decode")
@@ -254,3 +262,105 @@ def test_torch_engines_raise_without_cuda_unless_cpu_asked(call,
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[call]()
+
+
+def _sim_inputs(g, length):
+    rng = np.random.default_rng(0)
+    return {n: rng.integers(0, 0x10000, size=length).tolist()
+            for n, nd in g.nodes.items() if nd.kind == "input"}
+
+
+def _starved():
+    g = DFG("starve")
+    a, b = g.add("input", name="a"), g.add("input", name="b")
+    pe = g.add("pe", name="mix", op="add")
+    g.connect(a, pe, port=0)
+    g.connect(b, pe, port=1)
+    g.connect(pe, g.add("output", name="o"))
+    return g.validate()
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("app", ["harris", "clip_pipe"])
+def test_sim_dense_kernel_equals_plain_version(card, app):
+    """On the card: one launch runs all cycles of a dense (harris) and a
+    control (clip_pipe) app, bit for bit the plain version's and numpy's."""
+    g = ALL_APPS[app].build(1)
+    ins = _sim_inputs(g, 300)
+    prog = lower_dense(g)
+    x = torch.from_numpy(_input_matrix(prog, ins, 300)).cuda()
+    before = sim_dense.launches
+    got = sim_dense(prog, x, 300)
+    assert sim_dense.launches == before + 1
+    assert torch.equal(got, sim_dense_plain(prog, x, 300))
+    assert simulate(g, ins, 300, backend="torch") == \
+        simulate(g, ins, 300, backend="numpy")
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case", ["mttkrp", "deadlock"])
+def test_sim_sparse_kernel_equals_plain_version(card, case):
+    """On the card: the fixpoint's end state (occupancy, feed left, output
+    counts, the last round's flag, the rounds) and its streams equal the
+    plain version's, on a sparse app and on a graph that deadlocks."""
+    if case == "deadlock":
+        g, ins = _starved(), {"a": [1, 2, 3], "b": [5]}
+    else:
+        g = ALL_APPS[case].build(1)
+        ins = _sim_inputs(g, 64)
+    prog = lower_sparse(g)
+    feed, frem = (torch.from_numpy(t).cuda()
+                  for t in _feed_matrix(prog, ins))
+    before = sim_sparse.launches
+    got = sim_sparse(prog, feed, frem, 2560)
+    assert sim_sparse.launches == before + 1
+    want = sim_sparse_plain(prog, feed, frem, 2560)
+    for field in ("blen", "frem", "ocnt", "fired", "rounds"):
+        assert torch.equal(getattr(got, field), getattr(want, field)), field
+    for o in range(len(prog.output_names)):
+        k = int(want.ocnt[o])
+        assert torch.equal(got.outm[o, :k], want.outm[o, :k])
+    # both quiesce; the deadlock with feed tokens left
+    assert int(got.fired) == 0
+    assert bool(got.frem.any()) == (case == "deadlock")
+
+
+@pytest.mark.requires_cuda
+def test_sim_dense_raises_for_a_program_past_shared_memory(card):
+    """A latency ring longer than a block's shared memory is refused with a
+    clear error, never run on the plain version."""
+    g = DFG("deep")
+    d = g.add("mem", name="d", op="delay", depth=70_000, latency=1)
+    g.connect(g.add("input", name="i"), d)
+    g.connect(d, g.add("output", name="o"))
+    g.validate()
+    before = sim_dense.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        simulate(g, {"i": [1, 2, 3]}, 8, backend="torch")
+    assert sim_dense.launches == before
+
+
+_SIM_CALLS = ("simulate", "simulate_sparse", "equivalent",
+              "sparse_equivalent")
+
+
+@pytest.mark.parametrize("call", _SIM_CALLS)
+def test_torch_sim_backend_raises_without_cuda_unless_cpu_asked(call,
+                                                                 monkeypatch):
+    """``backend="torch"`` means the card; without one it raises, and with
+    ``device="cpu"`` it runs the plain versions and equals numpy."""
+    dense, sparse = ALL_APPS["gaussian"].build(1), ALL_APPS["vecadd"].build(1)
+    dins, sins = _sim_inputs(dense, 80), _sim_inputs(sparse, 8)
+    calls = {
+        "simulate": lambda **kw: simulate(dense, dins, 16, **kw),
+        "simulate_sparse": lambda **kw: simulate_sparse(sparse, sins, 256,
+                                                        **kw),
+        "equivalent": lambda **kw: equivalent(dense, dense.copy(), dins,
+                                              n=16, **kw),
+        "sparse_equivalent": lambda **kw: sparse_equivalent(
+            sparse, sparse.copy(), sins, **kw)}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        calls[call](backend="torch")
+    assert (calls[call](backend="torch", device="cpu")
+            == calls[call](backend="numpy"))
