@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA H100.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py               # every phase
+    python3 chip_smoke.py --phase sim   # phases 1, 2, Table I on the host, 7c
 
 Drives the port (``src/repro_torch``) only. Phases, each printing its own
 lines:
@@ -80,15 +81,21 @@ lines:
              workloads, seed 0): every dense and control app at 1024 cycles
              and harris at 4096, every sparse app at 64 tokens, through
              simulate / simulate_sparse with backend="torch" (the sim_dense
-             and sim_sparse kernels, one launch a call; launch counts
-             checked), held bit for bit to the interpreter, numpy and the
-             kernels' plain versions on the card; the harris x 4096 ratio
-             against the interpreter (the reference's contract: >= 10x;
-             fails below 1x), the kernels' device ms and one traced harris
-             run; Table I's ten routed netlists through equivalent(n=32) on
-             all three backends and their 128-cycle streams against the
-             plain version; the deadlock diagnostic of a starved graph,
-             identical on every backend.
+             and sim_sparse kernels, one launch of one warp a call; launch
+             counts checked), held bit for bit to the interpreter, numpy and
+             the kernels' plain versions on the card; the chain programs
+             (INPUT -> 1 or 33 chained adds, or 32 mixed ops and a ROM ->
+             OUTPUT, 4096 cycles) through both micro-op evaluations, held
+             the same way, with the fit of ns a stage and fixed ns a cycle
+             beside clocks.sm; the harris x 4096 ratio against the
+             interpreter (the reference's contract: >= 10x; fails below
+             1x), the kernels' device ms (back-to-back launches of a packed
+             program) beside their roofline bound and latency floor, the
+             host's split of a warm simulate and one traced harris run;
+             Table I's ten routed netlists through equivalent(n=32) on all
+             three backends and their 128-cycle streams against the plain
+             version; the deadlock diagnostic of a starved graph, identical
+             on every backend.
 8. maxplus — the max-plus kernel against its plain version (bit for bit, in
              f32) at the reference test's shapes, at every closure size of
              the path, ragged, with half the entries at the NEG_INF floor,
@@ -269,7 +276,8 @@ def phase_build() -> None:
         info = path.with_name(path.name + ".log")
         if info.exists():
             for line in info.read_text().splitlines():
-                if "registers" in line or "spill" in line:
+                if ("registers" in line or "spill" in line
+                        or "entry function" in line):
                     log("build", line.strip())
 
 
@@ -1152,6 +1160,21 @@ def phase_stencil(dev) -> dict:
             "max_abs_err": max_err, **results["gaussian"]}
 
 
+def table1_designs(c):
+    """Table I on the host: ([(label, CompileResult)], {(app, flow):
+    CompileResult}, the seconds it took)."""
+    from repro_torch.core import DENSE_APPS, PassConfig
+    designs, table1 = [], {}
+    t0 = time.perf_counter()
+    for app, spec in DENSE_APPS.items():
+        for flow in ("unpipelined", "full"):
+            r = c.compile(spec, getattr(PassConfig, flow)(
+                place_moves=TABLE1_MOVES), verify=True)
+            designs.append((f"{app} {flow}", r))
+            table1[(app, flow)] = r
+    return designs, table1, time.perf_counter() - t0
+
+
 def phase_compile(dev, card: str):
     """Returns (n, maxplus launches) of each longest path run, the maxplus
     and stencil launch counts of the path, and the host run's Table I as
@@ -1164,14 +1187,9 @@ def phase_compile(dev, card: str):
                                              maxplus_matmul)
 
     c = CascadeCompiler()
-    designs, table1 = [], {}
-    t0 = time.perf_counter()
+    designs, table1, secs = table1_designs(c)
     for app, spec in DENSE_APPS.items():
-        r0, r1 = (c.compile(spec, getattr(PassConfig, flow)(
-            place_moves=TABLE1_MOVES), verify=True)
-            for flow in ("unpipelined", "full"))
-        designs += [(f"{app} unpipelined", r0), (f"{app} full", r1)]
-        table1[(app, "unpipelined")], table1[(app, "full")] = r0, r1
+        r0, r1 = table1[(app, "unpipelined")], table1[(app, "full")]
         log("compile", f"{app}: critical path {r0.sta.critical_path_ns:.3f}"
             f" -> {r1.sta.critical_path_ns:.3f} ns (ratio "
             f"{r0.sta.critical_path_ns / r1.sta.critical_path_ns:.2f}), EDP "
@@ -1179,7 +1197,6 @@ def phase_compile(dev, card: str):
             f"{r0.power.runtime_s * 1e3:.3f} -> {r1.power.runtime_s * 1e3:.3f}"
             f" ms; compiled and verified in {r0.compile_seconds:.2f} + "
             f"{r1.compile_seconds:.2f} s")
-    secs = time.perf_counter() - t0
     log("compile", f"Table I: {len(designs)} designs (place_moves="
         f"{TABLE1_MOVES}, verify=True) in {secs:.2f} s on the host")
     for app, (digest, cp, regs) in STRAIGHT_LINE_PINS.items():
@@ -1438,6 +1455,20 @@ SIM_NETLIST_CYCLES = 128
 # 32-bit integer ops at the H100's f32 peak outside the tensor cores (its
 # int32 rate is at most that)
 INT32_OPS_PER_S = PEAK_FLOPS[torch.float32]
+# the chain programs: INPUT -> k chained PEs -> OUTPUT at 4096 cycles; the
+# add chains at k = 1 and 33 give ns a stage and the fixed ns a cycle, the
+# mixed chain (its ops in turn, then a ROM of a length that is not a power
+# of two) the cost of mixing micro-ops in a round
+SIM_CHAIN_CYCLES = 4096
+CHAIN_MIX = ("add", "mul", "xor", "sub", "shr", "min", "max", "or", "and",
+             "gt", "abs", "eq", "shl", "ne", "le", "ge")
+CHAIN_ROM = [(977 * t + 11) % 65536 for t in range(37)]
+# the latency floor, an assumption for reading, not a gate: one dependent
+# shared-memory step takes 30 SM clocks at the card's clocks.max.sm; a
+# sim_dense cycle is (stages + 1) steps (its stages and the sample), a
+# sim_sparse round 3 (the counts and read pointers, the heads, the stores)
+STEP_CLOCKS = 30
+SPARSE_ROUND_STEPS = 3
 
 
 def sim_inputs(g, length: int, rng) -> dict:
@@ -1473,6 +1504,31 @@ def sim_bound(nbytes: int, ops: int):
                                        else "operations")
 
 
+def dense_function_bytes(prog, cycles: int) -> int:
+    """Bytes a dense simulation must move, whatever its encoding: the input
+    and output streams (int64), and the program read once: a 16-byte
+    descriptor (op and three operands) a node that is neither an input nor
+    a constant, 8 bytes a constant (slot, value), 4 bytes a latency, 4
+    bytes a ROM entry."""
+    n_in, n_const = len(prog.input_pos), len(prog.const_pos)
+    roms = int(prog.tab_len.sum()) if prog.tab_len is not None else 0
+    return (8 * (n_in + len(prog.output_pos)) * cycles
+            + 16 * (prog.n_nodes - n_in - n_const) + 8 * n_const
+            + 4 * len(prog.seq_pos) + 4 * roms)
+
+
+def sparse_program_bytes(prog) -> int:
+    """Bytes of a sparse program read once, whatever its encoding: a 16-byte
+    descriptor (op and three input buffers) a node, 4 bytes a fan-out edge
+    of a node or an input, 4 bytes a buffer's capacity, 8 bytes a constant
+    buffer (buffer, value), 4 bytes an output's buffer, 4 bytes a ROM
+    entry."""
+    edges = int(prog.ev_out_mask.sum()) + int(prog.in_out_mask.sum())
+    return (16 * len(prog.ev_names) + 4 * edges + 4 * prog.n_buf
+            + 8 * len(prog.const_buf) + 4 * len(prog.out_buf)
+            + 4 * int(prog.tab_len.sum()))
+
+
 def stream_err(got: dict, want: dict) -> int:
     """Largest absolute difference between two sets of output streams,
     which must have the same names and lengths."""
@@ -1506,6 +1562,45 @@ def starved_graph():
     return g.validate()
 
 
+def chain_graph(k: int, ops=("add",), rom: bool = False):
+    """INPUT i -> k PEs, PE j = ops[j % len(ops)](PE j-1, i) (abs takes PE
+    j-1 alone), then a ROM of CHAIN_ROM if ``rom`` -> OUTPUT o."""
+    from repro_torch.core.dfg import DFG, INPUT, MEM, OUTPUT, PE
+    g = DFG(f"chain{k}{'_mix' if len(ops) > 1 else ''}")
+    i = g.add(INPUT, name="i")
+    prev = i
+    for j in range(k):
+        n = g.add(PE, name=f"n{j}", op=ops[j % len(ops)])
+        g.connect(prev, n, port=0)
+        if ops[j % len(ops)] != "abs":
+            g.connect(i, n, port=1)
+        prev = n
+    if rom:
+        n = g.add(MEM, name="lut", op="rom", latency=1,
+                  meta={"table": CHAIN_ROM})
+        g.connect(prev, n)
+        prev = n
+    g.connect(prev, g.add(OUTPUT, name="o"))
+    return g.validate()
+
+
+def smi_clocks() -> tuple:
+    """(clocks.sm, clocks.max.sm) in MHz, as nvidia-smi reads them now."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60)
+    sm, mx = out.stdout.strip().splitlines()[0].split(",")
+    return float(sm), float(mx)
+
+
+def launcher_ms(launch, reps: int) -> float:
+    """Device ms per kernel over ``reps`` back-to-back launches of a
+    pre-packed program (no host work between them), after one warm-up."""
+    launch()
+    return event_ms(launch, reps)
+
+
 def trace_sim_child() -> None:
     """One traced harris run through ``simulate(backend="torch")``, warm:
     the device kernels, busy time and idle share (run by ``phase_sim`` in a
@@ -1523,6 +1618,100 @@ def trace_sim_child() -> None:
                            "kernel")
 
 
+def phase_chains(dev) -> None:
+    """The chain programs through sim_dense at SIM_CHAIN_CYCLES: each run
+    held to the interpreter, numpy and the plain version on the card;
+    device ms of each; the fit of ns a stage and fixed ns a cycle, beside
+    nvidia-smi's clocks.sm."""
+    from repro_torch.core import simulate
+    from repro_torch.core.sim_vec import _input_matrix, lower_dense
+    from repro_torch.kernels.sim import sim_dense_plain, stage_plan
+    from repro_torch.kernels.sim.sim import dense_launcher, pack_dense
+
+    cycles, rng = SIM_CHAIN_CYCLES, np.random.default_rng(SIM_SEED)
+    chains = (("add x1", chain_graph(1)), ("add x33", chain_graph(33)),
+              ("mixed x32 + rom", chain_graph(32, CHAIN_MIX, rom=True)))
+    ms, rounds, clocks = {}, {}, []
+    for label, g in chains:
+        ins = sim_inputs(g, cycles, rng)
+        prog = lower_dense(g)
+        in_t = torch.from_numpy(_input_matrix(prog, ins, cycles)).to(dev)
+        want = simulate(g, ins, cycles)
+        np_out = simulate(g, ins, cycles, backend="numpy")
+        plain = sim_dense_plain(prog, in_t, cycles)
+        plain_out = {o: plain[i].tolist()
+                     for i, o in enumerate(prog.output_names)}
+        if not want == np_out == plain_out:
+            raise RuntimeError(f"sim chain {label}: plain version, numpy "
+                               f"and interpreter differ")
+        h = pack_dense(prog, cycles)[0]
+        rounds[label] = h["n_light"] + h["n_heavy"]
+        out, launch = dense_launcher(prog, in_t, cycles)
+        ms[label] = launcher_ms(launch, 5)
+        clocks.append(smi_clocks()[0])
+        if not torch.equal(out, plain):
+            raise RuntimeError(f"sim chain {label}: the kernel differs from "
+                               f"the plain version")
+        log("sim", f"chain {label} ({len(stage_plan(prog))} stages; "
+            f"{h['n_light']} light + {h['n_heavy']} heavy rounds a cycle) x "
+            f"{cycles} cycles: kernel == plain == numpy == interpreter; "
+            f"kernel {ms[label]:.4f} ms")
+    one, many, mixed = (label for label, _ in chains)
+    sm_mhz = sum(clocks) / len(clocks)
+    per_ns = 1e6 * (ms[many] - ms[one]) / cycles / (rounds[many]
+                                                    - rounds[one])
+    fixed_ns = 1e6 * ms[one] / cycles - rounds[one] * per_ns
+    mixed_ns = 1e6 * (ms[mixed] - ms[one]) / cycles / (rounds[mixed]
+                                                       - rounds[one])
+    log("sim", f"chain fit: {per_ns:.2f} ns a stage "
+        f"({per_ns * sm_mhz / 1e3:.0f} SM clocks at clocks.sm "
+        f"{sm_mhz:.0f} MHz, the mean of nvidia-smi's readings after "
+        f"each timing: {', '.join(f'{c:.0f}' for c in clocks)}), fixed "
+        f"{fixed_ns:.2f} ns a cycle; the mixed chain {mixed_ns:.2f} ns "
+        f"a round")
+
+
+def host_split(g, ins, cycles: int, dev) -> None:
+    """One warm simulate(backend="torch") at harris, piece by piece on the
+    host clock (best of SIM_WARM, each piece ending in a synchronize),
+    beside a whole warm call."""
+    from repro_torch.core import simulate
+    from repro_torch.core.sim_vec import _input_matrix, lower_dense
+    from repro_torch.kernels.sim.sim import dense_launcher, pack_dense
+
+    best: dict = {}
+
+    def clock(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        best[name] = min(best.get(name, float("inf")),
+                         1e3 * (time.perf_counter() - t0))
+        return out
+
+    for _ in range(SIM_WARM):
+        prog = clock("lowering", lambda: lower_dense(g))
+        in_mat = clock("input matrix",
+                       lambda: _input_matrix(prog, ins, cycles))
+        clock("packing", lambda: pack_dense(prog, cycles))
+        in_t = clock("input upload", lambda: torch.from_numpy(in_mat).to(dev))
+        out, launch = clock("packing + program upload",
+                            lambda: dense_launcher(prog, in_t, cycles))
+        clock("kernel (launch to synchronize)", launch)
+        host = clock("download", lambda: out.cpu().numpy())
+        clock("tolist", lambda: {n: host[i].tolist()
+                                 for i, n in enumerate(prog.output_names)})
+        clock("whole simulate", lambda: simulate(g, ins, cycles,
+                                                 backend="torch"))
+    parts = [k for k in best if k not in ("packing", "whole simulate")]
+    log("sim", f"host split of a warm simulate(backend='torch'), harris x "
+        f"{cycles}, ms (best of {SIM_WARM}): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in best.items())
+        + f"; the parts but packing alone sum to "
+        f"{sum(best[k] for k in parts):.3f}")
+
+
 def phase_sim(dev, card: str, table1: dict):
     """The vectorized simulator: interpreter, numpy, the kernels through
     ``simulate(backend="torch")`` and their plain versions on the card,
@@ -1535,7 +1724,8 @@ def phase_sim(dev, card: str, table1: dict):
     from repro_torch.kernels.sim import (sim_dense, sim_dense_plain,
                                          sim_sparse, sim_sparse_plain,
                                          stage_plan)
-    from repro_torch.kernels.sim.sim import pack_dense, pack_sparse
+    from repro_torch.kernels.sim.sim import (dense_launcher, pack_dense,
+                                             sparse_launcher)
 
     t_phase = time.perf_counter()
     dense = [(n, s, SIM_HARRIS_CYCLES if n == "harris" else SIM_CYCLES)
@@ -1589,6 +1779,8 @@ def phase_sim(dev, card: str, table1: dict):
         raise RuntimeError(f"sim launches {launches}, want {want}")
     log("sim", f"main path: sim_dense {launches['dense']} launches, "
         f"sim_sparse {launches['sparse']} (one a simulate call)")
+    max_mhz = smi_clocks()[1]
+    phase_chains(dev)
 
     # the same runs on the interpreter, numpy and the plain versions
     ratio, results, err = None, {}, {"dense": 0, "sparse": 0}
@@ -1619,12 +1811,18 @@ def phase_sim(dev, card: str, table1: dict):
             f"{plain_s:.3f}")
         if name == "harris":
             ratio = t_int / warm
-            ms = event_ms(lambda: sim_dense(prog, in_t, cycles), 5)
-            nbytes = 8 * (len(prog.input_pos) + len(prog.output_pos)) \
-                * cycles + 4 * pack_dense(prog, cycles)[1].size
+            k_out, launch = dense_launcher(prog, in_t, cycles)
+            ms = launcher_ms(launch, 5)
+            if not torch.equal(k_out, plain):
+                raise RuntimeError("sim harris: the launcher's run differs")
+            nbytes = dense_function_bytes(prog, cycles)
             ops = cycles * (prog.n_nodes - len(prog.input_pos)
                             - len(prog.const_pos))
             bound_ms, bound_by = sim_bound(nbytes, ops)
+            floor_ms = 1e3 * cycles * (n_st + 1) * STEP_CLOCKS / (
+                1e6 * max_mhz)
+            hd = pack_dense(prog, cycles)[0]
+            n_rd = hd["n_light"] + hd["n_heavy"]
             results["sim_dense"] = {
                 "ms": ms, "plain_ms": 1e3 * plain_s, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": None}
@@ -1632,9 +1830,15 @@ def phase_sim(dev, card: str, table1: dict):
                 f"{ratio:.2f}x the interpreter (the reference's contract for "
                 f"its warm device backend: >= 10x); kernel {ms:.4f} ms a "
                 f"call on the device ({1e6 * ms / cycles:.1f} ns a "
-                f"cycle, {n_st} stages + 2 barriers a cycle), bound "
+                f"cycle; {n_st} stages, {hd['n_light']} light + "
+                f"{hd['n_heavy']} heavy rounds a cycle, "
+                f"{1e6 * ms / cycles / n_rd:.1f} ns a round), bound "
                 f"{bound_ms:.3g} ms ({bound_by}; latency-bound: roofline "
-                f"share {bound_ms / ms:.2g})")
+                f"share {bound_ms / ms:.2g}); latency floor {floor_ms:.4f} "
+                f"ms (an assumption, not a measurement: {STEP_CLOCKS} SM "
+                f"clocks a dependent shared-memory step at clocks.max.sm "
+                f"{max_mhz:.0f} MHz, (stages + 1) steps a cycle; share {floor_ms / ms:.3f})")
+            host_split(g, ins, cycles, dev)
             # in this process, after the earlier phases' traces, the
             # profiler recorded no device activity for this run; a fresh
             # process records it
@@ -1675,20 +1879,29 @@ def phase_sim(dev, card: str, table1: dict):
             f"torch {first:.4f} first / {warm:.4f} warm, plain on the card "
             f"{plain_s:.3f}")
         if name == "mttkrp":
-            ms = event_ms(lambda: sim_sparse(prog, feed_t, frem_t, mc), 5)
+            k_res, launch = sparse_launcher(prog, feed_t, frem_t, mc)
+            ms = launcher_ms(launch, 5)
+            if int(k_res.rounds) != rounds:
+                raise RuntimeError("sim mttkrp: the launcher's run differs")
             n_out_tok = int(plain.ocnt.sum())
             nbytes = 8 * (int(frem.sum()) + n_out_tok) \
-                + 4 * pack_sparse(prog, feed.shape, mc)[1].size
+                + sparse_program_bytes(prog)
             items = (len(prog.ev_names) + len(prog.output_names)
                      + len(prog.input_names) + prog.n_buf)
             bound_ms, bound_by = sim_bound(nbytes, rounds * items)
+            floor_ms = 1e3 * rounds * SPARSE_ROUND_STEPS * STEP_CLOCKS / (
+                1e6 * max_mhz)
             results["sim_sparse"] = {
                 "ms": ms, "plain_ms": 1e3 * plain_s, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": None}
             log("sim", f"sparse mttkrp: kernel {ms:.4f} ms a call on the "
-                f"device ({1e3 * ms / rounds:.2f} us a round), bound "
+                f"device ({1e3 * ms / rounds:.3f} us a round), bound "
                 f"{bound_ms:.3g} ms ({bound_by}; latency-bound: roofline "
-                f"share {bound_ms / ms:.2g})")
+                f"share {bound_ms / ms:.2g}); latency floor {floor_ms:.4f} "
+                f"ms (an assumption, not a measurement: "
+                f"{SPARSE_ROUND_STEPS} dependent steps a round of "
+                f"{STEP_CLOCKS} SM clocks at {max_mhz:.0f} MHz; share "
+                f"{floor_ms / ms:.3f})")
 
     t0 = time.perf_counter()
     for (app, flow), (ref, final, ins, ok, streams) in verify_in.items():
@@ -1741,7 +1954,9 @@ def phase_sim(dev, card: str, table1: dict):
          **results["sim_sparse"]}]
 
 
-def main() -> int:
+def main(argv) -> int:
+    if argv not in ([], ["--phase", "sim"]):
+        raise SystemExit("usage: python3 chip_smoke.py [--phase sim]")
     card = phase_device()
     # f32 comparisons run in full f32: no TF32 in matmuls or convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1749,6 +1964,13 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     dev = torch.device("cuda")
     phase_build()
+    if argv:                    # phases 1, 2, Table I on the host, 7c
+        from repro_torch.core import CascadeCompiler
+        _, table1, secs = table1_designs(CascadeCompiler())
+        log("compile", f"Table I on the host in {secs:.2f} s")
+        for e in phase_sim(dev, card, table1):
+            log("sim", json.dumps(e))
+        return 0
     decode = phase_kernels(dev)
     attn = phase_flash_attention(dev)
     decode["launches"] = phase_serve(card)
@@ -1765,10 +1987,9 @@ def main() -> int:
     maxplus["launches"], stencil["launches"] = mp_launches, st_launches
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: e[k] for k in keys}
-                                  for e in (decode, attn, maxplus, stencil,
-                                            *sim)]}),
-          flush=True)
+    print(json.dumps({"kernels": [
+        {k: e[k] for k in keys}
+        for e in (decode, attn, maxplus, stencil, *sim)]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -1776,4 +1997,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -1,11 +1,15 @@
 // The simulators' opcode space and its evaluation, shared by sim_dense.cu
 // and sim_sparse.cu.
 //
-// The enum is the order of _OPS in repro_torch/core/sim_vec.py (the tests
-// read it from this file and compare). Each case is the interpreter's
-// PE_OPS formula with the reference's 16-bit masks; values stay in
-// [0, 0xFFFF], so uint32 arithmetic is exact. Predicated ops take the
-// predicate as their last argument.
+// SimOp is the order of _OPS in repro_torch/core/sim_vec.py (the tests read
+// it from this file and compare). The host (kernels/sim/sim.py, canon_op)
+// rewrites each SimOp into one of 14 micro-ops (Uop, the order of UOPS
+// there) over permuted operands: min and max become z & 1 ? max : min, gt,
+// ge, lt and le become x + (z & 1) > y (lt and le with x and y swapped), eq
+// and ne (x != y) ^ z, mux, sel, phi and steer one select, pass and zero an
+// add of zeros. Each micro-op is the interpreter's PE_OPS formula with the
+// reference's 16-bit mask; values stay in [0, 0xFFFF], so uint32
+// arithmetic is exact (a 16-bit product fits).
 
 #pragma once
 
@@ -20,44 +24,84 @@ enum SimOp {
   kOp_acc, kOp_accp,
 };
 
+enum Uop {
+  kU_add, kU_sub, kU_mul, kU_and, kU_or, kU_xor, kU_shr, kU_shl, kU_minmax,
+  kU_abs, kU_gtz, kU_nez, kU_sel, kU_accp,
+};
+
 constexpr uint32_t kMask = 0xFFFFu;
 
-// op over (a0, a1, a2); a ROM gathers table[rom, a0 % tab_len[rom]] from a
-// row-major [n_rom, max_tab] matrix. acc and accp keep state and are
-// evaluated by the sparse kernel itself.
-__device__ __forceinline__ uint32_t sim_op(int op, uint32_t a0, uint32_t a1,
-                                           uint32_t a2, int rom,
-                                           const int* table, int max_tab,
-                                           const int* tab_len) {
-  switch (op) {
-    case kOp_pass: return a0;
-    case kOp_add: return (a0 + a1) & kMask;
-    case kOp_sub: return (a0 - a1) & kMask;
-    case kOp_mul: return (a0 * a1) & kMask;
-    case kOp_and: return a0 & a1;
-    case kOp_or: return a0 | a1;
-    case kOp_xor: return a0 ^ a1;
-    case kOp_shr: return (a0 >> (a1 & 0xFu)) & kMask;
-    case kOp_shl: return (a0 << (a1 & 0xFu)) & kMask;
-    case kOp_min: return min(a0, a1);
-    case kOp_max: return max(a0, a1);
-    case kOp_abs: return a0 < 0x8000u ? a0 : (0u - a0) & kMask;
-    case kOp_gt: return a0 > a1;
-    case kOp_lt: return a0 < a1;
-    case kOp_eq: return a0 == a1;
-    case kOp_ne: return a0 != a1;
-    case kOp_ge: return a0 >= a1;
-    case kOp_le: return a0 <= a1;
-    case kOp_mux: return (a0 & 1u) ? a1 : a2;
-    case kOp_sel:
-    case kOp_phi: return (a2 & 1u) ? a0 : a1;
-    case kOp_steer: return (a1 & 1u) ? a0 : 0u;
-    case kOp_rom:
-      return static_cast<uint32_t>(
-          table[rom * max_tab + static_cast<int>(a0 % static_cast<uint32_t>(
-                                                          tab_len[rom]))]);
-    default: return 0u;                     // kOp_zero
+// Micro-op u over (x, y, z), without a branch: every candidate is computed
+// (independent instructions, issued back to back) and a 4-level select
+// tree on u's bits picks one (u 12 and 13 sit a level higher). The select
+// costs about as much as the candidates; a switch would be an indirect
+// branch on the stage's chain, serialised over the distinct micro-ops of a
+// round.
+__device__ __forceinline__ uint32_t alu16(uint32_t u, uint32_t x, uint32_t y,
+                                          uint32_t z) {
+  const uint32_t s = y & 0xFu;
+  const uint32_t zm = 0u - (z & 1u);
+  const uint32_t c0 = x + y;                           // add
+  const uint32_t c1 = x - y;                           // sub
+  const uint32_t c2 = x * y;                           // mul
+  const uint32_t c3 = x & y;                           // and
+  const uint32_t c4 = x | y;                           // or
+  const uint32_t c5 = x ^ y;                           // xor
+  const uint32_t c6 = x >> s;                          // shr
+  const uint32_t c7 = x << s;                          // shl
+  const uint32_t c8 = (z & 1u) ? max(x, y) : min(x, y);  // max; min z = 0
+  const uint32_t c9 = x < 0x8000u ? x : 0u - x;       // abs
+  const uint32_t c10 = x + (z & 1u) > y;              // ge; gt with z = 0
+  const uint32_t c11 = (x != y) ^ (z & 1u);           // eq; ne with z = 0
+  const uint32_t c12 = (x & zm) | (y & ~zm);          // z & 1 ? x : y
+  const uint32_t c13 = x + (y & zm);                  // predicated acc
+  const bool b0 = u & 1u, b1 = u & 2u, b2 = u & 4u, b3 = u & 8u;
+  const uint32_t p0 = b0 ? c1 : c0, p1 = b0 ? c3 : c2;
+  const uint32_t p2 = b0 ? c5 : c4, p3 = b0 ? c7 : c6;
+  const uint32_t p4 = b0 ? c9 : c8, p5 = b0 ? c11 : c10;
+  const uint32_t p6 = b0 ? c13 : c12;
+  const uint32_t q0 = b1 ? p1 : p0, q1 = b1 ? p3 : p2;
+  const uint32_t q2 = b1 ? p5 : p4;
+  const uint32_t r0 = b2 ? q1 : q0, r1 = b2 ? p6 : q2;
+  return (b3 ? r1 : r0) & kMask;
+}
+
+// A ROM entry without a modulo: rom = (first table word, d, m, 0) of the
+// row (sim.py rom_magic); the entry of address a is a % tab_len =
+// umulhi(m * a, d), exact for 16-bit a.
+__device__ __forceinline__ uint32_t rom_lookup(const int4 rom,
+                                               const int* table, uint32_t a) {
+  const uint32_t idx = __umulhi(static_cast<uint32_t>(rom.z) * a,
+                                static_cast<uint32_t>(rom.y));
+  return static_cast<uint32_t>(table[rom.x + idx]);
+}
+
+// 4-byte asynchronous copy, device memory to shared memory: the low word of
+// an int64 value in [0, 0xFFFF].
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+               "l"(gmem));
+}
+
+// The program blob (a multiple of 16 bytes) to shared memory, 16 bytes a
+// copy, all in flight at once; the caller waits with cp_async_wait_all().
+__device__ __forceinline__ void copy_blob(int* sm, const int* blob,
+                                          int words, int lane) {
+  for (int i = 4 * lane; i < words; i += 4 * 32) {
+    const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(sm + i));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+                 "l"(blob + i));
   }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 }  // namespace

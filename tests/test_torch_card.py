@@ -43,11 +43,14 @@ from repro_torch.core.netlist import extract_netlist  # noqa: E402
 from repro_torch.core.place import PlaceParams, place  # noqa: E402
 from repro_torch.core.route import RouteParams, check_legal, route  # noqa: E402
 from repro_torch.kernels.sim import (sim_dense, sim_dense_plain,  # noqa: E402
-                                     sim_sparse, sim_sparse_plain)
+                                     sim_sparse, sim_sparse_plain,
+                                     stage_plan)
+from repro_torch.kernels.sim.sim import dense_launcher  # noqa: E402
 from repro_torch.launch import train as T  # noqa: E402
 
 FD_MOD = importlib.import_module("repro_torch.kernels.flash_decode.flash_decode")
 MP_MOD = importlib.import_module("repro_torch.kernels.maxplus.maxplus")
+SIM_MOD = importlib.import_module("repro_torch.kernels.sim.sim")
 KERNEL_TOL = {torch.float32: dict(rtol=2e-3, atol=2e-3),
               torch.bfloat16: dict(rtol=1e-2, atol=1e-3)}
 
@@ -323,6 +326,97 @@ def test_sim_sparse_kernel_equals_plain_version(card, case):
     # both quiesce; the deadlock with feed tokens left
     assert int(got.fired) == 0
     assert bool(got.frem.any()) == (case == "deadlock")
+
+
+def _chain(k, ops=("add",), rom=False):
+    """chip_smoke.py's chain program: INPUT -> k chained PEs (each over the
+    one before and the input) -> a ROM if ``rom`` -> OUTPUT."""
+    g = DFG("chain")
+    i = g.add("input", name="i")
+    prev = i
+    for j in range(k):
+        n = g.add("pe", name=f"n{j}", op=ops[j % len(ops)])
+        g.connect(prev, n, port=0)
+        if ops[j % len(ops)] != "abs":
+            g.connect(i, n, port=1)
+        prev = n
+    if rom:
+        n = g.add("mem", name="lut", op="rom", latency=1,
+                  meta={"table": [(977 * t + 11) % 65536 for t in range(37)]})
+        g.connect(prev, n)
+        prev = n
+    g.connect(prev, g.add("output", name="o"))
+    return g.validate()
+
+
+def _wide(seed, width=80):
+    """Two layers of random two-input PEs, ``width`` and ``width // 2``
+    wide: stages wider than two rounds of 32 lanes."""
+    rng = np.random.default_rng(seed)
+    ops = ["add", "sub", "mul", "and", "or", "xor", "min", "max"]
+    g = DFG("wide")
+    layers = [[g.add("input", name=f"in{i}") for i in range(3)]]
+    for n in (width, width // 2):
+        layer = []
+        for _ in range(n):
+            pe = g.add("pe", op=ops[int(rng.integers(len(ops)))])
+            for port in (0, 1):
+                g.connect(layers[-1][int(rng.integers(len(layers[-1])))], pe,
+                          port=port)
+            layer.append(pe)
+        layers.append(layer)
+    for i, pe in enumerate(layers[-1]):
+        g.connect(pe, g.add("output", name=f"out{i}"))
+    return g.validate()
+
+
+_MIX = ("add", "mul", "xor", "sub", "shr", "min", "max", "or", "and", "gt",
+        "abs", "eq", "shl", "ne", "le", "ge")
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case", ["add x1", "add x33", "mixed x32 + rom",
+                                  "wide"])
+def test_sim_dense_kernel_on_chains_and_a_wide_dag(card, case):
+    """The chain programs of chip_smoke.py and a seeded DAG whose widest
+    stage passes 64 (lanes loop over three rounds): one launch each, bit
+    for bit the plain version's."""
+    g = {"add x1": lambda: _chain(1), "add x33": lambda: _chain(33),
+         "mixed x32 + rom": lambda: _chain(32, _MIX, rom=True),
+         "wide": lambda: _wide(0)}[case]()
+    prog = lower_dense(g)
+    if case == "wide":
+        assert max(sum(len(grp.out) for grp in prog.comb_groups[a:b])
+                   for a, b in stage_plan(prog)) > 64
+    x = torch.from_numpy(_input_matrix(prog, _sim_inputs(g, 300),
+                                       300)).cuda()
+    before = sim_dense.launches
+    out, launch = dense_launcher(prog, x, 300)
+    launch()
+    assert sim_dense.launches == before + 1
+    assert torch.equal(out, sim_dense_plain(prog, x, 300))
+
+
+@pytest.mark.requires_cuda
+def test_sim_sparse_kernel_through_the_feed_window(card, monkeypatch):
+    """A feed longer than the staged window: rings refilled by cp.async
+    ahead of the feed pointer; end state, rounds and streams equal the
+    plain version's, in one launch."""
+    monkeypatch.setattr(SIM_MOD, "FEED_WHOLE_WORDS", 0)
+    g = ALL_APPS["mttkrp"].build(1)
+    prog = lower_sparse(g)
+    feed, frem = (torch.from_numpy(t).cuda()
+                  for t in _feed_matrix(prog, _sim_inputs(g, 300)))
+    assert SIM_MOD.pack_sparse(prog, tuple(feed.shape), 12000)[0][
+        "window"] < 300
+    before = sim_sparse.launches
+    got = sim_sparse(prog, feed, frem, 12000)
+    assert sim_sparse.launches == before + 1
+    want = sim_sparse_plain(prog, feed, frem, 12000)
+    for field in ("blen", "frem", "ocnt", "fired", "rounds"):
+        assert torch.equal(getattr(got, field), getattr(want, field)), field
+    k = int(want.ocnt[0])
+    assert k == 300 and torch.equal(got.outm[0, :k], want.outm[0, :k])
 
 
 @pytest.mark.requires_cuda

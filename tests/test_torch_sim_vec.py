@@ -6,11 +6,15 @@ the port (``numpy``, and ``torch`` on the CPU, which runs the plain
 versions of the ``sim_dense`` / ``sim_sparse`` kernels). The bar is the
 reference's own: bit-identical streams, deadlock diagnostics and lowerings.
 The kernels run only on the card (``tests/test_torch_card.py``); here their
-host side is held: the stage plan, the packed program and the header and
-opcode layouts the CUDA sources expect.
+host side is held: the stage plan, the packed program, the header, opcode,
+micro-op and flag layouts the CUDA sources expect, the micro-ops against
+the plain formulas, the ROM reciprocal over every 16-bit address, and
+pure-Python walkers that execute the packed programs in the kernels' own
+order and check them against the plain versions.
 """
 
 import copy
+import importlib
 import re
 from functools import lru_cache
 from pathlib import Path
@@ -39,10 +43,12 @@ from repro_torch.core import (CONTROL_APPS, DENSE_APPS,  # noqa: E402
                               lower_dense, lower_sparse, simulate,
                               simulate_sparse, sparse_equivalent)
 from repro_torch.core.dfg import DFG, INPUT, PE  # noqa: E402
+from repro_torch.core.sim_vec import _feed_matrix, _input_matrix  # noqa: E402
 from repro_torch.core.pipelining import compute_pipelining  # noqa: E402
 from repro_torch.core.sim import ref_memo_stats  # noqa: E402
 from repro_torch.core.sim_vec import _OPS  # noqa: E402
 from repro_torch.kernels import sim as K  # noqa: E402
+from repro_torch.kernels.sim import ref  # noqa: E402
 from repro_torch.kernels.sim.sim import (DENSE_FIELDS,  # noqa: E402
                                          SPARSE_FIELDS, pack_dense,
                                          pack_sparse)
@@ -386,6 +392,32 @@ def test_headers_match_the_cuda_structs():
     assert _struct_fields(sparse, "SparseHeader") == SPARSE_FIELDS
 
 
+@pytest.mark.parametrize("kernel", ["sim_dense", "sim_sparse"])
+def test_launch_bindings_match_the_cuda_signatures(kernel, monkeypatch):
+    """The ctypes argument list of each ``*_launch`` has as many entries as
+    its ``extern "C"`` definition has parameters (checked on a stand-in
+    library: the real one is built only where nvcc is)."""
+    class Fn:
+        def __init__(self, ret=0):
+            self.ret = ret
+
+        def __call__(self):
+            return self.ret
+
+    class Lib:
+        sim_dense_launch, sim_sparse_launch = Fn(), Fn()
+        sim_dense_header_ints = Fn(len(DENSE_FIELDS))
+        sim_sparse_header_ints = Fn(len(SPARSE_FIELDS))
+
+    mod = importlib.import_module("repro_torch.kernels.sim.sim")
+    monkeypatch.setattr(mod._build, "load", lambda name: Lib())
+    lib = mod._kernel_lib.__wrapped__()
+    src = (CSRC / f"{kernel}.cu").read_text()
+    params = re.search(rf"int {kernel}_launch\((.*?)\)", src, re.S).group(1)
+    assert len(getattr(lib, f"{kernel}_launch").argtypes) == len(
+        params.split(","))
+
+
 def test_opcodes_match_the_cuda_enum():
     src = (CSRC / "sim_ops.cuh").read_text()
     body = re.search(r"enum SimOp \{(.*?)\};", src, re.S).group(1)
@@ -394,23 +426,75 @@ def test_opcodes_match_the_cuda_enum():
     assert names == _OPS
 
 
+def _dense_rounds(h, blob):
+    """The packed dense rounds: (light [n_light + 1, 32, 8], heavy
+    [n_heavy, 32, 8]) descriptors as non-negative ints."""
+    split = h["n_light"] + (h["n_light"] > 0)
+    n = split + h["n_heavy"]
+    desc = blob[h["o_desc"]:h["o_desc"] + 8 * 32 * n].view(np.uint32)
+    desc = desc.astype(np.int64).reshape(-1, 32, 8)
+    return desc[:split], desc[split:]
+
+
 @pytest.mark.parametrize("app", ALL_DENSE)
 def test_dense_pack_is_canonical(app):
+    """The lane-major schedule holds each stage of the plan as its own light
+    rounds, every node once with its micro-op and permuted operands; every
+    input, output, accumulator and latency node once, in a light round after
+    its operands are final or in a heavy round (rings and ROMs always
+    there); and the light rounds end with a copy of the first."""
     prog = lower_dense(_port_app(app))
     h, blob = pack_dense(prog, 100)
     assert blob.dtype == np.int32 and h["blob_words"] == blob.size
-    plan = K.stage_plan(prog)
-    sizes = np.cumsum([0] + [len(g.out) for g in prog.comb_groups])
-    stage = blob[h["o_stage"]:h["o_stage"] + len(plan) + 1]
-    assert stage.tolist() == [int(sizes[a]) for a, _ in plan] + [sizes[-1]]
-    comb = blob[h["o_comb"]:h["o_comb"] + 4 * h["n_comb"]].reshape(-1, 4)
-    ops = np.concatenate([np.full(len(g.out), g.op)
-                          for g in prog.comb_groups])
-    assert (comb[:, 0] & 0xff).tolist() == ops.tolist()
-    assert np.array_equal(comb[:, 1:], np.concatenate(
-        [g.args for g in prog.comb_groups]))
-    assert h["n_stages"] == STAGES[app]
-    assert h["s_words"] * 4 < 64 * 1024 and h["threads"] % 32 == 0
+    light, heavy = _dense_rounds(h, blob)
+    assert np.array_equal(light[-1], light[0])
+    light = light[:-1]
+    fl, shift = K.sim.DENSE_FLAGS, K.sim.D_SHIFT
+    pad, one, idle = prog.n_nodes, prog.n_nodes + 1, prog.n_nodes + 2
+    seen = {}                 # (flags, dest) -> (round, x, y, z, word 3)
+    for r, rnd in enumerate(np.concatenate([light, heavy])):
+        for lane, dw in enumerate(rnd):
+            key = (dw[3] >> shift & 0x3F, (dw[3] & ((1 << shift) - 1)) // 4)
+            if key != (0, idle):
+                assert key not in seen
+                seen[key] = (r, *[v // 4 for v in dw[:3]], dw[3])
+    comb = {}
+    for g in prog.comb_groups:
+        for i in range(len(g.out)):
+            comb[int(g.out[i])] = K.sim.canon_op(g.op, g.args[i].tolist(),
+                                                 pad, one)
+    plan, r0 = K.stage_plan(prog), 0
+    assert len(plan) == STAGES[app]
+    final = {}                          # comb slot -> first round it is final
+    for a, b in plan:
+        outs = [int(o) for g in prog.comb_groups[a:b] for o in g.out]
+        n_rounds = -(-len(outs) // 32)
+        for o in outs:
+            r, x, y, z, w3 = seen.pop((0, o))
+            assert r0 <= r < r0 + n_rounds
+            assert comb[o] == (w3 >> K.sim.D_UOP_SHIFT, x, y, z)
+            final[o] = r0 + n_rounds
+        r0 += n_rounds
+    assert r0 == h["n_light"]
+    n_in = len(prog.input_pos)
+    want = ([(fl["XIn"] | fl["DNext"], i) for i in range(n_in)]
+            + [(fl["DOut"], o * K.sim.CHUNK)
+               for o in range(len(prog.output_pos))])
+    for j in range(len(prog.seq_pos)):
+        f = fl["DNext"]
+        f |= fl["Ring"] if prog.seq_lat[j] > 1 else 0
+        f |= fl["Rom"] if any(g.op == _OPS.index("rom") and j in g.out
+                              for g in prog.seq_groups) else 0
+        want.append((f, n_in + j))
+    want += [(fl["DNext"], int(a)) for a in prog.accum_pos]
+    for key in want:
+        r, x, y, z, _ = seen.pop(key)
+        if key[0] & (fl["Ring"] | fl["Rom"]):
+            assert r >= h["n_light"]
+        reads = [x] if not key[0] & fl["XIn"] else []
+        assert r >= max([final.get(v, 0) for v in reads + [y, z]])
+    assert not seen
+    assert h["s_words"] * 4 < 64 * 1024
 
 
 def test_dense_pack_rejects_a_layout_that_is_not_canonical():
@@ -420,17 +504,54 @@ def test_dense_pack_rejects_a_layout_that_is_not_canonical():
         pack_dense(prog, 8)
 
 
+def _sparse_items(h, blob):
+    """The packed sparse items: [n_rounds * 32, desc_words] non-negative
+    ints."""
+    n = h["n_rounds"] * 32 * h["desc_words"]
+    desc = blob[h["o_desc"]:h["o_desc"] + n].view(np.uint32)
+    return desc.astype(np.int64).reshape(-1, h["desc_words"])
+
+
 @pytest.mark.parametrize("app", sorted(SPARSE_APPS))
 def test_sparse_pack_marks_absent_entries(app):
+    """Every node with inputs, OUTPUT, INPUT and CONST refill is one item
+    whose popped and pushed buffers are the lowering's; absent inputs read
+    the never-empty dummy, absent outputs the never-full one; idle lanes
+    touch only the dummies and never fire."""
     prog = lower_sparse(_port_app(app))
     h, blob = pack_sparse(prog, (len(prog.input_names), 48), 100)
-    ev = blob[h["o_ev"]:h["o_ev"] + 4 * h["n_ev"]].reshape(-1, 4)
-    assert np.array_equal(np.where(prog.ev_in_mask, prog.ev_in, -1), ev[:, 1:])
-    assert (ev[:, 0] & 0xff).tolist() == prog.ev_op.tolist()
-    fan = blob[h["o_ev_out"]:h["o_ev_out"] + h["n_ev"] * h["fan"]]
-    assert np.array_equal(fan.reshape(-1, h["fan"]),
-                          np.where(prog.ev_out_mask, prog.ev_out, -1))
-    assert h["threads"] % 32 == 0 and h["s_words"] * 4 < 64 * 1024
+    items = _sparse_items(h, blob)
+    n_tot = h["n_buf"] + h["n_in"]
+    d_in, d_out, n_out = n_tot, n_tot + 1, h["n_out"]
+    got = []
+    for it in items:
+        ins = [it[1] & 0xFFFF, it[1] >> 16, it[2] & 0xFFFF]
+        outs = [(o & 0xFFFF, o >> 16) for o in it[5:5 + h["fan"]]]
+        if not it[0] >> 4 & K.sim.SPARSE_FLAGS["Valid"]:
+            assert ins == [d_in] * 3 and it[2] >> 16 == n_out
+            assert all(b == d_out for b, _ in outs)
+            continue
+        got.append((sorted(b for b in ins if b != d_in),
+                    sorted((b, c) for b, c in outs if b != d_out),
+                    it[2] >> 16))
+    n_buf = prog.n_buf
+    want = []
+    for i in range(len(prog.ev_names)):
+        ins = sorted(prog.ev_in[i][prog.ev_in_mask[i]].tolist())
+        if ins:
+            outs = [(int(b), int(prog.cap[b]))
+                    for b in prog.ev_out[i][prog.ev_out_mask[i]]]
+            want.append((ins, sorted(outs), n_out))
+    want += [([int(b)], [], o) for o, b in
+             enumerate(prog.out_buf[:len(prog.output_names)])]
+    want += [([n_buf + j], sorted((int(b), int(prog.cap[b])) for b in
+                                  prog.in_out[j][prog.in_out_mask[j]]),
+              n_out) for j in range(len(prog.input_names))]
+    want += [([], [(int(b), 1)], n_out) for b in prog.const_buf]
+    assert got == want
+    assert h["n_rounds"] == -(-len(want) // 32)
+    assert h["window"] == 48 and h["refill"] == 0        # staged whole
+    assert h["s_words"] * 4 < 64 * 1024
 
 
 def test_wrappers_on_the_cpu_take_the_plain_version():
@@ -616,3 +737,503 @@ def test_memo_keys_on_the_backend():
                           device="cpu")
     assert ref_memo_stats == {"hits": 0, "misses": len(SIM_BACKENDS)}
     clear_ref_memo()
+
+
+# ---------------------------------------------------------------------------
+# pure-Python walkers of the packed programs, in the kernels' own order
+# ---------------------------------------------------------------------------
+#
+# Each walker executes a blob as its kernel does: one warp, round by round,
+# each lane's descriptor loaded one round ahead, banks switched as the
+# kernel switches them, inputs and feed tokens landing only at the kernel's
+# cp.async waits. Between two __syncwarp() calls the lanes run in no
+# order, so a walker records every shared word each lane reads and writes
+# in that interval and fails on a word that one lane writes and another
+# reads or writes (a race), or that is read while a copy into it is in
+# flight. The only races a design allows are named where they are allowed.
+
+M32 = 0xFFFFFFFF
+UOP_NAMES = ("add", "sub", "mul", "and", "or", "xor", "shr", "shl",
+             "minmax", "abs", "gtz", "nez", "sel", "accp")
+
+
+def _alu16(u, x, y, z):
+    s, zm = y & 0xF, -(z & 1) & M32
+    return (x + y, x - y, x * y, x & y, x | y, x ^ y, x >> s, x << s,
+            max(x, y) if z & 1 else min(x, y), x if x < 0x8000 else -x,
+            int(x + (z & 1) > y), int(x != y) ^ (z & 1),
+            (x & zm) | (y & ~zm), x + (y & zm))[u] & 0xFFFF
+
+
+def _byte_perm(a, b, sel):
+    src = (a & M32) | (b & M32) << 32
+    return sum(((src >> 8 * ((sel >> 4 * i) & 7)) & 0xFF) << 8 * i
+               for i in range(4))
+
+
+class _Warp:
+    """Shared memory of one warp, with per-interval race checks."""
+
+    def __init__(self, blob, words, allowed=()):
+        self.sm = [int(w) & M32 for w in blob] + [0] * (words - blob.size)
+        self.pending = {}               # word -> value of a copy in flight
+        self.allowed = set(allowed)     # words whose races are benign
+        self.reads = [set() for _ in range(32)]
+        self.writes = [set() for _ in range(32)]
+        self.syncs = 0
+
+    def ld(self, lane, addr):
+        assert addr not in self.pending, f"read of word {addr} in flight"
+        self.reads[lane].add(addr)
+        return self.sm[addr]
+
+    def st(self, lane, addr, v):
+        assert addr not in self.pending, f"write of word {addr} in flight"
+        self.writes[lane].add(addr)
+        self.sm[addr] = v & M32
+
+    def copy(self, addr, v):
+        self.pending[addr] = v & M32
+
+    def wait(self):
+        for addr, v in self.pending.items():
+            self.sm[addr] = v
+        self.pending = {}
+
+    def sync(self):
+        self.syncs += 1
+        touched = {}
+        for lane in range(32):
+            for addr in self.writes[lane] - self.allowed:
+                touched.setdefault(addr, set()).add(lane)
+        for lane in range(32):
+            for addr in (self.reads[lane] | self.writes[lane]) & touched.keys():
+                others = touched[addr] - {lane}
+                assert not others, (f"word {addr}: lane {lane} and lanes "
+                                    f"{sorted(others)} race")
+        for s in self.reads + self.writes:
+            s.clear()
+
+
+def walk_dense(prog, in_mat, cycles):
+    """``sim_dense`` over ``pack_dense``'s blob, lane by lane: the outputs
+    [n_out][cycles], as the kernel flushes them from its output staging.
+    Idle lanes all write the idle slot, which nothing reads: the one race
+    the design allows."""
+    h, blob = pack_dense(prog, cycles)
+    stride, ch, n_in, n_out = h["stride"], K.sim.CHUNK, h["n_in"], h["n_out"]
+    idle = [h["s_val"] + b * stride + h["n_nodes"] + 2 for b in (0, 1)]
+    w = _Warp(blob, h["s_words"], allowed=idle)
+    sm = w.sm
+    val, ring, ptr = h["s_val"], h["s_ring"], h["s_ptr"]
+    inbuf, outbuf = h["s_in"], h["s_out"]
+    fl = K.sim.DENSE_FLAGS
+    for i in range(h["n_const"]):
+        slot, v = sm[h["o_const"] + 2 * i], sm[h["o_const"] + 2 * i + 1]
+        w.st(i % 32, val + slot, v)
+        w.st(i % 32, val + stride + slot, v)
+    w.st(0, val + h["n_nodes"] + 1, 1)
+    w.st(0, val + stride + h["n_nodes"] + 1, 1)
+    out = [[None] * cycles for _ in range(n_out)]
+
+    def stage(c):
+        t0 = c * ch
+        width = min(ch, cycles - t0)
+        for i in range(n_in * max(0, width)):
+            r, k = divmod(i, width)
+            w.copy(inbuf + (c & 1) * n_in * ch + r * ch + k,
+                   int(in_mat[r][t0 + k]))
+
+    def flush(c):
+        t0 = c * ch
+        width = min(ch, cycles - t0)
+        for i in range(n_out * width):
+            o, k = divmod(i, width)
+            assert out[o][t0 + k] is None
+            out[o][t0 + k] = w.ld(i % 32, outbuf + (c & 1) * n_out * ch
+                                  + o * ch + k)
+
+    stage(0)
+    w.wait()
+    stage(1)
+    w.sync()
+    for i in range(n_in):
+        w.st(i % 32, val + i, w.ld(i % 32, inbuf + i * ch))
+    w.sync()
+    od, n_light, n_heavy = h["o_desc"], h["n_light"], h["n_heavy"]
+    heavy0 = od + 8 * 32 * (n_light + (n_light > 0))
+    desc = lambda base, k, lane: sm[base + 8 * (k * 32 + lane):][:8]  # noqa
+    d = [desc(od, 0, lane) if n_light else [0] * 8 for lane in range(32)]
+    hd = [desc(heavy0, 0, lane) if n_heavy else [0] * 8 for lane in range(32)]
+    for t in range(cycles):
+        if t % ch == ch - 1:
+            c = t // ch
+            if t + 1 < cycles:
+                w.wait()
+                w.sync()
+                stage(c + 2)
+            if c > 0:
+                flush(c - 1)
+        V, Vn = val + (t & 1) * stride, val + ((t + 1) & 1) * stride
+        u = t + 1
+        inb = inbuf + ((u // ch) & 1) * n_in * ch + u % ch
+        outb = outbuf + ((t // ch) & 1) * n_out * ch + t % ch
+
+        def store(lane, w3, value):
+            f = w3 >> K.sim.D_SHIFT & 0x3F
+            base = Vn if f & fl["DNext"] else outb if f & fl["DOut"] else V
+            w.st(lane, base + (w3 & ((1 << K.sim.D_SHIFT) - 1)) // 4, value)
+
+        def xbase(w3):
+            return inb if w3 >> K.sim.D_SHIFT & fl["XIn"] else V
+
+        for k in range(n_light):
+            dn = [desc(od, k + 1, lane) for lane in range(32)]
+            for lane in range(32):
+                dw = d[lane]
+                x = w.ld(lane, xbase(dw[3]) + dw[0] // 4)
+                y, z = w.ld(lane, V + dw[1] // 4), w.ld(lane, V + dw[2] // 4)
+                store(lane, dw[3], _alu16(dw[3] >> K.sim.D_UOP_SHIFT, x, y, z))
+            w.sync()
+            d = dn
+        for k in range(n_heavy):
+            for lane in range(32):
+                dw = hd[lane] if k == 0 else desc(heavy0, k, lane)
+                f = dw[3] >> K.sim.D_SHIFT & 0x3F
+                x = w.ld(lane, xbase(dw[3]) + dw[0] // 4)
+                y, z = w.ld(lane, V + dw[1] // 4), w.ld(lane, V + dw[2] // 4)
+                r = 0
+                if h["n_rom"]:
+                    ro = h["o_rom"] + 4 * dw[4]
+                    idx = ((sm[ro + 2] * x) & M32) * sm[ro + 1] >> 32
+                    r = w.ld(lane, h["o_table"] + sm[ro] + idx)
+                slot = ptr + k * 32 + lane
+                p = w.ld(lane, slot)
+                pn = 0 if p + 1 == dw[6] else p + 1
+                head = w.ld(lane, ring + dw[5] + pn)
+                v = r if f & fl["Rom"] else _alu16(
+                    dw[3] >> K.sim.D_UOP_SHIFT, x, y, z)
+                w.st(lane, ring + dw[5] + p, v)
+                w.st(lane, slot, pn)
+                store(lane, dw[3], head if f & fl["Ring"] else v)
+        w.sync()
+    last = (cycles - 1) // ch
+    if cycles % ch and last > 0:
+        flush(last - 1)
+    if cycles:
+        flush(last)
+    w.wait()
+    return out
+
+
+def walk_sparse(prog, feed, frem, max_cycles):
+    """``sim_sparse`` over ``pack_sparse``'s blob, lane by lane: (blen,
+    frem, streams, ocnt, fired, rounds). A consumer reads its buffer's head
+    even when the buffer is empty, and discards it (it does not fire); a
+    producer may push into that word in the same round: the one race the
+    design allows, so such a read is not recorded."""
+    feed = np.asarray(feed)
+    h, blob = pack_sparse(prog, feed.shape, max_cycles)
+    w = _Warp(blob, h["s_words"])
+    sm = w.sm
+    n_buf, n_in, n_out = h["n_buf"], h["n_in"], h["n_out"]
+    nt = n_buf + n_in
+    nb = nt + 2
+    P, Q, rpa, wpa = h["s_p"], h["s_q"], h["s_rpa"], h["s_wpa"]
+    data, accv, ocnt = h["s_data"], h["s_accv"], h["s_ocnt"]
+    trash = h["s_trash"]
+    fl = K.sim.SPARSE_FLAGS
+    binfo = lambda b: (sm[h["o_binfo"] + 2 * b],  # noqa: E731
+                       sm[h["o_binfo"] + 2 * b + 1])
+    frem0 = [int(v) for v in frem]
+    for b in range(nb):
+        w.st(b % 32, rpa + b, binfo(b)[0])
+        w.st(b % 32, wpa + b, binfo(b)[0])
+        n = 0 if b < n_buf else frem0[b - n_buf] if b < nt else int(b == nt)
+        w.st(b % 32, P + b, n)
+        w.st(b % 32, P + nb + b, n)
+
+    def stage(lo, span):
+        for j in range(n_in):
+            for k in range(lo[j], lo[j] + span):
+                if k < frem0[j] and k < h["max_feed"]:
+                    w.copy(data + binfo(n_buf + j)[0] + k % h["window"],
+                           int(feed[j, k]))
+
+    R = h["refill"]
+    stage([0] * n_in, 2 * R if R else h["max_feed"])
+    w.wait()
+    w.sync()
+    D = h["desc_words"]
+    outm = [[0] * max_cycles for _ in range(max(1, n_out))]
+
+    def step(lane, item, dw, cur):
+        Pc, Qc = P + cur * nb, Q + cur * nb
+        Pn, Qn = P + (cur ^ 1) * nb, Q + (cur ^ 1) * nb
+        flags = dw[0] >> 4 & 0xFF
+        ins = [dw[1] & 0xFFFF, dw[1] >> 16, dw[2] & 0xFFFF]
+        outs = dw[5:5 + h["fan"]]
+        ok = bool(flags & fl["Valid"])
+        head, q, ra = [0] * 3, [0] * 3, [0] * 3
+        for k, b in enumerate(ins):
+            q[k] = w.ld(lane, Qc + b)
+            p = w.ld(lane, Pc + b)
+            ok = ok and p != q[k]
+            ra[k] = w.ld(lane, rpa + b)
+            # an empty buffer's head is read and discarded: not recorded
+            head[k] = (w.sm[data + ra[k]] if p == q[k]
+                       else w.ld(lane, data + ra[k]))
+        po = []
+        for o in outs:
+            b, lim = o & 0xFFFF, o >> 16
+            po.append(w.ld(lane, Pc + b))
+            ok = ok and po[-1] - w.ld(lane, Qc + b) < lim
+        sink = dw[2] >> 16
+        oc = w.ld(lane, ocnt + sink)
+        kval = (w.ld(lane, accv + item) if flags & fl["Acc"]
+                else dw[4] >> 16)
+        h01, h2k = head[0] | head[1] << 16, head[2] | kval << 16
+        x = _byte_perm(h01, h2k, dw[3] & 0xFFFF) & 0xFFFF
+        y = _byte_perm(h01, h2k, dw[3] >> 16) & 0xFFFF
+        z = _byte_perm(h01, h2k, dw[4] & 0xFFFF) & 0xFFFF
+        ro = h["o_rom"] + 4 * (dw[0] >> K.sim.ROM_SHIFT)
+        idx = ((sm[ro + 2] * x) & M32) * sm[ro + 1] >> 32
+        r = w.ld(lane, h["o_table"] + sm[ro] + idx)
+        v = r if flags & fl["Rom"] else _alu16(dw[0] & 0xF, x, y, z)
+        fire = int(ok)
+        mine = trash + lane            # the lane's word for stores not made
+
+        def wrap(a, b):
+            base, cap = binfo(b)
+            return base if a == base + cap else a
+
+        for k, b in enumerate(ins):
+            real = b < nt
+            w.st(lane, Qn + b if real else mine, q[k] + fire)
+            w.st(lane, rpa + b if real else mine,
+                 wrap(ra[k] + 1, b) if fire else ra[k])
+        for o, p in zip(outs, po):
+            b = o & 0xFFFF
+            real = b < nt
+            a = w.ld(lane, wpa + b)
+            w.st(lane, Pn + b if real else mine, p + fire)
+            w.st(lane, data + a if real and fire else mine, v)
+            w.st(lane, wpa + b if real else mine,
+                 wrap(a + 1, b) if fire else a)
+        if fire and sink < n_out:
+            outm[sink][oc] = v
+        w.st(lane, ocnt + sink if fire and sink < n_out else mine, oc + 1)
+        w.st(lane, accv + item if fire and flags & fl["Acc"] else mine, v)
+        return fire
+
+    desc = lambda k, lane: sm[h["o_desc"] + (k * 32 + lane) * D:][:D]  # noqa
+    mine = [desc(0, lane) if h["n_rounds"] else None for lane in range(32)]
+    fired, rounds, cur = 1, 0, 0
+    while rounds < max_cycles:
+        if R and rounds > 0 and rounds % R == 0:
+            w.wait()
+            w.sync()
+            stage([sm[Q + cur * nb + n_buf + j] + R for j in range(n_in)], R)
+        rounds += 1
+        any_ = [False] * 32
+        for lane in range(32):
+            if h["n_rounds"]:
+                any_[lane] |= bool(step(lane, lane, mine[lane], cur))
+            for k in range(1, h["n_rounds"]):
+                any_[lane] |= bool(step(lane, k * 32 + lane, desc(k, lane),
+                                        cur))
+        fired = int(any(any_))
+        w.sync()
+        cur ^= 1
+        if not fired:
+            break
+    w.wait()
+    Pf, Qf = P + cur * nb, Q + cur * nb
+    blen = [sm[Pf + b] - sm[Qf + b] for b in range(n_buf)]
+    frem_out = [sm[Pf + n_buf + j] - sm[Qf + n_buf + j] if j < n_in
+                else frem0[j] for j in range(len(frem0))]
+    counts = [sm[ocnt + o] if o < n_out else 0
+              for o in range(max(1, n_out))]
+    return blen, frem_out, outm, counts, fired, rounds
+
+
+def _check_dense_walk(prog, ins, cycles):
+    x = _input_matrix(prog, ins, cycles)
+    want = K.sim_dense_plain(prog, torch.from_numpy(x), cycles)
+    assert walk_dense(prog, x, cycles) == want.tolist()
+
+
+def _check_sparse_walk(prog, ins, max_cycles):
+    feed, frem = _feed_matrix(prog, ins)
+    want = K.sim_sparse_plain(prog, torch.from_numpy(feed),
+                              torch.from_numpy(frem), max_cycles)
+    blen, frem_out, outm, ocnt, fired, rounds = walk_sparse(
+        prog, feed, frem, max_cycles)
+    assert (blen, frem_out, ocnt, fired, rounds) == (
+        want.blen.tolist(), want.frem.tolist(), want.ocnt.tolist(),
+        int(want.fired), int(want.rounds))
+    for o in range(len(prog.output_names)):
+        assert outm[o][:ocnt[o]] == want.outm[o, :ocnt[o]].tolist()
+    return rounds
+
+
+# 70 cycles cross two input chunks, so both staging banks are refilled
+WALK_CYCLES = 70
+
+
+@pytest.mark.parametrize("app", ALL_DENSE)
+def test_dense_walker_equals_plain_version(app):
+    g = _port_app(app)
+    _check_dense_walk(lower_dense(g), _inputs(g, WALK_CYCLES), WALK_CYCLES)
+
+
+@pytest.mark.parametrize("app", sorted(SPARSE_APPS))
+def test_sparse_walker_equals_plain_version(app):
+    g = _port_app(app)
+    _check_sparse_walk(lower_sparse(g), _inputs(g, SPARSE_TOKENS),
+                       SPARSE_MAX)
+
+
+@pytest.mark.parametrize("app", ["mttkrp", "vecadd"])
+def test_sparse_walker_through_the_feed_window(app, monkeypatch):
+    """A feed past FEED_WHOLE_WORDS goes through rings refilled ahead of
+    the feed pointer; the end state and the rounds stay the plain
+    version's."""
+    monkeypatch.setattr(K.sim, "FEED_WHOLE_WORDS", 0)
+    g = _port_app(app)
+    prog = lower_sparse(g)
+    h, _ = pack_sparse(prog, (len(prog.input_names), 300), 300 * 40)
+    assert h["refill"] == K.sim.FEED_REFILL and h["window"] < 300
+    rounds = _check_sparse_walk(prog, _inputs(g, 300), 300 * 40)
+    assert rounds > 2 * K.sim.FEED_REFILL
+
+
+@pytest.mark.parametrize("max_cycles", [0, 1, 5, 60])
+def test_sparse_walker_capped_and_deadlocked(max_cycles):
+    _check_sparse_walk(lower_sparse(_port_app("mttkrp")),
+                       _inputs(_port_app("mttkrp"), 16), max_cycles)
+    _check_sparse_walk(lower_sparse(_starved_graph(DFG)),
+                       {"a": [1, 2, 3], "b": [5]}, max_cycles)
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_dense_walker_on_seeded_dags(seed):
+    for make in (_seeded_dfg, _seeded_pred_dfg):
+        pg = _port_graph(make(seed))
+        _check_dense_walk(lower_dense(pg), _inputs(pg, 40, seed), 40)
+
+
+@settings(max_examples=8, deadline=None)
+@given(random_pred_dfg(), st.integers(0, 3))
+def test_dense_walker_on_random_dags(g, seed):
+    pg = _port_graph(g)
+    _check_dense_walk(lower_dense(pg), _inputs(pg, 40, seed), 40)
+
+
+def _wide_dfg(seed, width=80):
+    """Three inputs, ``width`` two-input PEs over them, then half as many
+    over those: stages wider than two rounds of lanes."""
+    rng = np.random.default_rng(seed)
+    g = DFG("wide")
+    ins = [g.add(INPUT, name=f"in{i}") for i in range(3)]
+    layers = [ins]
+    for n in (width, width // 2):
+        layer = []
+        for _ in range(n):
+            pe = g.add(PE, op=BINOPS[int(rng.integers(len(BINOPS)))])
+            for port in (0, 1):
+                g.connect(layers[-1][int(rng.integers(len(layers[-1])))], pe,
+                          port=port)
+            layer.append(pe)
+        layers.append(layer)
+    for i, n in enumerate(list(g.nodes)):
+        if g.nodes[n].kind == PE and not g.succs(n):
+            g.connect(n, g.add("output", name=f"out{i}"))
+    return g.validate()
+
+
+def test_dense_walker_on_a_wide_dag():
+    g = _wide_dfg(0)
+    prog = lower_dense(g)
+    assert max(sum(len(grp.out) for grp in prog.comb_groups[a:b])
+               for a, b in K.stage_plan(prog)) > 64           # lanes loop
+    _check_dense_walk(prog, _inputs(g, 40), 40)
+
+
+def test_dense_walker_on_a_routed_netlist():
+    """A Table I design (harris, full pipelining) compiled and routed on
+    the CPU at a few moves a node: its netlist's DFG."""
+    from repro_torch.core import CascadeCompiler, PassConfig
+    r = CascadeCompiler(device="cpu").compile(
+        DENSE_APPS["harris"], PassConfig.full(place_moves=4), verify=False)
+    g = r.design.netlist.to_dfg()
+    _check_dense_walk(lower_dense(g), _inputs(g, WALK_CYCLES), WALK_CYCLES)
+
+
+def _enum(src: str, name: str):
+    body = re.search(r"enum " + name + r" \{(.*?)\};", src, re.S).group(1)
+    return tuple(x.strip() for x in body.split(",") if x.strip())
+
+
+def _flags(src: str):
+    return {name: int(a) << int(b) for name, a, b in re.findall(
+        r"constexpr uint32_t k(\w+) = (\d+)u << (\d+);", src)}
+
+
+def test_micro_ops_and_flags_match_the_cuda_source():
+    ops = (CSRC / "sim_ops.cuh").read_text()
+    assert tuple(u[len("kU_"):] for u in _enum(ops, "Uop")) == \
+        K.sim.UOPS == UOP_NAMES
+    dense = (CSRC / "sim_dense.cu").read_text()
+    assert _flags(dense) == {n: f << K.sim.D_SHIFT
+                             for n, f in K.sim.DENSE_FLAGS.items()}
+    assert f"kChunk = {K.sim.CHUNK};" in dense
+    assert "d.w >> 24" in dense and K.sim.D_UOP_SHIFT == 24
+    sparse = (CSRC / "sim_sparse.cu").read_text()
+    assert _flags(sparse) == {n: f << 4 for n, f in
+                              K.sim.SPARSE_FLAGS.items()}
+    assert f"kRomShift = {K.sim.ROM_SHIFT};" in sparse
+
+
+@pytest.mark.parametrize("op", [o for o in _OPS if o not in ("acc", "accp")])
+def test_micro_ops_equal_the_plain_formulas(op):
+    """Each opcode as the kernels evaluate it (canon_op's micro-op over
+    permuted operands, _alu16) equals ref.py's formula, on edge values and
+    random 16-bit operands."""
+    rng = np.random.default_rng(3)
+    edge = [0, 1, 2, 15, 16, 0x7FFF, 0x8000, 0x8001, 0xFFFE, 0xFFFF]
+    a = np.array([[x, y, z] for x in edge for y in edge for z in (0, 1)]
+                 + rng.integers(0, 0x10000, size=(400, 3)).tolist())
+    code = _OPS.index(op)
+    # operand refs 0-2 read a0-a2, ref 3 reads 0 and ref 4 reads 1
+    uop, x, y, z = K.sim.canon_op(code, [0, 1, 2], 3, 4)
+    table, tab_len = [5, 6, 7], np.array([3])
+    d, m = K.sim.rom_magic(tab_len)
+    want = ref._apply_op(code, *torch.from_numpy(a).T,
+                         torch.zeros(len(a), dtype=torch.long),
+                         torch.tensor([table]),
+                         torch.from_numpy(tab_len)).tolist()
+    for row, w in zip(a.tolist(), want):
+        v = row + [0, 1]
+        got = _alu16(uop, v[x], v[y], v[z])
+        if op == "rom":                      # the kernels' lookup
+            got = table[int(K.sim.rom_index(got, d[0], m[0]))]
+        assert got == w, (op, row)
+
+
+def test_rom_reciprocal_is_exact():
+    """umulhi((m * a) mod 2**32, d) == a % tab_len for every 16-bit a and
+    every table length the apps' lowerings emit, and at the edges."""
+    lens = set()
+    for name in ALL_DENSE:
+        lens.update(lower_dense(_port_app(name)).tab_len.tolist())
+    for name in SPARSE_APPS:
+        lens.update(lower_sparse(_port_app(name)).tab_len.tolist())
+    lens.update([1, 2, 3, 7, 37, 255, 256, 257, 4095, 65535, 65536, 65537,
+                 100_000])
+    a = np.arange(1 << 16, dtype=np.uint64)
+    for n in sorted(lens):
+        d, m = K.sim.rom_magic(np.array([n]))
+        got = K.sim.rom_index(a, d[0], m[0])
+        assert np.array_equal(got, a % np.uint64(n)), n
+        assert int(got.max()) < min(n, 1 << 16)
