@@ -95,7 +95,29 @@ lines:
              Table I's ten routed netlists through equivalent(n=32) on all
              three backends and their 128-cycle streams against the plain
              version; the deadlock diagnostic of a starved graph, identical
-             on every backend.
+             on every backend. Programs past a block's shared memory take
+             the kernels' global route: the smallest seeded wide DAG past
+             the limit (width 1018) and one about 4x past it (width 4096),
+             256 cycles each, and the smallest seeded wide sparse program
+             past it (width 176, 64 tokens), on the main path; held bit for
+             bit to numpy, the interpreter and the plain versions, each
+             route's launches counted, and timed beside their bounds.
+7d. batch  — the compile driver: Table I (the same seeds and settings as
+             phase 7) through compile_batch on the process backend, cold,
+             warm from the memory cache and warm from a disk cache under
+             build/ in a second compiler, equal to phase 7's serial
+             compiles; Table I on the torch engines through process workers
+             (spawned: CUDA is initialised here), equal byte for byte to
+             phase 7b's serial compiles on the card, with the workers'
+             start time and the parent's peak device memory; the reference
+             frontier benchmark's grid (unsharp, 100 moves, budgets 4, 16,
+             64, None x caps 0.9 x the uncapped power, None) with the torch
+             STA fanned out on threads and on processes, each point equal
+             to an independent compile and to the numpy-STA frontier, and a
+             warm re-run with select="max_freq" resumed from the routed
+             artifact; the five dense apps under caps of 0.9 and 0.7 x
+             their uncapped power on the torch and numpy STA; and the keys
+             of one torch-engine job on the CPU and on the card.
 8. maxplus — the max-plus kernel against its plain version (bit for bit, in
              f32) at the reference test's shapes, at every closure size of
              the path, ragged, with half the entries at the NEG_INF floor,
@@ -118,6 +140,7 @@ from __future__ import annotations
 import importlib
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -169,6 +192,14 @@ STRAIGHT_LINE_PINS = {
 # the golden compute of each dense app with a 3x3 kernel, on the app's frame
 GOLDEN = (("gaussian", "gaussian_blur"), ("unsharp", "sharpen"),
           ("harris", "sobel_mag2"))
+# the compile driver (phase 7d): the reference frontier benchmark's grid
+# (benchmarks/frontier.py:29-33), caps of the power-capped schedule as
+# fractions of each app's uncapped power, and the disk cache's root
+FRONTIER_APP, FRONTIER_MOVES = "unsharp", 100
+FRONTIER_BUDGETS = (4, 16, 64, None)
+FRONTIER_CAP_FRACTIONS = (0.9, None)
+POWER_CAP_FRACTIONS = (0.9, 0.7)
+BATCH_CACHE = ROOT / "build" / "chip_smoke_cache"
 
 
 def log(phase: str, msg: str) -> None:
@@ -1169,7 +1200,7 @@ def table1_designs(c):
     for app, spec in DENSE_APPS.items():
         for flow in ("unpipelined", "full"):
             r = c.compile(spec, getattr(PassConfig, flow)(
-                place_moves=TABLE1_MOVES), verify=True)
+                place_moves=TABLE1_MOVES), verify=True, use_cache=False)
             designs.append((f"{app} {flow}", r))
             table1[(app, flow)] = r
     return designs, table1, time.perf_counter() - t0
@@ -1200,7 +1231,8 @@ def phase_compile(dev, card: str):
     log("compile", f"Table I: {len(designs)} designs (place_moves="
         f"{TABLE1_MOVES}, verify=True) in {secs:.2f} s on the host")
     for app, (digest, cp, regs) in STRAIGHT_LINE_PINS.items():
-        r = c.compile(DENSE_APPS[app], PassConfig.full(place_moves=40))
+        r = c.compile(DENSE_APPS[app], PassConfig.full(place_moves=40),
+                      use_cache=False)
         got = (design_digest(r.design), round(r.sta.critical_path_ns, 6),
                r.design.physical_register_count())
         if got != (digest, cp, regs):
@@ -1292,10 +1324,10 @@ def loop_state(design, res) -> tuple:
             [b.n_regs for b in design.netlist.branches])
 
 
-def phase_engines(dev, card: str, table1: dict) -> None:
+def phase_engines(dev, card: str, table1: dict) -> dict:
     """The compiler's torch engines on the card: place and route against
     numpy and A* on the host, STA and the post-PnR loop against the scalar
-    walk, Table I through them."""
+    walk, Table I through them (returned as {(app, flow): CompileResult})."""
     import copy
 
     from repro_torch.core import (ALL_APPS, DENSE_APPS, CascadeCompiler,
@@ -1402,7 +1434,7 @@ def phase_engines(dev, card: str, table1: dict) -> None:
     for (app, flow), host_r in table1.items():
         r = c.compile(DENSE_APPS[app], getattr(PassConfig, flow)(
             place_moves=TABLE1_MOVES, pnr_backend="torch",
-            sta_backend="torch"), verify=True)
+            sta_backend="torch"), verify=True, use_cache=False)
         if "verify" not in r.pass_stats["pipeline"]:
             raise RuntimeError(f"{app} {flow}: not verified")
         dev_runs[(app, flow)] = r
@@ -1425,13 +1457,13 @@ def phase_engines(dev, card: str, table1: dict) -> None:
     t0 = time.perf_counter()
     for (app, flow), host_r in table1.items():
         r = c.compile(DENSE_APPS[app], getattr(PassConfig, flow)(
-            place_moves=TABLE1_MOVES, sta_backend="torch"))
+            place_moves=TABLE1_MOVES, sta_backend="torch"), use_cache=False)
         if design_digest(r.design) != design_digest(host_r.design):
             raise RuntimeError(f"{app} {flow}: sta_backend='torch' changed "
                                f"the design digest")
     for app, (digest, cp, regs) in STRAIGHT_LINE_PINS.items():
-        r = c.compile(DENSE_APPS[app], PassConfig.full(place_moves=40,
-                                                       sta_backend="torch"))
+        r = c.compile(DENSE_APPS[app], PassConfig.full(
+            place_moves=40, sta_backend="torch"), use_cache=False)
         got = (design_digest(r.design), round(r.sta.critical_path_ns, 6),
                r.design.physical_register_count())
         if got != (digest, cp, regs):
@@ -1443,6 +1475,7 @@ def phase_engines(dev, card: str, table1: dict) -> None:
         f"({time.perf_counter() - t0:.2f} s)")
     log("engines", f"phase took {time.perf_counter() - t_phase:.1f} s on "
         f"{card}")
+    return dev_runs
 
 
 # the simulator: benchmarks/sim_throughput.py's workloads (seed 0: every
@@ -1469,6 +1502,12 @@ CHAIN_ROM = [(977 * t + 11) % 65536 for t in range(37)]
 # sim_sparse round 3 (the counts and read pointers, the heads, the stores)
 STEP_CLOCKS = 30
 SPARSE_ROUND_STEPS = 3
+# the kernels' global route: the smallest seeded wide DAG past a block's
+# opt-in shared memory (232 448 bytes on an H100) and one about 4x past it,
+# as dense programs at 256 cycles, and the smallest seeded wide DAG past it
+# as a sparse program at SIM_TOKENS tokens (tests/test_torch_card.py _wide)
+SIM_GLOBAL_WIDTHS, SIM_GLOBAL_CYCLES = (1018, 4096), 256
+SIM_GLOBAL_SPARSE_WIDTH = 176
 
 
 def sim_inputs(g, length: int, rng) -> dict:
@@ -1581,6 +1620,29 @@ def chain_graph(k: int, ops=("add",), rom: bool = False):
         g.connect(prev, n)
         prev = n
     g.connect(prev, g.add(OUTPUT, name="o"))
+    return g.validate()
+
+
+def wide_graph(width: int, sparse: bool = False, seed: int = 0):
+    """Three inputs, ``width`` random two-input PEs over them, then half as
+    many over those, each of the last to an output (seeded)."""
+    from repro_torch.core.dfg import DFG
+    rng = np.random.default_rng(seed)
+    ops = ["add", "sub", "mul", "and", "or", "xor", "min", "max"]
+    g = DFG("wide")
+    layers = [[g.add("input", name=f"in{i}") for i in range(3)]]
+    for n in (width, width // 2):
+        layer = []
+        for _ in range(n):
+            pe = g.add("pe", op=ops[int(rng.integers(len(ops)))])
+            for port in (0, 1):
+                g.connect(layers[-1][int(rng.integers(len(layers[-1])))], pe,
+                          port=port)
+            layer.append(pe)
+        layers.append(layer)
+    for i, pe in enumerate(layers[-1]):
+        g.connect(pe, g.add("output", name=f"out{i}"))
+    g.sparse = sparse
     return g.validate()
 
 
@@ -1712,6 +1774,129 @@ def host_split(g, ins, cycles: int, dev) -> None:
         f"{sum(best[k] for k in parts):.3f}")
 
 
+def check_global_route(dev, runs: dict, max_mhz: float, err: dict) -> dict:
+    """The main path's global-route runs held bit for bit to numpy, the
+    interpreter and the plain versions on the card, and timed (back-to-back
+    launches of the packed program) beside their bounds and the shared
+    route's latency floor. Returns the two rows' timing fields; fills
+    ``err``'s "dense_global" and "sparse_global"."""
+    from repro_torch.core import simulate, simulate_sparse
+    from repro_torch.core.sim_vec import (_feed_matrix, _input_matrix,
+                                          lower_dense, lower_sparse)
+    from repro_torch.kernels.sim import (dense_plan, sim_dense_plain,
+                                         sim_sparse_plain, sparse_plan)
+    from repro_torch.kernels.sim.sim import (_smem_limit, dense_launcher,
+                                             pack_sparse, sparse_launcher)
+
+    limit, out = _smem_limit(dev), {}
+    err["dense_global"] = 0
+    for label in [k for k in runs if k != "sparse"]:
+        g, ins, cycles, got, first = runs[label]
+        t_int, want = best_s(lambda: simulate(g, ins, cycles), 1)
+        t_np, np_out = best_s(lambda: simulate(g, ins, cycles,
+                                               backend="numpy"), 1)
+        prog = lower_dense(g)
+        h = dense_plan(prog, cycles, limit)[0]
+        in_t = torch.from_numpy(_input_matrix(prog, ins, cycles)).to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = sim_dense_plain(prog, in_t, cycles)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        plain_out = {o: plain[i].tolist()
+                     for i, o in enumerate(prog.output_names)}
+        err["dense_global"] = max(err["dense_global"],
+                                  stream_err(got, plain_out))
+        if not h["global_route"] or 4 * h["s_words"] <= limit:
+            raise RuntimeError(f"sim {label}: not a global-route program")
+        if not (got == want == np_out == plain_out):
+            raise RuntimeError(f"sim {label}: kernel, plain version, numpy "
+                               f"and interpreter streams differ")
+        k_out, launch = dense_launcher(prog, in_t, cycles)
+        ms = launcher_ms(launch, 5)
+        if not torch.equal(k_out, plain):
+            raise RuntimeError(f"sim {label}: the launcher's run differs")
+        n_rd = h["n_light"] + h["n_heavy"]
+        bound_ms, bound_by = sim_bound(
+            dense_function_bytes(prog, cycles),
+            cycles * (prog.n_nodes - len(prog.input_pos)
+                      - len(prog.const_pos)))
+        floor_ms = 1e3 * cycles * n_rd * STEP_CLOCKS / (1e6 * max_mhz)
+        log("sim", f"global route, dense {label} ({prog.n_nodes} nodes, "
+            f"{4 * h['s_words']} bytes of program and state, "
+            f"{4 * h['s_words'] / limit:.2f}x a block's {limit}) x {cycles} "
+            f"cycles: kernel == plain == numpy == interpreter on "
+            f"{len(got)} output streams; s interpreter {t_int:.3f}, numpy "
+            f"{t_np:.3f}, torch {first:.3f} (one call, packing included), "
+            f"plain on the card {plain_s:.3f}; kernel {ms:.4f} ms a call on "
+            f"the device ({1e6 * ms / cycles:.1f} ns a cycle, {n_rd} rounds "
+            f"a cycle, {1e6 * ms / cycles / n_rd:.1f} ns a round), bound "
+            f"{bound_ms:.3g} ms ({bound_by}; roofline share "
+            f"{bound_ms / ms:.2g}); the shared route's latency floor "
+            f"{floor_ms:.4f} ms ({STEP_CLOCKS} SM clocks a round at "
+            f"{max_mhz:.0f} MHz, an assumption; share {floor_ms / ms:.3f})")
+        if label == f"wide x{SIM_GLOBAL_WIDTHS[0]}":
+            out["sim_dense_global"] = {
+                "ms": ms, "plain_ms": 1e3 * plain_s, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": None}
+
+    g, ins, mc, got, first = runs["sparse"]
+    t_int, want = best_s(lambda: simulate_sparse(g, ins, mc), 1)
+    t_np, np_out = best_s(lambda: simulate_sparse(g, ins, mc,
+                                                  backend="numpy"), 1)
+    prog = lower_sparse(g)
+    feed, frem = _feed_matrix(prog, ins)
+    h = sparse_plan(prog, feed.shape, mc, limit)[0]
+    shared_words = pack_sparse(prog, feed.shape, mc)[0]["s_words"]
+    feed_t, frem_t = (torch.from_numpy(x).to(dev) for x in (feed, frem))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = sim_sparse_plain(prog, feed_t, frem_t, mc)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    plain_out = {o: plain[2][i, :int(plain[3][i])].tolist()
+                 for i, o in enumerate(prog.output_names)}
+    err["sparse_global"] = stream_err(got, plain_out)
+    k_res, launch = sparse_launcher(prog, feed_t, frem_t, mc)
+    ms = launcher_ms(launch, 5)
+    same = all(torch.equal(a, b) for i, (a, b) in enumerate(
+        zip(k_res, plain)) if i != 2)
+    for o in range(len(prog.output_names)):
+        k = int(plain[3][o])
+        same = same and torch.equal(k_res.outm[o, :k], plain[2][o, :k])
+    if not h["global_route"] or 4 * shared_words <= limit:
+        raise RuntimeError("sim wide sparse: not a global-route program")
+    if not (same and got == want == np_out == plain_out):
+        raise RuntimeError("sim wide sparse: kernel, plain version, numpy "
+                           "and interpreter differ")
+    rounds = int(plain.rounds)
+    nbytes = 8 * (int(frem.sum()) + int(plain.ocnt.sum())) \
+        + sparse_program_bytes(prog)
+    items = (len(prog.ev_names) + len(prog.output_names)
+             + len(prog.input_names) + prog.n_buf)
+    bound_ms, bound_by = sim_bound(nbytes, rounds * items)
+    floor_ms = 1e3 * rounds * SPARSE_ROUND_STEPS * STEP_CLOCKS / (
+        1e6 * max_mhz)
+    log("sim", f"global route, sparse wide x{SIM_GLOBAL_SPARSE_WIDTH} "
+        f"({prog.n_buf} buffers, {len(prog.ev_names)} nodes, fan-out "
+        f"{h['fan']}, {h['n_rounds']} item rounds a round; "
+        f"{4 * shared_words} bytes of program and state in the shared "
+        f"route's layout, {4 * shared_words / limit:.2f}x a block's; "
+        f"{4 * h['s_words']} in the global route's wide layout) x "
+        f"{SIM_TOKENS} tokens: "
+        f"kernel == plain (end state and streams) == numpy == interpreter; "
+        f"{rounds} rounds; s interpreter {t_int:.3f}, numpy {t_np:.3f}, "
+        f"torch {first:.3f}, plain on the card {plain_s:.3f}; kernel "
+        f"{ms:.4f} ms a call on the device ({1e3 * ms / rounds:.3f} us a "
+        f"round), bound {bound_ms:.3g} ms ({bound_by}; roofline share "
+        f"{bound_ms / ms:.2g}); the shared route's latency floor "
+        f"{floor_ms:.4f} ms (share {floor_ms / ms:.3f})")
+    out["sim_sparse_global"] = {
+        "ms": ms, "plain_ms": 1e3 * plain_s, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": None}
+    return out
+
+
 def phase_sim(dev, card: str, table1: dict):
     """The vectorized simulator: interpreter, numpy, the kernels through
     ``simulate(backend="torch")`` and their plain versions on the card,
@@ -1734,9 +1919,15 @@ def phase_sim(dev, card: str, table1: dict):
     sparse = [(n, s, sim_inputs(s.build(1), SIM_TOKENS, sparse_rng))
               for n, s in SPARSE_APPS.items()]
     starve = starved_graph()
+    wide = [(f"wide x{w}", wide_graph(w), SIM_GLOBAL_CYCLES)
+            for w in SIM_GLOBAL_WIDTHS]
+    wide_sparse = wide_graph(SIM_GLOBAL_SPARSE_WIDTH, sparse=True)
+    wide_sparse_in = sim_inputs(wide_sparse, SIM_TOKENS,
+                                np.random.default_rng(SIM_SEED))
 
     # the main path: the entry points with backend="torch", counts from 0
-    sim_dense.launches = sim_sparse.launches = 0
+    for fn in (sim_dense, sim_sparse):
+        fn.launches = fn.shared_launches = fn.global_launches = 0
     runs = {}
     for name, spec, cycles in dense:
         g = spec.build(1)
@@ -1771,14 +1962,33 @@ def phase_sim(dev, card: str, table1: dict):
     starve_in = {"a": [1, 2, 3], "b": [5]}
     diag = {"torch": deadlock_message(lambda: simulate_sparse(
         starve, starve_in, 64, backend="torch"))}
+    global_runs = {}
+    for label, g, cycles in wide:
+        ins = sim_inputs(g, cycles, np.random.default_rng(SIM_SEED))
+        secs, got = best_s(lambda: simulate(g, ins, cycles, backend="torch"),
+                           1)
+        global_runs[label] = (g, ins, cycles, got, secs)
+    secs, got = best_s(lambda: simulate_sparse(
+        wide_sparse, wide_sparse_in, SIM_TOKENS * 40, backend="torch"), 1)
+    global_runs["sparse"] = (wide_sparse, wide_sparse_in, SIM_TOKENS * 40,
+                             got, secs)
     torch.cuda.synchronize()
     launches = {"dense": sim_dense.launches, "sparse": sim_sparse.launches}
-    want = {"dense": len(dense) * (1 + SIM_WARM) + 3 * len(table1),
-            "sparse": len(sparse) * (1 + SIM_WARM) + 1}
-    if launches != want:
-        raise RuntimeError(f"sim launches {launches}, want {want}")
-    log("sim", f"main path: sim_dense {launches['dense']} launches, "
-        f"sim_sparse {launches['sparse']} (one a simulate call)")
+    routes = {k: (fn.shared_launches, fn.global_launches)
+              for k, fn in (("dense", sim_dense), ("sparse", sim_sparse))}
+    shared = {"dense": len(dense) * (1 + SIM_WARM) + 3 * len(table1),
+              "sparse": len(sparse) * (1 + SIM_WARM) + 1}
+    want_routes = {"dense": (shared["dense"], len(wide)),
+                   "sparse": (shared["sparse"], 1)}
+    if routes != want_routes or any(launches[k] != sum(routes[k])
+                                    for k in launches):
+        raise RuntimeError(f"sim launches {launches}, by route (shared, "
+                           f"global) {routes}, want {want_routes}")
+    log("sim", f"main path: sim_dense {launches['dense']} launches "
+        f"({routes['dense'][0]} on the shared route, {routes['dense'][1]} "
+        f"on the global route), sim_sparse {launches['sparse']} "
+        f"({routes['sparse'][0]} shared, {routes['sparse'][1]} global); one "
+        f"a simulate call")
     max_mhz = smi_clocks()[1]
     phase_chains(dev)
 
@@ -1928,6 +2138,8 @@ def phase_sim(dev, card: str, table1: dict):
     log("sim", f"Table I: {len(verify_in)} verify checks on 3 backends in "
         f"{time.perf_counter() - t0:.2f} s")
 
+    results.update(check_global_route(dev, global_runs, max_mhz, err))
+
     for backend, device in (("interpreter", None), ("numpy", None),
                             ("torch", "cpu")):
         diag[backend + (f" on {device}" if device else "")] = \
@@ -1951,7 +2163,281 @@ def phase_sim(dev, card: str, table1: dict):
          "source": src + "sim_sparse.cu",
          "replaces": "src/repro/core/sim_vec.py:877",
          "launches": launches["sparse"], "max_abs_err": err["sparse"],
-         **results["sim_sparse"]}]
+         **results["sim_sparse"]},
+        {"name": "sim_dense_global", "route": "cuda",
+         "source": src + "sim_dense.cu",
+         "replaces": "src/repro/core/sim_vec.py:440",
+         "launches": routes["dense"][1], "max_abs_err": err["dense_global"],
+         **results["sim_dense_global"]},
+        {"name": "sim_sparse_global", "route": "cuda",
+         "source": src + "sim_sparse.cu",
+         "replaces": "src/repro/core/sim_vec.py:877",
+         "launches": routes["sparse"][1], "max_abs_err": err["sparse_global"],
+         **results["sim_sparse_global"]}]
+
+
+def result_bytes(r) -> tuple:
+    """A compile result as phase 7d compares it: the summary, the design
+    digest (placement, routes, registers), the critical path and the
+    passes that ran."""
+    from repro_torch.core.netlist import design_digest
+    return (json.dumps(r.summary()), design_digest(r.design),
+            r.sta.critical_path_ns, r.pass_stats["pipeline"])
+
+
+def capped_bytes(r) -> tuple:
+    """A power-capped result: its summary, the controller's outcome and
+    its trajectory."""
+    pc = r.power_cap
+    return (json.dumps(r.summary()), json.dumps(pc.summary()),
+            [(p.critical_path_ns, p.freq_mhz, p.power_mw, p.edp_js,
+              p.registers_added) for p in pc.trajectory])
+
+
+def point_metrics(p) -> tuple:
+    return (p.critical_path_ns, p.freq_mhz, p.power_mw, p.edp_js,
+            p.registers_added)
+
+
+def cuda_worker_ready(hold_s: float) -> tuple:
+    """A process worker's first CUDA tensor: (its pid, the wall clock when
+    the tensor is ready), then ``hold_s`` seconds of waiting, so that each
+    of a pool's tasks lands on a worker of its own; phase 7d's reading of
+    the workers' start time."""
+    import repro_torch.core  # noqa: F401  (what a batch worker imports)
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    ready = time.time()
+    time.sleep(hold_s)
+    return os.getpid(), ready
+
+
+def phase_batch(dev, card: str, table1: dict, dev_runs: dict) -> None:
+    """The compile driver: compile_batch of Table I on the host backends
+    (process workers; cold, warm in memory, warm from disk) and on the
+    torch engines (spawned workers on the card); the frontier on the torch
+    STA (thread and process fan-out); the power-capped schedule; the
+    device rule of the keys."""
+    import shutil
+    from concurrent.futures import ProcessPoolExecutor
+    from dataclasses import replace
+
+    from repro_torch.core import (ALL_APPS, DENSE_APPS, CascadeCompiler,
+                                  CompileCache, DiskCache, ExploreSpec,
+                                  PassConfig, compile_key)
+    from repro_torch.core.compiler import _process_context
+
+    t_phase = time.perf_counter()
+    keys = list(table1)
+    jobs = [(DENSE_APPS[a], getattr(PassConfig, f)(place_moves=TABLE1_MOVES))
+            for a, f in keys]
+    want = [result_bytes(table1[k]) for k in keys]
+    shutil.rmtree(BATCH_CACHE, ignore_errors=True)
+
+    def disk_compiler():
+        return CascadeCompiler(
+            cache=CompileCache(disk=DiskCache(root=BATCH_CACHE / "results")),
+            stage_cache=CompileCache(
+                disk=DiskCache(root=BATCH_CACHE / "stages")))
+
+    first = disk_compiler()
+    for label, c, hits in (("cold", first, 0),
+                           ("warm from the memory cache", first, len(jobs)),
+                           ("warm from the disk cache, a fresh compiler",
+                            disk_compiler(), len(jobs))):
+        t0 = time.perf_counter()
+        out = c.compile_batch(jobs, verify=True, backend="process")
+        secs = time.perf_counter() - t0
+        lb = c.last_batch
+        if [result_bytes(r) for r in out] != want:
+            raise RuntimeError(f"batch {label}: results differ from phase "
+                               f"7's serial compiles")
+        if lb["cache_hits"] != hits or (hits == 0 and (
+                lb["compiled"] != len(jobs) or lb["start_method"] != "spawn")):
+            raise RuntimeError(f"batch {label}: {lb}")
+        log("batch", f"Table I host backends, process backend, {label}: "
+            f"{secs:.3f} s; {len(out)} results == phase 7's serial compiles "
+            f"(summary, design digest, critical path, passes); workers "
+            f"{lb['workers']}, start method {lb['start_method']}; "
+            f"last_batch {json.dumps(lb)}; on {card}")
+    disk = c.cache.disk.stats()
+    if disk["hits"] != len(jobs):
+        raise RuntimeError(f"batch: disk tier {disk}")
+    log("batch", f"disk tier of the fresh compiler: {disk['hits']} hits, "
+        f"{disk['entries']} entries, {disk['size_bytes']} bytes under "
+        f"{BATCH_CACHE.relative_to(ROOT)}")
+
+    # the torch engines: process workers spawn (CUDA is initialised here)
+    tjobs = [(DENSE_APPS[a], getattr(PassConfig, f)(
+        place_moves=TABLE1_MOVES, pnr_backend="torch", sta_backend="torch"))
+        for a, f in keys]
+    c = CascadeCompiler(cache=CompileCache(), stage_cache=CompileCache(),
+                        device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = c.compile_batch(tjobs, verify=True, backend="process")
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    lb = c.last_batch
+    if [result_bytes(r) for r in out] != [result_bytes(dev_runs[k])
+                                          for k in keys]:
+        raise RuntimeError("batch: torch-engine process results differ from "
+                           "the serial compiles on the card")
+    if lb["start_method"] != "spawn" or lb["compiled"] != len(tjobs):
+        raise RuntimeError(f"batch torch engines: {lb}")
+    t0 = time.time()
+    with ProcessPoolExecutor(max_workers=lb["workers"],
+                             mp_context=_process_context(True)) as ex:
+        ready = list(ex.map(cuda_worker_ready, [2.0] * lb["workers"]))
+    starts = sorted(t - t0 for _, t in ready)
+    log("batch", f"Table I on the torch engines (pnr_backend=sta_backend="
+        f"'torch', verify=True), process backend: {secs:.3f} s; "
+        f"{len(out)} results == phase 7b's serial compiles on the card, "
+        f"byte for byte (summary, design digest, critical path, passes); "
+        f"workers {lb['workers']}, start method {lb['start_method']}; "
+        f"parent's device memory {before} bytes before, peak {peak} bytes "
+        f"during the batch; workers' start: a pool of {lb['workers']} "
+        f"spawned workers ({len({pid for pid, _ in ready})} distinct pids) "
+        f"has its first CUDA tensor {starts[0]:.2f} s (first worker) to "
+        f"{starts[-1]:.2f} s (last) after the pool is made; on {card}")
+
+    # the frontier: the reference benchmark's grid, torch STA on the card
+    app = ALL_APPS[FRONTIER_APP]
+    fc = CascadeCompiler(cache=CompileCache(), stage_cache=CompileCache(),
+                         device=dev)
+    base = fc.compile(app, PassConfig.full(place_moves=FRONTIER_MOVES,
+                                           sta_backend="torch"),
+                      use_cache=False)
+    caps = tuple(None if f is None else base.power.power_mw * f
+                 for f in FRONTIER_CAP_FRACTIONS)
+    spec = ExploreSpec(register_budgets=FRONTIER_BUDGETS, power_caps_mw=caps)
+
+    def frontier_cfg(sta, sp=spec):
+        return PassConfig.frontier(sp, place_moves=FRONTIER_MOVES,
+                                   sta_backend=sta)
+
+    fronts = {}
+    for backend in ("thread", "process"):
+        c = CascadeCompiler(cache=CompileCache(), stage_cache=CompileCache(),
+                            device=dev)
+        t0 = time.perf_counter()
+        (r,) = c.compile_batch([(app, frontier_cfg("torch"))],
+                               backend=backend)
+        fronts[backend] = (r, time.perf_counter() - t0, c)
+        if c.last_batch["explore_points"] != len(spec.points()):
+            raise RuntimeError(f"batch frontier {backend}: {c.last_batch}")
+    t0 = time.perf_counter()
+    np_r = CascadeCompiler(cache=CompileCache(),
+                           stage_cache=CompileCache()).compile(
+        app, frontier_cfg("numpy"))
+    np_s = time.perf_counter() - t0
+    rows = {k: [p.scaled() for p in v[0].frontier.all_points()]
+            for k, v in fronts.items()}
+    rows["numpy"] = [p.scaled() for p in np_r.frontier.all_points()]
+    if not rows["thread"] == rows["process"] == rows["numpy"]:
+        raise RuntimeError("batch frontier: thread, process and numpy-STA "
+                           "frontiers differ")
+    fr = fronts["thread"][0].frontier
+    for b, cap in spec.points():
+        cfg = (PassConfig.power_capped(cap, post_pnr_budget=b,
+                                       place_moves=FRONTIER_MOVES,
+                                       sta_backend="torch")
+               if cap is not None else
+               PassConfig.full(post_pnr_budget=b, place_moves=FRONTIER_MOVES,
+                               sta_backend="torch"))
+        ind = fc.compile(app, cfg)
+        got = point_metrics(fr.point_for(b, cap))
+        if got != (ind.sta.critical_path_ns, ind.sta.max_freq_mhz,
+                   ind.power.power_mw, ind.power.edp_js,
+                   ind.design.netlist.added_registers()):
+            raise RuntimeError(f"batch frontier point ({b}, {cap}) differs "
+                               f"from an independent compile")
+    warm_c = fronts["thread"][2]
+    t0 = time.perf_counter()
+    warm = warm_c.compile(app, frontier_cfg(
+        "torch", replace(spec, select="max_freq")))
+    warm_s = time.perf_counter() - t0
+    if warm.pass_stats.get("stage_resume") != "routed":
+        raise RuntimeError("batch frontier: the max_freq re-run did not "
+                           "resume from the routed artifact")
+    sel = fr.selected
+    log("batch", f"frontier {FRONTIER_APP} ({FRONTIER_MOVES} moves, "
+        f"budgets {FRONTIER_BUDGETS} x caps {[None if c is None else round(c, 3) for c in caps]} mW; "
+        f"sta_backend='torch' on the card): {len(fr.all_points())} points, "
+        f"{len(fr.points)} non-dominated, each == an independent compile; "
+        f"thread fan-out {fronts['thread'][1]:.3f} s, process fan-out "
+        f"{fronts['process'][1]:.3f} s (start method "
+        f"{_process_context(True).get_start_method()}), numpy-STA frontier "
+        f"{np_s:.3f} s, all three equal; selected (min_edp) budget "
+        f"{sel.register_budget}, cap {sel.power_cap_mw}: "
+        f"{sel.freq_mhz:.1f} MHz, {sel.power_mw:.2f} mW; warm re-run with "
+        f"select='max_freq' resumed from 'routed' in {warm_s:.3f} s "
+        f"(selected {warm.frontier.selected.freq_mhz:.1f} MHz)")
+
+    # the power-capped schedule on the torch STA against the numpy STA
+    pcc = CascadeCompiler(cache=CompileCache(), stage_cache=CompileCache(),
+                          device=dev)
+    for name, spec_app in DENSE_APPS.items():
+        unc = pcc.compile(spec_app, PassConfig.power_capped(
+            None, place_moves=TABLE1_MOVES, sta_backend="torch"))
+        parts = []
+        for frac in POWER_CAP_FRACTIONS:
+            cap = frac * unc.power.power_mw
+            r_t, r_n = (pcc.compile(spec_app, PassConfig.power_capped(
+                cap, place_moves=TABLE1_MOVES, sta_backend=sta))
+                for sta in ("torch", "numpy"))
+            pc = r_t.power_cap
+            if capped_bytes(r_t) != capped_bytes(r_n):
+                raise RuntimeError(f"batch power cap {name} x{frac}: torch "
+                                   f"and numpy STA differ")
+            if pc.feasible and r_t.power.power_mw > cap or (
+                    not pc.feasible and pc.stop_reason != "cap_infeasible"):
+                raise RuntimeError(f"batch power cap {name} x{frac}: "
+                                   f"{pc.summary()}")
+            parts.append(f"x{frac}: cap {cap:.2f} mW -> "
+                         + (f"{r_t.power.power_mw:.2f} mW at "
+                            f"{r_t.sta.max_freq_mhz:.1f} MHz, "
+                            f"{pc.final.registers_added} registers, "
+                            f"{pc.rounds_rolled_back} rolled back"
+                            if pc.feasible else "infeasible (cap below the "
+                            "un-pipelined design)"))
+        log("batch", f"power cap {name}: uncapped {unc.power.power_mw:.2f} "
+            f"mW at {unc.sta.max_freq_mhz:.1f} MHz; " + "; ".join(parts)
+            + "; torch STA == numpy STA (summary, outcome, trajectory)")
+
+    # the keys: one torch-engine job on the CPU and on the card
+    cache, stages = CompileCache(), CompileCache()
+    cpu = CascadeCompiler(cache=cache, stage_cache=stages, device="cpu")
+    on_card = CascadeCompiler(cache=cache, stage_cache=stages, device=dev)
+    app, cfg = DENSE_APPS["gaussian"], PassConfig.full(
+        place_moves=20, pnr_backend="torch", sta_backend="torch")
+    k_cpu, k_card = (compile_key(app, cfg, c.fabric, c.timing, c.energy,
+                                 device=c.device) for c in (cpu, on_card))
+    stage_same = {st: cpu.stage_key_for(app, cfg, st)
+                  == on_card.stage_key_for(app, cfg, st)
+                  for st in ("mapped", "placed", "routed")}
+    r_cpu = cpu.compile(app, cfg)
+    r_card = on_card.compile(app, cfg)
+    again = on_card.compile(app, cfg)
+    if (k_cpu == k_card or stage_same != {"mapped": True, "placed": False,
+                                          "routed": False}
+            or r_card.cache_hit or not again.cache_hit or len(cache) != 2):
+        raise RuntimeError(f"batch keys: compile keys equal "
+                           f"{k_cpu == k_card}, stage keys equal "
+                           f"{stage_same}, card hit {r_card.cache_hit}")
+    log("batch", f"keys of one torch-engine job (gaussian, pnr_backend="
+        f"sta_backend='torch'): compile key on the CPU {k_cpu[:12]}, on the "
+        f"card {k_card[:12]}; stage keys equal across devices {stage_same}; "
+        f"the CPU result was not served to the card (card compile "
+        f"cache_hit={r_card.cache_hit}, then {again.cache_hit}; "
+        f"{len(cache)} entries); critical path CPU "
+        f"{r_cpu.sta.critical_path_ns:.3f} ns, card "
+        f"{r_card.sta.critical_path_ns:.3f} ns")
+    shutil.rmtree(BATCH_CACHE, ignore_errors=True)
+    log("batch", f"phase took {time.perf_counter() - t_phase:.1f} s on "
+        f"{card}")
 
 
 def main(argv) -> int:
@@ -1980,8 +2466,9 @@ def main(argv) -> int:
     phase_train_smoke(card)
     torch.cuda.empty_cache()
     path, mp_launches, st_launches, table1 = phase_compile(dev, card)
-    phase_engines(dev, card, table1)
+    dev_runs = phase_engines(dev, card, table1)
     sim = phase_sim(dev, card, table1)
+    phase_batch(dev, card, table1, dev_runs)
     maxplus = phase_maxplus(dev, path)
     stencil = phase_stencil(dev)
     maxplus["launches"], stencil["launches"] = mp_launches, st_launches

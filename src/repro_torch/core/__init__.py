@@ -4,7 +4,10 @@ The host modules of ``repro.core`` carried over as this package's own
 copies: the fabric and timing model, the app DFGs, the pipelining passes,
 numpy simulated-annealing placement, A* routing, scalar STA, the post-PnR
 register-insertion loop, the schedule/power reports, the interpreter
-simulator and ``CascadeCompiler`` over ``DEFAULT_SCHEDULE``.  The
+simulator and ``CascadeCompiler`` with its compile and stage-artifact
+caches (``cache``), staged resume, ``compile_batch`` and the
+``"power_capped"`` (``power_cap``) and ``"explore"`` (``explore``)
+schedules.  The
 reference's jitted device engines are torch programs here: the lowered
 STA (``sta_vec``, ``sta_backend="numpy"``/``"torch"``), the
 parallel-tempering placer (``place_torch``) and the batched wavefront
@@ -17,7 +20,9 @@ kernels on the card).
 Public API:
     Fabric, TimingModel, generate_timing_model
     DFG and the pipelining passes (compute/broadcast/post-PnR, matching)
-    CascadeCompiler / PassConfig / CompileResult
+    CascadeCompiler / PassConfig / CompileResult / compile_batch
+    CompileCache / DiskCache / compile_key / stage_key / StageArtifact
+    power_capped_pipeline / ExploreSpec / ParetoFrontier
     DENSE_APPS / SPARSE_APPS / CONTROL_APPS benchmark suites
 """
 
@@ -26,26 +31,39 @@ from .apps import (ALL_APPS, CONTROL_APPS, DENSE_APPS, SPARSE_APPS,
 from .branch_delay import (MatchPlan, arrival_cycles_dfg, check_matched_dfg,
                            check_matched_netlist, match_dfg, match_netlist)
 from .broadcast import broadcast_pipelining
-from .compiler import CascadeCompiler, CompileResult, PassConfig
-from .config import (PNR_BACKENDS, SIM_BACKENDS, STA_BACKENDS, env_flag,
-                     place_debug, pnr_backend, sim_backend, sta_backend)
+from .cache import (DEFAULT_CACHE, DEFAULT_STAGE_CACHE, CompileCache,
+                    DiskCache, StagePool, app_fingerprint, attach_disk_cache,
+                    attach_stage_disk_cache, code_fingerprint, compile_key,
+                    dfg_fingerprint, stage_key)
+from .compiler import (BATCH_BACKENDS, CACHED_STAGES, BatchCompileError,
+                       CascadeCompiler, CompileResult, PassConfig,
+                       compile_batch)
+from .config import (PNR_BACKENDS, SIM_BACKENDS, STA_BACKENDS, cache_dir,
+                     default_power_cap_mw, disk_cache_enabled, env_flag,
+                     env_float, env_int, place_debug, pnr_backend,
+                     sim_backend, sta_backend, worker_count)
 from .dfg import DFG
+from .explore import (ExploreSpec, FrontierPoint, ParetoFrontier,
+                      evaluate_candidate, explore_frontier, pareto_prune)
 from .flush import add_soft_flush, remove_flush
 from .interconnect import Fabric, Hop, Region, SubFabric, Tile
 from .metrics import DesignMetrics, evaluate_design
 from .netlist import Netlist, RoutedDesign, extract_netlist
-from .passes import (DEFAULT_SCHEDULE, NAMED_SCHEDULES, PASS_REGISTRY,
-                     CompileContext, Pass, PassPipeline, register_pass,
-                     resolve_schedule)
+from .passes import (CONFIG_FIELD_STAGE, DEFAULT_SCHEDULE, EXPLORE_SCHEDULE,
+                     NAMED_SCHEDULES, PASS_REGISTRY, POWER_CAPPED_SCHEDULE,
+                     STAGE_OF_PASS, STAGE_ORDER, CompileContext, Pass,
+                     PassPipeline, StageArtifact, register_pass,
+                     resolve_schedule, stage_plan)
 from .pipelining import collapse_reg_chains, compute_pipelining, find_reg_chains
 from .place import PlaceParams, place, placement_stats
 from .post_pnr import PostPnRParams, post_pnr_pipeline
 from .power import EnergyParams, PowerReport, power_report
+from .power_cap import (DesignCheckpoint, ParetoPoint, PowerCapResult,
+                        evaluate_point, power_capped_pipeline)
 from .route import RouteParams, route
 from .schedule import Schedule, schedule_round2
-from .sim import (clear_ref_memo, dfg_fingerprint, equivalent,
-                  output_latency, simulate, simulate_sparse,
-                  sparse_equivalent)
+from .sim import (clear_ref_memo, equivalent, output_latency, simulate,
+                  simulate_sparse, sparse_equivalent)
 from .sim_vec import (DenseProgram, SimLoweringError, SparseProgram,
                       lower_dense, lower_sparse, simulate_dense_vec,
                       simulate_sparse_vec)
@@ -57,12 +75,24 @@ from .unroll import max_copies, subfabric_for
 
 __all__ = [
     "ALL_APPS", "CONTROL_APPS", "DENSE_APPS", "SPARSE_APPS", "AppSpec",
-    "CascadeCompiler", "CompileResult", "PassConfig",
+    "CascadeCompiler", "CompileResult", "PassConfig", "compile_batch",
+    "BATCH_BACKENDS", "BatchCompileError", "CACHED_STAGES",
+    "CompileCache", "DiskCache", "StagePool", "DEFAULT_CACHE",
+    "DEFAULT_STAGE_CACHE", "attach_disk_cache", "attach_stage_disk_cache",
+    "compile_key", "stage_key", "app_fingerprint", "code_fingerprint",
+    "cache_dir", "worker_count", "disk_cache_enabled", "env_float",
+    "env_int", "default_power_cap_mw",
     "env_flag", "place_debug",
     "PNR_BACKENDS", "pnr_backend", "SIM_BACKENDS", "sim_backend",
     "STA_BACKENDS", "sta_backend",
     "CompileContext", "Pass", "PassPipeline", "PASS_REGISTRY",
     "DEFAULT_SCHEDULE", "NAMED_SCHEDULES", "resolve_schedule",
+    "POWER_CAPPED_SCHEDULE", "EXPLORE_SCHEDULE", "STAGE_ORDER",
+    "STAGE_OF_PASS", "CONFIG_FIELD_STAGE", "StageArtifact", "stage_plan",
+    "DesignCheckpoint", "ParetoPoint", "PowerCapResult", "evaluate_point",
+    "power_capped_pipeline",
+    "ExploreSpec", "FrontierPoint", "ParetoFrontier", "evaluate_candidate",
+    "explore_frontier", "pareto_prune",
     "register_pass", "find_reg_chains",
     "DesignMetrics", "evaluate_design",
     "DFG", "Fabric", "Hop", "Region", "SubFabric", "Tile", "Netlist",

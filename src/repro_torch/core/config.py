@@ -1,6 +1,15 @@
 """Environment configuration — the single place Cascade env vars are read.
 
-The knobs of the default compile flow:
+The knobs of the compile flow and its driver:
+
+    CASCADE_CACHE_DIR    disk-cache root (default ``~/.cache/cascade-repro``)
+    CASCADE_DISK_CACHE   truthy -> attach the disk tier to the process-wide
+                         compile and stage caches at import
+    CASCADE_WORKERS      ``compile_batch`` worker count (default: min(8,
+                         cpu count), never more than the jobs)
+    CASCADE_POWER_CAP_MW default power budget for driver CLIs; drivers copy
+                         it into ``PassConfig.power_capped(...)``, the
+                         compiler never reads it implicitly
 
     CASCADE_PLACE_DEBUG  truthy -> the SA placer re-derives the full cost
                          at every temperature step and asserts the
@@ -28,6 +37,8 @@ from __future__ import annotations
 
 import os
 import warnings
+from pathlib import Path
+from typing import Optional
 
 _FALSY = ("", "0", "false", "no", "off")
 
@@ -38,6 +49,80 @@ def env_flag(name: str, default: bool = False) -> bool:
     if v is None:
         return default
     return v.strip().lower() not in _FALSY
+
+
+def cache_dir() -> Path:
+    """Disk-cache root: ``CASCADE_CACHE_DIR`` or ``~/.cache/cascade-repro``."""
+    root = os.environ.get("CASCADE_CACHE_DIR")
+    if root:
+        return Path(root).expanduser()
+    return Path.home() / ".cache" / "cascade-repro"
+
+
+def worker_count(jobs: Optional[int] = None, cap: int = 8) -> int:
+    """Batch worker count: ``CASCADE_WORKERS`` wins; otherwise min(cap, cpu
+    count), never more than ``jobs`` when given, always at least 1.  The
+    ``jobs`` clamp applies to the env path too."""
+    env = os.environ.get("CASCADE_WORKERS")
+    if env:
+        try:
+            w = int(env)
+        except ValueError:
+            w = None
+        if w is not None:
+            if jobs is not None:
+                w = min(w, jobs)
+            return max(1, w)
+    w = min(cap, os.cpu_count() or cap)
+    if jobs is not None:
+        w = min(w, jobs)
+    return max(1, w)
+
+
+def env_float(name: str, default: Optional[float] = None) -> Optional[float]:
+    """Float env var: unset or empty -> ``default``.  An unparsable value
+    also falls back to ``default``, with a ``UserWarning`` naming the
+    variable and the value (``CASCADE_POWER_CAP_MW=250mW`` must not
+    silently compile uncapped)."""
+    v = os.environ.get(name)
+    if v is None or not v.strip():
+        return default
+    try:
+        return float(v)
+    except ValueError:
+        warnings.warn(
+            f"ignoring unparsable {name}={v!r} (not a float); "
+            f"falling back to default {default!r}",
+            UserWarning, stacklevel=2)
+        return default
+
+
+def env_int(name: str, default: Optional[int] = None) -> Optional[int]:
+    """Int env var: unset or empty -> ``default``; unparsable values warn
+    (naming the variable and value) and fall back, like :func:`env_float`."""
+    v = os.environ.get(name)
+    if v is None or not v.strip():
+        return default
+    try:
+        return int(v)
+    except ValueError:
+        warnings.warn(
+            f"ignoring unparsable {name}={v!r} (not an int); "
+            f"falling back to default {default!r}",
+            UserWarning, stacklevel=2)
+        return default
+
+
+def default_power_cap_mw(default: Optional[float] = None) -> Optional[float]:
+    """Default power budget for the power-capped schedule
+    (``CASCADE_POWER_CAP_MW``); ``None`` means unconstrained.  Drivers copy
+    it into the ``PassConfig`` they compile with — the compiler never reads
+    it implicitly, keeping cache keys faithful."""
+    return env_float("CASCADE_POWER_CAP_MW", default)
+
+
+def disk_cache_enabled(default: bool = False) -> bool:
+    return env_flag("CASCADE_DISK_CACHE", default)
 
 
 #: The place-and-route kernel backends (``PassConfig.pnr_backend`` /

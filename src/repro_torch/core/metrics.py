@@ -2,9 +2,9 @@
 
 Three consumers need the same projection of a routed design into
 (frequency, runtime, power, EDP): the final report passes
-(:mod:`repro.core.passes`), the power-cap controller's per-round budget
-check (:mod:`repro.core.power_cap`), and the design-space-exploration
-sweep (:mod:`repro.core.explore`).  Before this module each re-plumbed
+(:mod:`repro_torch.core.passes`), the power-cap controller's per-round budget
+check (:mod:`repro_torch.core.power_cap`), and the design-space-exploration
+sweep (:mod:`repro_torch.core.explore`).  Before this module each re-plumbed
 ``analyze`` / ``schedule_round2`` / ``power_report`` by hand — three
 copies of the same argument threading, three chances for the controller
 to honour a cap the report would then contradict.

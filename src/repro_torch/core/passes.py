@@ -11,16 +11,28 @@ Adding a new technique is: write a function, decorate it with
 ``@register_pass``, and name it in a schedule (``PassConfig.schedule`` or
 ``PassPipeline(...)``) — no edits to the driver.
 
-This package carries the default schedule only; the reference's
-power-capped, exploration and multi-app passes and its stage-artifact model
-are later slices of the port (``ROADMAP.md``).
+On top of the pass sequence sits an explicit **stage model**
+(:data:`STAGE_ORDER`): every registered pass belongs to one of
+``front_end -> mapped -> placed -> routed -> pipelined -> report``, and a
+:class:`StageArtifact` snapshots the full artifact state of a
+:class:`CompileContext` at any stage boundary.  Artifacts can be forked
+(independent deep copies) and restored into fresh contexts, which is what
+makes compiles *resumable*: the driver caches stage artifacts under prefix
+content hashes (:func:`repro_torch.core.cache.stage_key`), so a compile
+whose config differs only in post-PnR knobs resumes from the cached routed
+design instead of repeating mapping/placement/routing — the mechanism
+behind the in-compile design-space exploration of
+:mod:`repro_torch.core.explore`.  The named schedules are ``"default"``,
+``"power_capped"`` and ``"explore"``; the reference's multi-app schedules
+and its region fence wait for the port's ``multi`` module.
 """
 
 from __future__ import annotations
 
+import copy
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional, Sequence, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -28,6 +40,7 @@ from .apps import AppSpec
 from .branch_delay import check_matched_netlist, check_predicated_regions
 from .broadcast import broadcast_pipelining
 from .dfg import CONTROL_PORT, DFG, PRED_PORT
+from .explore import ExploreSpec, ParetoFrontier, PointMap, explore_frontier
 from .flush import add_soft_flush
 from .interconnect import Fabric
 from .metrics import DesignMetrics, evaluate_design
@@ -36,6 +49,7 @@ from .pipelining import compute_pipelining
 from .place import PlaceParams, place
 from .post_pnr import PostPnRParams, PostPnRResult, post_pnr_pipeline
 from .power import EnergyParams, PowerReport
+from .power_cap import PowerCapResult, power_capped_pipeline
 from .route import RouteParams, route
 from .schedule import Schedule
 from .sim import equivalent
@@ -68,6 +82,11 @@ class CompileContext:
     verify: bool = False
     device: object = None                    # of the "torch" backends
 
+    #: Optional pool-backed mapper for the ``pareto_frontier`` pass —
+    #: supplied by ``compile_batch`` so frontier points fan out as
+    #: sub-jobs; ``None`` means evaluate points serially in-process.
+    point_map: Optional[PointMap] = None
+
     # artifacts ------------------------------------------------------------
     graph: Optional[DFG] = None              # after "build"
     source_dfg: Optional[DFG] = None         # snapshot before extraction
@@ -78,6 +97,8 @@ class CompileContext:
     placement: Optional[dict] = None
     design: Optional[RoutedDesign] = None
     post_pnr: Optional[PostPnRResult] = None
+    power_cap: Optional[PowerCapResult] = None
+    frontier: Optional[ParetoFrontier] = None
     metrics: Optional[DesignMetrics] = None
     sta: Optional[STAReport] = None
     schedule: Optional[Schedule] = None
@@ -151,11 +172,167 @@ DEFAULT_SCHEDULE = (
     "verify",
 )
 
+#: The Capstone-style flow: identical to the default except the post-PnR
+#: register insertion runs under a power budget (``PassConfig.power_cap_mw``;
+#: no cap -> byte-identical results to the default schedule).
+POWER_CAPPED_SCHEDULE = tuple(
+    "power_capped_pipeline" if name == "post_pnr" else name
+    for name in DEFAULT_SCHEDULE)
+
+#: The design-space-exploration flow: the post-PnR pass is replaced by a
+#: Pareto-frontier sweep over ``PassConfig.explore`` (budgets x caps); the
+#: report passes then describe the sweep's selected point.
+EXPLORE_SCHEDULE = tuple(
+    "pareto_frontier" if name == "post_pnr" else name
+    for name in DEFAULT_SCHEDULE)
+
 #: Declarative schedules by name — ``PassConfig.schedule`` may be one of
 #: these strings instead of an explicit pass-name tuple.
 NAMED_SCHEDULES: Dict[str, Sequence[str]] = {
     "default": DEFAULT_SCHEDULE,
+    "power_capped": POWER_CAPPED_SCHEDULE,
+    "explore": EXPLORE_SCHEDULE,
 }
+
+
+# ---------------------------------------------------------------------------
+# the stage model: boundaries, config-field provenance, snapshot artifacts
+# ---------------------------------------------------------------------------
+
+#: Compile stages, in flow order.  Every registered pass belongs to one;
+#: a stage *boundary* is the point in a schedule after its last pass.
+STAGE_ORDER = ("front_end", "mapped", "placed", "routed", "pipelined",
+               "report")
+
+#: Which stage each built-in pass belongs to.  Custom registered passes
+#: are absent, which simply disables stage caching for schedules that
+#: name them (an unknown pass could mutate anything).
+STAGE_OF_PASS: Dict[str, str] = {
+    "build": "front_end",
+    "compute_pipelining": "mapped",
+    "broadcast_pipelining": "mapped",
+    "soft_flush": "mapped",
+    "place": "placed",
+    "route": "routed",
+    "pnr": "routed",                 # composite place+route (compat)
+    "post_pnr": "pipelined",
+    "power_capped_pipeline": "pipelined",
+    "pareto_frontier": "pipelined",
+    "match_check": "report",
+    "sta": "report",
+    "schedule_round2": "report",
+    "power": "report",
+    "verify": "report",
+}
+
+#: The *earliest* stage each ``PassConfig`` field influences.  A stage
+#: artifact's cache key (:func:`repro_torch.core.cache.stage_key`) hashes
+#: every field whose stage is at or before the boundary — so two configs
+#: that differ only in later-stage knobs (post-PnR budgets, power caps,
+#: explore grids) share the routed artifact, while a field that feeds an
+#: earlier pass can never alias.  ``stage_key`` refuses configs with
+#: unmapped fields, and a field-audit test holds the mapping to the
+#: dataclass exactly.  (``schedule`` is keyed through the resolved
+#: pass-name prefix instead of its raw value; ``post_pnr`` and
+#: ``compute_pipelining`` are front-end because the ``build`` pass picks
+#: the unroll factor from them.)  The device of the torch placer is not a
+#: field: ``stage_key`` adds it from the ``placed`` stage on.
+CONFIG_FIELD_STAGE: Dict[str, str] = {
+    "compute_pipelining": "front_end",
+    "post_pnr": "front_end",
+    "low_unroll_dup": "front_end",
+    "schedule": "front_end",         # keyed via the resolved prefix
+    "rf_threshold": "mapped",
+    "broadcast_pipelining": "mapped",
+    "broadcast_fanout": "mapped",
+    "broadcast_arity": "mapped",
+    "harden_flush": "mapped",
+    "placement_alpha": "placed",
+    "placement_gamma": "placed",
+    "seed": "placed",
+    "place_moves": "placed",
+    "pnr_backend": "placed",         # kernels differ from placement on
+    "pnr_replicas": "placed",
+    "post_pnr_budget": "pipelined",
+    "post_pnr_iters": "pipelined",
+    "power_cap_mw": "pipelined",
+    "explore": "pipelined",
+    "sta_backend": "pipelined",      # bit-identical engines; routed shared
+}
+
+
+def stage_plan(schedule_names: Sequence[str]
+               ) -> Optional[List[Tuple[str, int]]]:
+    """Map a schedule to its stage boundaries: ``[(stage, end_index)]``.
+
+    ``end_index`` is the schedule position just past the stage's last
+    pass, i.e. ``schedule_names[:end_index]`` is the prefix a
+    :class:`StageArtifact` for that stage embodies.  Returns ``None`` —
+    stage caching disabled — when the schedule names a pass with no stage
+    assignment, or runs stages out of flow order (a snapshot of such a
+    schedule would not mean what the stage name promises).
+    """
+    stages: List[str] = []
+    for name in schedule_names:
+        s = STAGE_OF_PASS.get(name)
+        if s is None:
+            return None
+        stages.append(s)
+    idxs = [STAGE_ORDER.index(s) for s in stages]
+    if idxs != sorted(idxs):
+        return None
+    plan: List[Tuple[str, int]] = []
+    for i, s in enumerate(stages):
+        if plan and plan[-1][0] == s:
+            plan[-1] = (s, i + 1)
+        else:
+            plan.append((s, i + 1))
+    return plan
+
+
+#: The :class:`CompileContext` fields a :class:`StageArtifact` snapshots —
+#: everything the passes produce (inputs like app/config/fabric/device stay
+#: with the context the artifact is restored into).
+ARTIFACT_FIELDS = (
+    "unroll", "graph", "source_dfg", "copies", "netlist", "place_fabric",
+    "place_timing", "placement", "design", "post_pnr", "power_cap",
+    "frontier", "metrics", "sta", "schedule", "power",
+    "pass_stats", "pass_times", "executed",
+)
+
+
+@dataclass
+class StageArtifact:
+    """A snapshot of a compile at a stage boundary, fit for fork/resume.
+
+    ``state`` is one deep copy of every artifact field taken *jointly*,
+    so intra-artifact aliasing survives (``design.netlist`` is the same
+    object as the ``netlist`` field, exactly as in a live context — the
+    post-PnR loop depends on that).  ``restore_into`` hands the receiving
+    context another joint deep copy, so one artifact can seed any number
+    of independent compiles; ``fork`` produces a sibling artifact that
+    shares nothing.  This generalizes
+    :class:`~repro_torch.core.post_pnr.DesignCheckpoint` — which rewinds
+    only the register state the pipelining loop mutates — into the fork
+    point for *any* post-boundary exploration.
+    """
+
+    stage: str
+    prefix: Tuple[str, ...]          # the executed pass names snapshotted
+    state: Dict[str, object] = field(default_factory=dict)
+
+    @classmethod
+    def capture(cls, ctx: "CompileContext", stage: str) -> "StageArtifact":
+        state = copy.deepcopy({f: getattr(ctx, f) for f in ARTIFACT_FIELDS})
+        return cls(stage=stage, prefix=tuple(ctx.executed), state=state)
+
+    def fork(self) -> "StageArtifact":
+        return StageArtifact(stage=self.stage, prefix=self.prefix,
+                             state=copy.deepcopy(self.state))
+
+    def restore_into(self, ctx: "CompileContext") -> None:
+        for f, v in copy.deepcopy(self.state).items():
+            setattr(ctx, f, v)
 
 
 def resolve_schedule(schedule) -> Sequence[str]:
@@ -198,10 +375,28 @@ class PassPipeline:
     def names(self) -> List[str]:
         return [p.name for p in self.passes]
 
-    def run(self, ctx: CompileContext) -> CompileContext:
-        """Run every enabled pass in order, then stamp the summary
-        ``pass_stats`` keys (the executed pass names and their times)."""
-        for p in self.passes:
+    def run(self, ctx: CompileContext, start: int = 0,
+            until: Optional[int] = None,
+            on_boundary: Optional[Callable[[str, CompileContext], None]]
+            = None) -> CompileContext:
+        """Run passes ``[start:until)`` (the whole schedule by default).
+
+        ``start``/``until`` are schedule positions — stage boundary
+        indices from :func:`stage_plan` — so the driver can resume a
+        context restored from a :class:`StageArtifact` (``start`` = the
+        artifact's boundary) or stop at one (``until``).  ``on_boundary``
+        is invoked as ``(stage, ctx)`` after the last pass of each stage,
+        which is where the driver captures artifacts.  The summary
+        ``pass_stats`` keys are stamped only on runs that reach the end
+        of the schedule.
+        """
+        boundaries: Dict[int, str] = {}
+        if on_boundary is not None:
+            boundaries = {end: stage
+                          for stage, end in (stage_plan(self.names) or [])}
+        stop = len(self.passes) if until is None else until
+        for idx in range(start, stop):
+            p = self.passes[idx]
             if p.enabled(ctx):
                 t0 = time.perf_counter()
                 stats = p.run(ctx)
@@ -209,8 +404,11 @@ class PassPipeline:
                 ctx.executed.append(p.name)
                 if stats is not None and p.stats_key is not None:
                     ctx.pass_stats[p.stats_key] = stats
-        ctx.pass_stats["pipeline"] = list(ctx.executed)
-        ctx.pass_stats["pass_times"] = dict(ctx.pass_times)
+            if idx + 1 in boundaries:
+                on_boundary(boundaries[idx + 1], ctx)
+        if until is None:
+            ctx.pass_stats["pipeline"] = list(ctx.executed)
+            ctx.pass_stats["pass_times"] = dict(ctx.pass_times)
         return ctx
 
 
@@ -337,7 +535,7 @@ def _post_pnr_params(ctx: CompileContext) -> PostPnRParams:
 
 def _iterations_and_stall(ctx: CompileContext):
     """Steady-state iteration count + sparse stall factor — the workload
-    model of ``schedule_round2``."""
+    model shared by ``schedule_round2`` and the power-cap controller."""
     iters = ctx.app.iterations_for(
         ctx.copies if ctx.copies > 1 else ctx.unroll)
     stall = 0.12 if ctx.app.sparse else 0.0
@@ -356,6 +554,63 @@ def _post_pnr(ctx: CompileContext):
     ctx.post_pnr = ppr
     return {"initial_ns": ppr.initial_ns, "final_ns": ppr.final_ns,
             "registers_added": ppr.registers_added, "stop": ppr.stop_reason}
+
+
+@register_pass("power_capped_pipeline", stats_key="power_cap",
+               gate=lambda ctx: ctx.config.post_pnr)
+def _power_capped(ctx: CompileContext):
+    """Post-PnR register insertion under a power budget (beyond the paper;
+    Capstone, arXiv:2603.00909).  Drop-in replacement for ``post_pnr`` in
+    the ``"power_capped"`` named schedule: with ``power_cap_mw`` unset the
+    results are byte-identical to the unconstrained pass."""
+    ctx.require(design=ctx.design, place_timing=ctx.place_timing)
+    iters, stall = _iterations_and_stall(ctx)
+    res = power_capped_pipeline(
+        ctx.design, ctx.place_timing, ctx.energy, iters,
+        cap_mw=ctx.config.power_cap_mw, params=_post_pnr_params(ctx),
+        stall_factor=stall, sta_backend=ctx.config.sta_backend,
+        device=ctx.device)
+    ctx.post_pnr = res.post_pnr
+    ctx.power_cap = res
+    return res.summary()
+
+
+@register_pass("pareto_frontier", stats_key="frontier",
+               gate=lambda ctx: ctx.config.post_pnr)
+def _pareto_frontier(ctx: CompileContext):
+    """In-compile design-space exploration (beyond the paper).
+
+    Sweeps post-PnR pipelining across ``PassConfig.explore``'s grid of
+    (register budget, power cap) points — each forked from the routed
+    design this pass receives, so the mapping/placement/routing prefix is
+    computed once for the whole sweep — prunes dominated points, and
+    materializes the selected point into the design the report passes
+    will describe.  Point evaluation goes through ``ctx.point_map`` when
+    the batch API supplies one (thread/process fan-out), else serial."""
+    ctx.require(design=ctx.design, place_timing=ctx.place_timing)
+    spec = ctx.config.explore
+    if spec is None:
+        # no grid declared: degenerate single-point sweep honouring the
+        # config's cap, so schedule="explore" never silently ignores it
+        spec = ExploreSpec(power_caps_mw=(ctx.config.power_cap_mw,))
+    elif ctx.config.power_cap_mw is not None:
+        raise ValueError(
+            "PassConfig.power_cap_mw and PassConfig.explore are mutually "
+            "exclusive under the 'explore' schedule — put the cap(s) in "
+            "ExploreSpec.power_caps_mw instead")
+    iters, stall = _iterations_and_stall(ctx)
+    base = _post_pnr_params(ctx)
+    fr = explore_frontier(ctx.design, ctx.place_timing, ctx.energy, iters,
+                          spec, stall_factor=stall,
+                          max_iters=base.max_iters,
+                          default_budget=base.register_budget,
+                          point_map=ctx.point_map,
+                          sta_backend=ctx.config.sta_backend,
+                          device=ctx.device)
+    ctx.frontier = fr
+    ctx.post_pnr = fr.selected.result.post_pnr
+    ctx.power_cap = fr.selected.result
+    return fr.summary()
 
 
 @register_pass("match_check", gate=lambda ctx: not ctx.app.sparse)

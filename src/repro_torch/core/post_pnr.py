@@ -39,7 +39,7 @@ class DesignCheckpoint:
     those is enough to rewind a design to any earlier pipelining state —
     placement, routing, and node structure are immutable during the loop.
     Used for the in-loop revert here and for the power-cap rollback in
-    :mod:`repro.core.power_cap`; future schedule-space-exploration passes
+    :mod:`repro_torch.core.power_cap`; future schedule-space-exploration passes
     should reuse it rather than re-listing the mutable fields.
     """
 
@@ -147,7 +147,7 @@ def _find_branch(design: RoutedDesign, driver: str, sink: str):
 #: Per-round observer: called with the design and its fresh STA report after
 #: every round that actually changed the design (reverted rounds are not
 #: reported).  Returning False stops the loop; the hook may first rewind the
-#: design to an earlier state (see ``repro.core.power_cap``), which the loop
+#: design to an earlier state (see ``repro_torch.core.power_cap``), which the loop
 #: accounts for by re-analyzing before it returns.
 RoundHook = Callable[[RoutedDesign, STAReport], bool]
 
@@ -187,7 +187,7 @@ class _RoundDelta:
 
 class _ScalarEngine:
     """The oracle path behind the engine seam: every analyze re-walks the
-    netlist via :func:`repro.core.sta.analyze`; notifications are no-ops."""
+    netlist via :func:`repro_torch.core.sta.analyze`; notifications are no-ops."""
 
     backend = "scalar"
 

@@ -104,7 +104,7 @@ def power_report(design: RoutedDesign, freq_mhz: float, sched: Schedule,
     ``P = P_static + f * E_cycle`` (mW); energy is power times the
     schedule's runtime at that frequency, and EDP is energy times runtime
     — the metric the paper's Table I/II comparisons (and the power-capped
-    pipelining controller, :mod:`repro.core.power_cap`) are built on.
+    pipelining controller, :mod:`repro_torch.core.power_cap`) are built on.
     Deterministic and side-effect free: the cap controller may call it
     every round without perturbing the design.
     """

@@ -34,11 +34,11 @@ predicate-independent and all three backends agree on deadlock markings.
 
 from __future__ import annotations
 
-import hashlib
 import threading
 from collections import OrderedDict, deque
 from typing import Dict, List, Optional, Sequence, Tuple
 
+from .cache import dfg_fingerprint
 from .config import SIM_BACKENDS
 from .dfg import (CONST, CONTROL_PORT, DFG, FIFO, INPUT, MEM, OUTPUT, PE,
                   PE_OPS, PRED_OPS, PRED_PORT, REG, RF)
@@ -205,19 +205,6 @@ def clear_ref_memo() -> None:
 
 def _inputs_key(inputs: Dict[str, Sequence[int]]) -> tuple:
     return tuple(sorted((k, tuple(v)) for k, v in inputs.items()))
-
-
-def dfg_fingerprint(g: DFG) -> str:
-    """Stable structural digest of a DFG (nodes + edges + flags); the
-    reference keeps it in its compile-cache module, not ported yet."""
-    nodes = sorted(
-        (n.name, n.kind, n.op, n.width, n.latency, n.depth, n.value,
-         n.input_reg, tuple(sorted((k, repr(v)) for k, v in n.meta.items())))
-        for n in g.nodes.values())
-    edges = sorted((e.src, e.dst, e.port, e.width) for e in g.edges)
-    h = hashlib.sha256()
-    h.update(repr((g.name, g.sparse, nodes, edges)).encode())
-    return h.hexdigest()
 
 
 def _memo_key(kind: str, g: DFG, inputs, backend: str) -> tuple:

@@ -1,5 +1,6 @@
 from .ref import sim_dense_plain, sim_sparse_plain
-from .sim import SparseResult, sim_dense, sim_sparse, stage_plan
+from .sim import (SparseResult, dense_plan, sim_dense, sim_sparse,
+                  sparse_plan, stage_plan)
 
 __all__ = ["sim_dense", "sim_sparse", "sim_dense_plain", "sim_sparse_plain",
-           "stage_plan", "SparseResult"]
+           "stage_plan", "dense_plan", "sparse_plan", "SparseResult"]

@@ -42,6 +42,17 @@
 //     and outputs go to shared memory and out to device memory a chunk at a
 //     time, coalesced: no cycle touches device memory.
 //
+// A program whose blob and state pass a block's shared memory (or whose
+// slots pass the 18-bit destination field) takes the global route, the
+// same kernel instantiated with kGlobal: the blob and state live in a
+// workspace in device memory that the wrapper allocates (blob first, state
+// after it, the same word offsets; H100's 50 MB L2 holds it at the sizes
+// that need it), the inputs are staged by plain loads and stores, and the
+// descriptor moves its flags and micro-op to word 7, leaving word 3 a full
+// 32-bit destination offset. The rounds, the stage rule, the micro-ops and
+// the __syncwarp()s are the shared route's; __syncwarp() orders the warp's
+// device-memory accesses as it orders its shared-memory ones.
+//
 // Plain C interface, loaded with ctypes (repro_torch/kernels/_build.py).
 
 #include <cuda_runtime.h>
@@ -57,7 +68,7 @@ namespace {
 // wrapper's DENSE_FIELDS (repro_torch/kernels/sim/sim.py).
 struct DenseHeader {
   int n_nodes, n_in, n_out, n_const, n_light, n_heavy, n_rom, cycles;
-  int stride, blob_words;
+  int stride, blob_words, global_route;
   // sections of the program blob (copied to shared memory as it is)
   int o_desc, o_const, o_rom, o_table;
   // state sections in shared memory, after the blob
@@ -68,7 +79,9 @@ constexpr int kLanes = 32;
 constexpr int kChunk = 32;                // sim.py CHUNK
 
 // Descriptor flags, bits 18-23 of word 3 (sim.py DENSE_FLAGS); the
-// destination's byte offset sits below them, the micro-op above.
+// destination's byte offset sits below them, the micro-op above. On the
+// global route the flags and micro-op sit at the same bits of word 7, and
+// word 3 is the destination's byte offset alone.
 constexpr uint32_t kXIn = 1u << 18;       // x from the input staging
 constexpr uint32_t kDNext = 2u << 18;     // into the next cycle's bank
 constexpr uint32_t kDOut = 4u << 18;      // into the output staging
@@ -81,7 +94,9 @@ __device__ __forceinline__ uint32_t lds(const char* base, uint32_t off) {
 }
 
 // Copies of input chunk c (cycles [32c, 32c + 32)) into staging bank c % 2:
-// inbuf[bank][row][cycle % 32].
+// inbuf[bank][row][cycle % 32]; by cp.async into shared memory, or by plain
+// loads and stores on the global route.
+template <bool kGlobal>
 __device__ __forceinline__ void stage_inputs(const DenseHeader& h, int c,
                                              uint32_t* inbuf,
                                              const long long* in, int lane) {
@@ -91,10 +106,13 @@ __device__ __forceinline__ void stage_inputs(const DenseHeader& h, int c,
   uint32_t* dst = inbuf + (c & 1) * h.n_in * kChunk;
   for (int i = lane; i < h.n_in * width; i += kLanes) {
     const int r = i / width, k = i % width;
-    cp_async4(dst + r * kChunk + k,
-              in + static_cast<size_t>(r) * h.cycles + t0 + k);
+    const long long* src = in + static_cast<size_t>(r) * h.cycles + t0 + k;
+    if (kGlobal)
+      dst[r * kChunk + k] = static_cast<uint32_t>(*src);
+    else
+      cp_async4(dst + r * kChunk + k, src);
   }
-  cp_async_commit();
+  if (!kGlobal) cp_async_commit();
 }
 
 // The outputs of chunk c, from staging bank c % 2 to out[n_out, cycles].
@@ -110,13 +128,16 @@ __device__ __forceinline__ void flush_outputs(const DenseHeader& h, int c,
   }
 }
 
+// blob: the program (shared route), or the workspace that holds the
+// program and the state (global route).
+template <bool kGlobal>
 __global__ void __launch_bounds__(kLanes, 1)
-sim_dense_kernel(DenseHeader h, const int* __restrict__ blob,
-                 const long long* __restrict__ in,
+sim_dense_kernel(DenseHeader h, int* blob, const long long* __restrict__ in,
                  long long* __restrict__ out) {
-  extern __shared__ __align__(16) int sm[];
+  extern __shared__ __align__(16) int smem[];
+  int* sm = kGlobal ? blob : smem;
   const int lane = threadIdx.x;
-  copy_blob(sm, blob, h.blob_words, lane);
+  if (!kGlobal) copy_blob(sm, blob, h.blob_words, lane);
   for (int i = h.s_val + lane; i < h.s_words; i += kLanes) sm[i] = 0;
   cp_async_wait_all();
   __syncwarp();
@@ -140,15 +161,17 @@ sim_dense_kernel(DenseHeader h, const int* __restrict__ blob,
   }
   if (lane == 0) val[h.n_nodes + 1] = val[h.stride + h.n_nodes + 1] = 1u;
   // chunk 0 now, chunk 1 in flight; cycle 0's inputs into bank 0
-  stage_inputs(h, 0, inbuf, in, lane);
+  stage_inputs<kGlobal>(h, 0, inbuf, in, lane);
   cp_async_wait_all();
-  stage_inputs(h, 1, inbuf, in, lane);
+  stage_inputs<kGlobal>(h, 1, inbuf, in, lane);
   __syncwarp();
   for (int i = lane; i < h.n_in; i += kLanes) val[i] = inbuf[i * kChunk];
   __syncwarp();
 
   const uint4 zero4 = make_uint4(0, 0, 0, 0);
   uint4 d = h.n_light > 0 ? desc[2 * lane] : zero4;
+  // the global route's control word (word 7): flags and micro-op
+  uint32_t dc = kGlobal && h.n_light > 0 ? desc[2 * lane + 1].w : 0u;
   // one heavy round (every app): its descriptor stays in registers
   const uint4 ha = h.n_heavy > 0 ? heavy[2 * lane] : zero4;
   const uint4 hb = h.n_heavy > 0 ? heavy[2 * lane + 1] : zero4;
@@ -158,7 +181,7 @@ sim_dense_kernel(DenseHeader h, const int* __restrict__ blob,
       if (t + 1 < h.cycles) {             // chunk c + 1 has landed
         cp_async_wait_all();
         __syncwarp();
-        stage_inputs(h, c + 2, inbuf, in, lane);
+        stage_inputs<kGlobal>(h, c + 2, inbuf, in, lane);
       }
       if (c > 0) flush_outputs(h, c - 1, outbuf, out, lane);
     }
@@ -173,31 +196,37 @@ sim_dense_kernel(DenseHeader h, const int* __restrict__ blob,
     for (int k = 0; k < h.n_light; ++k) {
       // the next round's descriptor first, off this round's chain
       const uint4 dn = desc[2 * ((k + 1) * kLanes + lane)];
-      const uint32_t x = lds((d.w & kXIn) ? inb : V, d.x);
-      const uint32_t v = alu16(d.w >> 24, x, lds(V, d.y), lds(V, d.z));
-      char* db = (d.w & kDNext) ? Vn : ((d.w & kDOut) ? outb : Vw);
-      *reinterpret_cast<uint32_t*>(db + (d.w & kDestMask)) = v;
+      const uint32_t dcn =
+          kGlobal ? desc[2 * ((k + 1) * kLanes + lane) + 1].w : 0u;
+      const uint32_t ctl = kGlobal ? dc : d.w;
+      const uint32_t dest = kGlobal ? d.w : (d.w & kDestMask);
+      const uint32_t x = lds((ctl & kXIn) ? inb : V, d.x);
+      const uint32_t v = alu16(ctl >> 24, x, lds(V, d.y), lds(V, d.z));
+      char* db = (ctl & kDNext) ? Vn : ((ctl & kDOut) ? outb : Vw);
+      *reinterpret_cast<uint32_t*>(db + dest) = v;
       __syncwarp();
       d = dn;
+      dc = dcn;
     }
     for (int k = 0; k < h.n_heavy; ++k) {
       const uint4 a = k == 0 ? ha : heavy[2 * (k * kLanes + lane)];
       const uint4 b = k == 0 ? hb : heavy[2 * (k * kLanes + lane) + 1];
-      const uint32_t x = lds((a.w & kXIn) ? inb : V, a.x);
+      const uint32_t ctl = kGlobal ? b.w : a.w;
+      const uint32_t dest = kGlobal ? a.w : (a.w & kDestMask);
+      const uint32_t x = lds((ctl & kXIn) ? inb : V, a.x);
       const int item = k * kLanes + lane;
       const uint32_t p = ptr[item];             // the ring's write slot
       const uint32_t pn = p + 1 == b.z ? 0u : p + 1;
       const uint32_t head = ring[b.y + pn];     // written L - 1 cycles ago
-      uint32_t v = alu16(a.w >> 24, x, lds(V, a.y), lds(V, a.z));
+      uint32_t v = alu16(ctl >> 24, x, lds(V, a.y), lds(V, a.z));
       if (h.n_rom > 0) {                  // the lookup only where ROMs are
         const uint32_t r = rom_lookup(roms[b.x], table, x);
-        v = (a.w & kRom) ? r : v;
+        v = (ctl & kRom) ? r : v;
       }
       ring[b.y + p] = v;
       ptr[item] = pn;
-      char* db = (a.w & kDNext) ? Vn : ((a.w & kDOut) ? outb : Vw);
-      *reinterpret_cast<uint32_t*>(db + (a.w & kDestMask)) =
-          (a.w & kRing) ? head : v;
+      char* db = (ctl & kDNext) ? Vn : ((ctl & kDOut) ? outb : Vw);
+      *reinterpret_cast<uint32_t*>(db + dest) = (ctl & kRing) ? head : v;
     }
     __syncwarp();
   }
@@ -216,21 +245,26 @@ extern "C" {
 
 int sim_dense_header_ints() { return sizeof(DenseHeader) / sizeof(int); }
 
-// hdr: DenseHeader's fields, host memory. blob: the program, device memory.
-// in: int64 [n_in, cycles], out: int64 [n_out, cycles], device memory.
-// Returns the launch's cudaError_t.
-int sim_dense_launch(const int* hdr, const int* blob, const long long* in,
+// hdr: DenseHeader's fields, host memory. blob: the program (shared route)
+// or the workspace of s_words words that starts with it (global route),
+// device memory. in: int64 [n_in, cycles], out: int64 [n_out, cycles],
+// device memory. Returns the launch's cudaError_t.
+int sim_dense_launch(const int* hdr, int* blob, const long long* in,
                      long long* out, cudaStream_t stream) {
   DenseHeader h;
   memcpy(&h, hdr, sizeof(h));
+  if (h.global_route) {
+    sim_dense_kernel<true><<<1, kLanes, 0, stream>>>(h, blob, in, out);
+    return cudaGetLastError();
+  }
   const size_t smem = static_cast<size_t>(h.s_words) * sizeof(int);
   if (smem > 48 * 1024) {                 // past the default, opt in
     const cudaError_t err = cudaFuncSetAttribute(
-        sim_dense_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        sim_dense_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  sim_dense_kernel<<<1, kLanes, smem, stream>>>(h, blob, in, out);
+  sim_dense_kernel<false><<<1, kLanes, smem, stream>>>(h, blob, in, out);
   return cudaGetLastError();
 }
 

@@ -44,6 +44,16 @@
 //   * Operands come from the heads by one byte permute each (selectors set
 //     on the host), and the micro-op is sim_ops.cuh's branch-free alu16.
 //
+// A program whose blob and state pass a block's shared memory, or whose
+// buffers pass the descriptor's 16-bit fields, takes the global route, the
+// same kernel instantiated with kGlobal: blob and state live in a workspace
+// in device memory that the wrapper allocates (blob first, the state after
+// it, the same word offsets), the feed is staged by plain loads and stores,
+// and the descriptor is wide: every buffer index, the sink and each output
+// limit a 32-bit word of its own (sim.py pack_sparse). The rounds, the
+// phase and the micro-ops are the shared route's; __syncwarp() orders the
+// warp's device-memory accesses as it orders its shared-memory ones.
+//
 // Plain C interface, loaded with ctypes (repro_torch/kernels/_build.py).
 
 #include <cuda_runtime.h>
@@ -62,7 +72,7 @@ namespace {
 // 1 the one an absent output checks (never full); nothing writes either.
 struct SparseHeader {
   int n_buf, n_in, n_out, n_rows, n_rounds, desc_words, fan, max_feed;
-  int window, refill, max_cycles, blob_words;
+  int window, refill, max_cycles, blob_words, global_route;
   // sections of the program blob (copied to shared memory as it is)
   int o_desc, o_binfo, o_rom, o_table;
   // state sections in shared memory, after the blob
@@ -93,7 +103,9 @@ struct State {
 
 // Copies of feed tokens [lo_j, lo_j + span) of every row j into its ring
 // (token k at ring slot k % window), clipped to the row's tokens: lo_j =
-// fptr[j] + skip, or skip where fptr is null.
+// fptr[j] + skip, or skip where fptr is null. By cp.async into shared
+// memory, or by plain loads and stores on the global route.
+template <bool kGlobal>
 __device__ __forceinline__ void stage_feed(const SparseHeader& h,
                                            const State& s, const int* fptr,
                                            int skip, int span,
@@ -102,11 +114,86 @@ __device__ __forceinline__ void stage_feed(const SparseHeader& h,
   for (int i = lane; i < h.n_in * span; i += kLanes) {
     const int j = i / span;
     const int k = (fptr ? fptr[j] : 0) + skip + i % span;
-    if (k < static_cast<int>(frem0[j]) && k < h.max_feed)
-      cp_async4(s.data + s.binfo[h.n_buf + j].x + k % h.window,
-                feed + static_cast<size_t>(j) * h.max_feed + k);
+    if (k < static_cast<int>(frem0[j]) && k < h.max_feed) {
+      uint32_t* dst = s.data + s.binfo[h.n_buf + j].x + k % h.window;
+      const long long* src = feed + static_cast<size_t>(j) * h.max_feed + k;
+      if (kGlobal)
+        *dst = static_cast<uint32_t>(*src);
+      else
+        cp_async4(dst, src);
+    }
   }
-  cp_async_commit();
+  if (!kGlobal) cp_async_commit();
+}
+
+// An item's descriptor, decoded. outs points at its output entries: on the
+// shared route word 5 on, a word each (buffer | limit << 16); on the
+// global route word 8 on, fan buffers then fan limits.
+struct Item {
+  uint32_t w;        // uop | flags << 4 | rom << 12
+  int in[3];
+  int sink;          // the OUTPUT's index, n_out for none
+  uint32_t selxy;    // x's selector | y's << 16
+  uint32_t selzk;    // z's selector | the constant << 16
+  int ob[kFan];      // the first kFan outputs' buffers and limits
+  int lim[kFan];
+  const int* outs;
+};
+
+template <bool kGlobal>
+__device__ __forceinline__ void out_entry(const int* outs, int fan, int f,
+                                          int& b, int& lim) {
+  if (kGlobal) {
+    b = outs[f];
+    lim = outs[fan + f];
+  } else {
+    const uint32_t o = static_cast<uint32_t>(outs[f]);
+    b = o & 0xFFFFu;
+    lim = o >> 16;
+  }
+}
+
+// The shared route's descriptor from its first nine words in registers
+// (d0, d1: words 0-7, w8: word 8) and the pointer to it.
+__device__ __forceinline__ Item item16(const uint4 d0, const uint4 d1,
+                                       uint32_t w8, const int* d) {
+  Item it;
+  it.w = d0.x;
+  it.in[0] = d0.y & 0xFFFFu;
+  it.in[1] = d0.y >> 16;
+  it.in[2] = d0.z & 0xFFFFu;
+  it.sink = d0.z >> 16;
+  it.selxy = d0.w;
+  it.selzk = d1.x;
+  const uint32_t o[kFan] = {d1.y, d1.z, d1.w, w8};
+#pragma unroll
+  for (int f = 0; f < kFan; ++f) {
+    it.ob[f] = o[f] & 0xFFFFu;
+    it.lim[f] = o[f] >> 16;
+  }
+  it.outs = d + 5;
+  return it;
+}
+
+// The global route's wide descriptor: uop | flags << 4 | rom << 12, in0,
+// in1, in2, sink, selectors of x and y, z's selector | the constant << 16,
+// 0, then fan buffers and fan limits.
+__device__ __forceinline__ Item item32(const int* d, int fan) {
+  const uint4 d0 = reinterpret_cast<const uint4*>(d)[0];
+  const uint4 d1 = reinterpret_cast<const uint4*>(d)[1];
+  Item it;
+  it.w = d0.x;
+  it.in[0] = d0.y;
+  it.in[1] = d0.z;
+  it.in[2] = d0.w;
+  it.sink = d1.x;
+  it.selxy = d1.y;
+  it.selzk = d1.z;
+#pragma unroll
+  for (int f = 0; f < kFan; ++f) out_entry<true>(d + 8, fan, f, it.ob[f],
+                                                 it.lim[f]);
+  it.outs = d + 8;
+  return it;
 }
 
 __device__ __forceinline__ int wrap(int a, int2 bi) {
@@ -114,28 +201,24 @@ __device__ __forceinline__ int wrap(int a, int2 bi) {
 }
 
 // One item's round: decide against bank cur, evaluate, pop and push into
-// bank cur ^ 1. d0, d1: the descriptor's first 8 words, out3 its ninth (the
-// fourth output word); more: the output words past kFan. Every load comes
-// first and is unconditional (absent entries read the dummies), every test
-// is a bitwise and, and every store is unconditional too, into its word or,
-// where the item must not write, into the lane's trash word: a round is one
-// basic block. Returns whether it fired.
+// bank cur ^ 1. Every load comes first and is unconditional (absent
+// entries read the dummies), every test is a bitwise and, and every store
+// is unconditional too, into its word or, where the item must not write,
+// into the lane's trash word: a round is one basic block (the output
+// entries past kFan, of wide fan-outs only, loop). Returns whether it
+// fired.
+template <bool kGlobal>
 __device__ __forceinline__ bool step(const SparseHeader& h, const State& s,
                                      const int* table, const int4* roms,
-                                     const uint4 d0, const uint4 d1,
-                                     uint32_t out3, const int* more,
-                                     int item, int cur, long long* outm,
-                                     int* trash) {
+                                     const Item& it, int item, int cur,
+                                     long long* outm, int* trash) {
   const int nt = h.n_buf + h.n_in, nb = nt + 2;
   const int* Pc = s.P + cur * nb;
   const int* Qc = s.Q + cur * nb;
   int* Pn = s.P + (cur ^ 1) * nb;
   int* Qn = s.Q + (cur ^ 1) * nb;
-  const uint32_t w = d0.x;
-  const int in[3] = {static_cast<int>(d0.y & 0xFFFFu),
-                     static_cast<int>(d0.y >> 16),
-                     static_cast<int>(d0.z & 0xFFFFu)};
-  const uint32_t outw[kFan] = {d1.y, d1.z, d1.w, out3};
+  const uint32_t w = it.w;
+  const int* in = it.in;
   bool ok = w & kValid;
   uint32_t head[3];
   int q[3], ra[3];
@@ -152,28 +235,28 @@ __device__ __forceinline__ bool step(const SparseHeader& h, const State& s,
   int2 bo[kFan];
 #pragma unroll
   for (int f = 0; f < kFan; ++f) {
-    ob[f] = outw[f] & 0xFFFFu;
+    ob[f] = it.ob[f];
     po[f] = Pc[ob[f]];
     wa[f] = s.wpa[ob[f]];
     bo[f] = s.binfo[ob[f]];
-    ok &= po[f] - Qc[ob[f]] < static_cast<int>(outw[f] >> 16);
+    ok &= po[f] - Qc[ob[f]] < it.lim[f];
   }
   for (int f = kFan; f < h.fan; ++f) {    // wide fan-outs only
-    const uint32_t o = static_cast<uint32_t>(more[f - kFan]);
-    const int b = o & 0xFFFFu;
-    ok &= Pc[b] - Qc[b] < static_cast<int>(o >> 16);
+    int b, lim;
+    out_entry<kGlobal>(it.outs, h.fan, f, b, lim);
+    ok &= Pc[b] - Qc[b] < lim;
   }
-  const int sink = d0.z >> 16;
+  const int sink = it.sink;
   const int oc = s.ocnt[sink];
   const uint32_t acc = s.accv[item];
   const int4 rom = roms[w >> kRomShift];
   // operands: one byte permute each from the three heads and the constant
   // (an accumulator's state, a CONST's value, 1 or 0)
-  const uint32_t kval = (w & kAcc) ? acc : d1.x >> 16;
+  const uint32_t kval = (w & kAcc) ? acc : it.selzk >> 16;
   const uint32_t h01 = head[0] | head[1] << 16, h2k = head[2] | kval << 16;
-  const uint32_t x = __byte_perm(h01, h2k, d0.w & 0xFFFFu) & kMask;
-  const uint32_t y = __byte_perm(h01, h2k, d0.w >> 16) & kMask;
-  const uint32_t z = __byte_perm(h01, h2k, d1.x & 0xFFFFu) & kMask;
+  const uint32_t x = __byte_perm(h01, h2k, it.selxy & 0xFFFFu) & kMask;
+  const uint32_t y = __byte_perm(h01, h2k, it.selxy >> 16) & kMask;
+  const uint32_t z = __byte_perm(h01, h2k, it.selzk & 0xFFFFu) & kMask;
   const uint32_t a = alu16(w & 0xFu, x, y, z);
   const uint32_t r = rom_lookup(rom, table, x);
   const uint32_t v = (w & kRom) ? r : a;
@@ -193,7 +276,8 @@ __device__ __forceinline__ bool step(const SparseHeader& h, const State& s,
     *(real ? &s.wpa[ob[f]] : trash) = fire ? wrap(wa[f] + 1, bo[f]) : wa[f];
   }
   for (int f = kFan; f < h.fan; ++f) {
-    const int b = static_cast<uint32_t>(more[f - kFan]) & 0xFFFFu;
+    int b, lim;
+    out_entry<kGlobal>(it.outs, h.fan, f, b, lim);
     if (b < nt) {
       Pn[b] = Pc[b] + fire;
       if (fire) {
@@ -210,16 +294,20 @@ __device__ __forceinline__ bool step(const SparseHeader& h, const State& s,
   return fire;
 }
 
+// blob: the program (shared route), or the workspace that holds the
+// program and the state (global route).
+template <bool kGlobal>
 __global__ void __launch_bounds__(kLanes, 1)
-sim_sparse_kernel(SparseHeader h, const int* __restrict__ blob,
+sim_sparse_kernel(SparseHeader h, int* blob,
                   const long long* __restrict__ feed,
                   const long long* __restrict__ frem0,
                   long long* __restrict__ outm,
                   long long* __restrict__ state) {
-  extern __shared__ __align__(16) int sm[];
+  extern __shared__ __align__(16) int smem[];
+  int* sm = kGlobal ? blob : smem;
   const int lane = threadIdx.x;
   const int nt = h.n_buf + h.n_in, nb = nt + 2;
-  copy_blob(sm, blob, h.blob_words, lane);
+  if (!kGlobal) copy_blob(sm, blob, h.blob_words, lane);
   for (int i = h.s_p + lane; i < h.s_words; i += kLanes) sm[i] = 0;
   cp_async_wait_all();
   __syncwarp();
@@ -245,37 +333,50 @@ sim_sparse_kernel(SparseHeader h, const int* __restrict__ blob,
     s.P[b] = s.P[nb + b] = n;
   }
   // the feed: whole, or its first 2R tokens a row
-  stage_feed(h, s, nullptr, 0, h.refill ? 2 * h.refill : h.max_feed, feed,
-             frem0, lane);
+  stage_feed<kGlobal>(h, s, nullptr, 0,
+                      h.refill ? 2 * h.refill : h.max_feed, feed, frem0,
+                      lane);
   cp_async_wait_all();
   __syncwarp();
 
-  // with one round of items (up to 32), a lane's descriptor is loop-invariant
+  // with one round of items (up to 32), a lane's descriptor is
+  // loop-invariant (the shared route keeps it in registers)
   const int* mine = dsc + lane * h.desc_words;
   const uint4 zero4 = make_uint4(0, 0, 0, 0);
-  const uint4 a0 = h.n_rounds ? reinterpret_cast<const uint4*>(mine)[0]
-                              : zero4;
-  const uint4 a1 = h.n_rounds ? reinterpret_cast<const uint4*>(mine)[1]
-                              : zero4;
-  const uint32_t a8 = h.n_rounds ? mine[8] : 0u;
+  const uint4 a0 = !kGlobal && h.n_rounds
+                       ? reinterpret_cast<const uint4*>(mine)[0] : zero4;
+  const uint4 a1 = !kGlobal && h.n_rounds
+                       ? reinterpret_cast<const uint4*>(mine)[1] : zero4;
+  const uint32_t a8 = !kGlobal && h.n_rounds ? mine[8] : 0u;
   int fired = 1, rounds = 0, cur = 0;
   while (rounds < h.max_cycles) {
     if (h.refill && rounds > 0 && rounds % h.refill == 0) {
       // tokens [f, f + R) of each row are resident; fetch [f + R, f + 2R)
       cp_async_wait_all();
       __syncwarp();
-      stage_feed(h, s, s.Q + cur * nb + h.n_buf, h.refill, h.refill, feed,
-                 frem0, lane);
+      stage_feed<kGlobal>(h, s, s.Q + cur * nb + h.n_buf, h.refill,
+                          h.refill, feed, frem0, lane);
     }
     ++rounds;
-    bool any = h.n_rounds > 0 &&
-               step(h, s, table, roms, a0, a1, a8, mine + 9, lane, cur, outm,
-                    s.trash + lane);
-    for (int k = 1; k < h.n_rounds; ++k) {
-      const int* dk = dsc + (k * kLanes + lane) * h.desc_words;
-      any |= step(h, s, table, roms, reinterpret_cast<const uint4*>(dk)[0],
-                  reinterpret_cast<const uint4*>(dk)[1], dk[8], dk + 9,
-                  k * kLanes + lane, cur, outm, s.trash + lane);
+    bool any = false;
+    if (kGlobal) {
+      for (int k = 0; k < h.n_rounds; ++k)
+        any |= step<true>(h, s, table, roms,
+                          item32(dsc + (k * kLanes + lane) * h.desc_words,
+                                 h.fan),
+                          k * kLanes + lane, cur, outm, s.trash + lane);
+    } else {
+      any = h.n_rounds > 0 &&
+            step<false>(h, s, table, roms, item16(a0, a1, a8, mine), lane,
+                        cur, outm, s.trash + lane);
+      for (int k = 1; k < h.n_rounds; ++k) {
+        const int* dk = dsc + (k * kLanes + lane) * h.desc_words;
+        any |= step<false>(h, s, table, roms,
+                           item16(reinterpret_cast<const uint4*>(dk)[0],
+                                  reinterpret_cast<const uint4*>(dk)[1],
+                                  dk[8], dk),
+                           k * kLanes + lane, cur, outm, s.trash + lane);
+      }
     }
     fired = __any_sync(0xFFFFFFFFu, any);
     __syncwarp();
@@ -309,25 +410,31 @@ extern "C" {
 
 int sim_sparse_header_ints() { return sizeof(SparseHeader) / sizeof(int); }
 
-// hdr: SparseHeader's fields, host memory. blob: the program; feed: int64
-// [n_rows, max_feed]; frem0: int64 [n_rows]; outm: int64
-// [max(1, n_out), max_cycles]; state: int64 [n_buf + n_rows + max(1, n_out)
-// + 2]; all device memory.
+// hdr: SparseHeader's fields, host memory. blob: the program (shared
+// route) or the workspace of s_words words that starts with it (global
+// route); feed: int64 [n_rows, max_feed]; frem0: int64 [n_rows]; outm:
+// int64 [max(1, n_out), max_cycles]; state: int64 [n_buf + n_rows +
+// max(1, n_out) + 2]; all device memory.
 // Returns the launch's cudaError_t.
-int sim_sparse_launch(const int* hdr, const int* blob, const long long* feed,
+int sim_sparse_launch(const int* hdr, int* blob, const long long* feed,
                       const long long* frem0, long long* outm,
                       long long* state, cudaStream_t stream) {
   SparseHeader h;
   memcpy(&h, hdr, sizeof(h));
+  if (h.global_route) {
+    sim_sparse_kernel<true><<<1, kLanes, 0, stream>>>(h, blob, feed, frem0,
+                                                      outm, state);
+    return cudaGetLastError();
+  }
   const size_t smem = static_cast<size_t>(h.s_words) * sizeof(int);
   if (smem > 48 * 1024) {                 // past the default, opt in
     const cudaError_t err = cudaFuncSetAttribute(
-        sim_sparse_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        sim_sparse_kernel<false>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  sim_sparse_kernel<<<1, kLanes, smem, stream>>>(h, blob, feed, frem0, outm,
-                                                 state);
+  sim_sparse_kernel<false><<<1, kLanes, smem, stream>>>(h, blob, feed, frem0,
+                                                        outm, state);
   return cudaGetLastError();
 }
 

@@ -17,6 +17,14 @@ one of the kernels' 14 micro-ops (``UOPS``) over permuted operands, which
 the kernels evaluate without a branch. A header of sizes and word offsets
 (``DENSE_FIELDS``, ``SPARSE_FIELDS``, the kernels' header structs field for
 field) travels as launch arguments.
+
+A program whose blob and state do not fit a block's shared memory, or the
+descriptors' 16-bit fields, takes the kernels' global route instead: the
+same kernel keeps blob and state in a workspace in device memory, with
+32-bit descriptor fields. ``dense_plan`` and ``sparse_plan`` pick the route
+on the host, from the packed sizes, before any launch; each wrapper counts
+its launches (``launches``) and each route's (``shared_launches``,
+``global_launches``).
 """
 
 from __future__ import annotations
@@ -33,18 +41,18 @@ from ...core.sim_vec import _OPS
 from .ref import SparseResult, sim_dense_plain, sim_sparse_plain
 
 __all__ = ["sim_dense", "sim_sparse", "stage_plan", "SparseResult",
-           "pack_dense", "pack_sparse", "dense_launcher", "sparse_launcher",
-           "rom_magic"]
+           "pack_dense", "pack_sparse", "dense_plan", "sparse_plan",
+           "dense_launcher", "sparse_launcher", "rom_magic"]
 
 DENSE_FIELDS = (
     "n_nodes", "n_in", "n_out", "n_const", "n_light", "n_heavy", "n_rom",
-    "cycles", "stride", "blob_words",
+    "cycles", "stride", "blob_words", "global_route",
     "o_desc", "o_const", "o_rom", "o_table",
     "s_val", "s_ring", "s_ptr", "s_in", "s_out", "s_words")
 SPARSE_FIELDS = (
     "n_buf", "n_in", "n_out", "n_rows", "n_rounds", "desc_words", "fan",
     "max_feed", "window", "refill", "max_cycles", "blob_words",
-    "o_desc", "o_binfo", "o_rom", "o_table",
+    "global_route", "o_desc", "o_binfo", "o_rom", "o_table",
     "s_p", "s_q", "s_rpa", "s_wpa", "s_data", "s_accv", "s_ocnt", "s_trash",
     "s_words")
 
@@ -65,9 +73,10 @@ NONE16 = 0xFFFF
 UOPS = ("add", "sub", "mul", "and", "or", "xor", "shr", "shl", "minmax",
         "abs", "gtz", "nez", "sel", "accp")
 _UOP = {name: i for i, name in enumerate(UOPS)}
-#: dense descriptor flags (sim_dense.cu), bits 18-23 of word 3: x from the
-#: input staging, the result to the next cycle's bank or to the output
-#: staging, a latency ring longer than one, a ROM
+#: dense descriptor flags (sim_dense.cu), bits 18-23 of word 3 (of word 7
+#: on the global route): x from the input staging, the result to the next
+#: cycle's bank or to the output staging, a latency ring longer than one, a
+#: ROM
 DENSE_FLAGS = {"XIn": 1, "DNext": 2, "DOut": 4, "Ring": 8, "Rom": 16}
 D_SHIFT, D_UOP_SHIFT = 18, 24
 #: sparse descriptor flags (sim_sparse.cu), bits 4-11 of word 0; the ROM row
@@ -122,24 +131,44 @@ def _header(fields, values: Dict[str, int]) -> "ctypes.Array":
     return (ctypes.c_int * len(fields))(*(int(values[f]) for f in fields))
 
 
-def _check_smem(kind: str, words: int, dev: torch.device, what: str) -> None:
-    need = 4 * words
-    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
-    if need > limit:
-        raise ValueError(
-            f"{what}: the {kind} kernel needs {need} bytes of shared memory "
-            f"for its program and state, more than the {limit} a block of "
-            f"this card can have; simulate it with backend='numpy'")
+def _smem_limit(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
 
 
 def _check_16(kind: str, n: int, what: str, name: str) -> None:
-    """The descriptors' 16-bit fields: past them, the state alone would
-    need more shared memory (2**16 words: 256 KB) than a block has."""
+    """The shared route's 16-bit descriptor fields: past them, the state
+    alone would need more shared memory (2**16 words: 256 KB) than a block
+    has, and the plan takes the global route."""
     if n >= NONE16:
         raise ValueError(f"{name}: {n} {what} overflow the {kind} kernel's "
-                         f"16-bit descriptor fields and need more shared "
-                         f"memory than a block has; simulate it with "
+                         f"16-bit descriptor fields; pack it with wide=True "
+                         f"(the global route)")
+
+
+def _workspace(values: Dict[str, int], blob: np.ndarray,
+               dev: torch.device, what: str) -> torch.Tensor:
+    """The program on the card: the blob alone on the shared route; on the
+    global route a workspace of ``s_words`` words that starts with it (the
+    kernel zeroes the state behind it at every launch)."""
+    if not values["global_route"]:
+        return torch.from_numpy(blob).to(dev)
+    need, free = 4 * values["s_words"], torch.cuda.mem_get_info(dev)[0]
+    if need > free:
+        raise ValueError(f"{what}: the program and its state need {need} "
+                         f"bytes of device memory, more than the {free} "
+                         f"free on this card; simulate it with "
                          f"backend='numpy'")
+    ws = np.zeros(values["s_words"], np.int32)
+    ws[:blob.size] = blob
+    return torch.from_numpy(ws).to(dev)
+
+
+def _count(fn, values: Dict[str, int]) -> None:
+    fn.launches += 1
+    if values["global_route"]:
+        fn.global_launches += 1
+    else:
+        fn.shared_launches += 1
 
 
 # ---------------------------------------------------------------------------
@@ -237,17 +266,17 @@ def stage_plan(prog) -> List[Tuple[int, int]]:
     return stages
 
 
-def _dense_word3(uop: int, dest: int, flags: int) -> int:
-    return 4 * dest | flags << D_SHIFT | uop << D_UOP_SHIFT
-
-
-def pack_dense(prog, cycles: int) -> Tuple[Dict[str, int], np.ndarray]:
-    """Header values and int32 blob of a ``DenseProgram`` for ``sim_dense``.
+def pack_dense(prog, cycles: int, wide: bool = False
+               ) -> Tuple[Dict[str, int], np.ndarray]:
+    """Header values and int32 blob of a ``DenseProgram`` for ``sim_dense``,
+    on the shared route or (``wide``) the global route.
 
     A cycle runs a list of rounds, one 8-word descriptor a lane: x, y and z
     as byte offsets into this cycle's bank of values (x into the input
     staging for an input), the destination's byte offset ``| flags << 18 |
-    micro-op << 24``, then a ROM row, a ring word and a ring length. Light
+    micro-op << 24``, then a ROM row, a ring word, a ring length and 0; on
+    the global route word 3 is the destination's byte offset alone and
+    word 7 ``flags << 18 | micro-op << 24``. Light
     rounds come first: each combinational stage of ``stage_plan`` cut into
     rounds of 32 nodes, each round followed by a ``__syncwarp()``; their
     idle lanes take the items that need no ring and no ROM, each in the
@@ -261,6 +290,23 @@ def pack_dense(prog, cycles: int) -> Tuple[Dict[str, int], np.ndarray]:
     a copy of the first, which the last prefetches for the next cycle.
     Checks that the lowering has the canonical slot layout (inputs, seq
     heads, accumulators, constants, then the groups in order)."""
+    return _pack_dense(prog, cycles, lambda words, fits16: wide)
+
+
+def dense_plan(prog, cycles: int, smem_limit: int
+               ) -> Tuple[Dict[str, int], np.ndarray]:
+    """``pack_dense`` on the route the program fits, packed once: the shared
+    route if its slots fit the 16-bit fields and its blob and state
+    ``smem_limit`` bytes of shared memory, else the global route."""
+    return _pack_dense(prog, cycles, lambda words, fits16: (
+        not fits16 or 4 * words > smem_limit))
+
+
+def _pack_dense(prog, cycles: int, route) -> Tuple[Dict[str, int],
+                                                   np.ndarray]:
+    """``pack_dense``'s work; ``route(s_words, fits16)`` picks the global
+    route from the program's words of blob and state (the same on both
+    routes) and whether its slots fit the shared route's 16-bit fields."""
     n = prog.n_nodes
     n_in, n_seq, n_acc = (len(prog.input_pos), len(prog.seq_pos),
                           len(prog.accum_pos))
@@ -278,10 +324,9 @@ def pack_dense(prog, cycles: int) -> Tuple[Dict[str, int], np.ndarray]:
                          f"canonical; sim_dense cannot run it")
     zero, one, idle = n, n + 1, n + 2
     stride = n + 3
-    _check_16("sim_dense", stride, "value slots", prog.name)
     ring_off = np.concatenate([[0], np.cumsum(prog.seq_lat)])
     ring_words = int(ring_off[-1])
-    _check_16("sim_dense", ring_words + LANES, "ring words", prog.name)
+    fits16 = stride < NONE16 and ring_words + LANES < NONE16
     # an item: (uop, x, y, z, dest, flags, rom row, ring word, ring length)
     light: List[List] = []
     ready: Dict[int, int] = {}          # comb slot -> first round it is final
@@ -348,55 +393,71 @@ def pack_dense(prog, cycles: int) -> Tuple[Dict[str, int], np.ndarray]:
     heavy_rounds = [heavy[at:at + LANES]
                     for at in range(0, len(heavy), LANES)]
 
-    def words(rounds):
+    def fields(rounds):
+        """(x, y, z, dest, flags << 18 | micro-op << 24, rom, ring word,
+        ring length) of each lane of each round."""
         out = []
         for rnd in rounds:
-            row = []
             for lane, it in enumerate(rnd + [None] * (LANES - len(rnd))):
                 uop, x, y, z, dest, flags, rom, ring, length = it or (
                     _UOP["add"], zero, zero, zero, idle, 0, 0, 0, 1)
                 if not flags & DENSE_FLAGS["Ring"]:
                     ring, length = ring_words + lane, 1   # a word a lane
-                row.append([4 * x, 4 * y, 4 * z,
-                            _dense_word3(uop, dest, flags), rom, ring,
-                            length, 0])
-            out.append(row)
+                out.append((x, y, z, dest,
+                            flags << D_SHIFT | uop << D_UOP_SHIFT, rom,
+                            ring, length))
         return out
 
     # the light rounds' list ends with a copy of its first round, which the
     # last one prefetches for the next cycle
-    desc = words(light + light[:1]) + words(heavy_rounds)
+    raw = np.array(fields(light + light[:1]) + fields(heavy_rounds),
+                   dtype=np.int64).reshape(-1, 8)
     const = (np.column_stack([prog.const_pos, prog.const_vals])
              if n_const else np.zeros(0))
-    blob, offs = _blob([
-        ("o_desc", np.array(desc, dtype=np.int64).reshape(-1, 8)
-         if desc else np.zeros((0, 8), np.int64)),
-        ("o_const", const),
-        ("o_rom", _rom_section(prog.table_mat, prog.tab_len)),
-        ("o_table", prog.table_mat)])
+
+    def blob_of(wide):
+        desc = np.zeros_like(raw)
+        desc[:, :4] = 4 * raw[:, :4]          # byte offsets
+        desc[:, 4:7] = raw[:, 5:]
+        if wide:
+            desc[:, 7] = raw[:, 4]
+        else:
+            desc[:, 3] |= raw[:, 4]
+        return _blob([("o_desc", desc), ("o_const", const),
+                      ("o_rom", _rom_section(prog.table_mat, prog.tab_len)),
+                      ("o_table", prog.table_mat)])
+
+    blob, offs = blob_of(False)          # sizes are the same on both routes
     state = _state(blob.size, [
         ("s_val", 2 * stride), ("s_ring", ring_words + LANES),
         ("s_ptr", LANES * len(heavy_rounds)), ("s_in", 2 * n_in * CHUNK),
         ("s_out", 2 * n_out * CHUNK)])
+    wide = bool(route(state["s_words"], fits16))
+    if wide:
+        blob, _ = blob_of(True)
+    else:
+        _check_16("sim_dense", stride, "value slots", prog.name)
+        _check_16("sim_dense", ring_words + LANES, "ring words", prog.name)
     values = dict(
         n_nodes=n, n_in=n_in, n_out=n_out, n_const=n_const,
         n_light=len(light), n_heavy=len(heavy_rounds),
         n_rom=sum(bool(it[5] & DENSE_FLAGS["Rom"]) for it in heavy),
-        cycles=cycles, stride=stride, blob_words=blob.size, **offs, **state)
+        cycles=cycles, stride=stride, blob_words=blob.size,
+        global_route=int(wide), **offs, **state)
     return values, blob
 
 
 def dense_launcher(prog, in_mat: torch.Tensor, cycles: int):
     """Pack and upload a ``DenseProgram`` for ``sim_dense`` on ``in_mat``'s
-    card: returns ``(out, launch)``, where each ``launch()`` runs the kernel
-    once into ``out`` [n_out, cycles] (so a timing loop launches with no
-    host work between the kernels)."""
+    card, on the route ``dense_plan`` picks: returns ``(out, launch)``,
+    where each ``launch()`` runs the kernel once into ``out`` [n_out,
+    cycles] (so a timing loop launches with no host work between the
+    kernels)."""
     dev = in_mat.device
-    values, blob = pack_dense(prog, cycles)
-    _check_smem("sim_dense", values["s_words"], dev, prog.name)
+    values, blob = dense_plan(prog, cycles, _smem_limit(dev))
+    blob_t = _workspace(values, blob, dev, prog.name)
     out = torch.empty((len(prog.output_pos), cycles), dtype=torch.int64,
                       device=dev)
-    blob_t = torch.from_numpy(blob).to(dev)
     in_t = in_mat.to(torch.int64).contiguous()
     hdr = _header(DENSE_FIELDS, values)
     lib = _kernel_lib()
@@ -408,7 +469,7 @@ def dense_launcher(prog, in_mat: torch.Tensor, cycles: int):
         if err != 0:
             raise RuntimeError(f"sim_dense launch failed with CUDA error "
                                f"{err}")
-        sim_dense.launches += 1
+        _count(sim_dense, values)
 
     return out, launch
 
@@ -419,9 +480,9 @@ def sim_dense(prog, in_mat: torch.Tensor, cycles: int) -> torch.Tensor:
     the outputs [n_out, cycles], int64 on ``in_mat``'s device.
 
     CPU tensors go to the plain version. A CUDA ``in_mat`` launches the
-    kernel (one launch, one warp); a program whose slots do not fit the
-    descriptors' 16-bit fields, or whose state does not fit a block's
-    shared memory, raises ``ValueError``.
+    kernel (one launch, one warp), on the global route where the program
+    does not fit a block's shared memory or the 16-bit fields; a program
+    larger than the card's free memory raises ``ValueError``.
     """
     if tuple(in_mat.shape) != (len(prog.input_pos), cycles):
         raise ValueError(f"in_mat {tuple(in_mat.shape)}, want "
@@ -435,7 +496,8 @@ def sim_dense(prog, in_mat: torch.Tensor, cycles: int) -> torch.Tensor:
     return out
 
 
-sim_dense.launches = 0
+sim_dense.launches = sim_dense.shared_launches = 0
+sim_dense.global_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -449,10 +511,16 @@ def _selector(src: int) -> int:
     return (2 * src) | (2 * src + 1) << 4
 
 
-def pack_sparse(prog, feed_shape: Tuple[int, int], max_cycles: int
-                ) -> Tuple[Dict[str, int], np.ndarray]:
+def _sparse_fits16(prog) -> bool:
+    n_tot = prog.n_buf + len(prog.input_names)
+    return (n_tot + 2 < NONE16 and len(prog.output_names) < NONE16
+            and int(np.max(prog.cap, initial=1)) < NONE16)
+
+
+def pack_sparse(prog, feed_shape: Tuple[int, int], max_cycles: int,
+                wide: bool = False) -> Tuple[Dict[str, int], np.ndarray]:
     """Header values and int32 blob of a ``SparseProgram`` for
-    ``sim_sparse``.
+    ``sim_sparse``, on the shared route or (``wide``) the global route.
 
     Buffers are the lowering's ``n_buf``, one a feed row (``n_buf + j``
     for input ``j``, its tokens staged in shared memory), and two dummies:
@@ -467,22 +535,37 @@ def pack_sparse(prog, feed_shape: Tuple[int, int], max_cycles: int
     of x and y; z's selector ``| k << 16`` (the item's constant: 1, a
     CONST's value, 0; an accumulator's state replaces it); then ``fan``
     (at least 4) output words ``buffer | limit << 16`` (the capacity, 1 for
-    a CONST's refill of an empty buffer). ``binfo`` holds each buffer's
-    first data word and capacity."""
+    a CONST's refill of an empty buffer). The global route's wide
+    descriptor gives each field a word: the flags word, in0, in1, in2, the
+    sink, the selectors of x and y, z's selector ``| k << 16``, 0, then
+    ``fan`` buffers and ``fan`` limits. ``binfo`` holds each buffer's first
+    data word and capacity."""
     n_ev, n_in = len(prog.ev_names), len(prog.input_names)
     n_out, n_buf = len(prog.output_names), prog.n_buf
     rows, max_feed = feed_shape
     n_tot = n_buf + n_in
     d_in, d_out = n_tot, n_tot + 1
-    _check_16("sim_sparse", n_tot + 2, "buffers", prog.name)
+    if not wide:
+        _check_16("sim_sparse", n_tot + 2, "buffers", prog.name)
     fan = max(4, prog.ev_out.shape[1], prog.in_out.shape[1])
-    desc_words = 5 + fan + (-(5 + fan) % 4)
+    head = 8 + fan if wide else 5
+    desc_words = head + fan + (-(head + fan) % 4)
     # feed rows staged whole, or through a ring refilled ahead of fptr
     if n_in * max_feed <= FEED_WHOLE_WORDS:
         window, refill = max_feed, 0
     else:
         window, refill = 2 * FEED_REFILL, FEED_REFILL
     flag = SPARSE_FLAGS
+
+    def encode(w0, ins, sink, selxy, selzk, outs):
+        outs = list(outs) + [(d_out, 1)] * (fan - len(outs))
+        if wide:
+            words = ([w0, *ins, sink, selxy, selzk, 0]
+                     + [b for b, _ in outs] + [lim for _, lim in outs])
+        else:
+            words = ([w0, ins[0] | ins[1] << 16, ins[2] | sink << 16, selxy,
+                      selzk] + [b | lim << 16 for b, lim in outs])
+        return words + [0] * (desc_words - len(words))
 
     def item(uop, srcs, ins, outs, kval, flags, sink=n_out, rom=0):
         """srcs: x, y, z sources (0-2 an input slot, 3 the constant, 'z'
@@ -498,12 +581,8 @@ def pack_sparse(prog, feed_shape: Tuple[int, int], max_cycles: int
                 zero_src, kval = 3, 0
             srcs = [zero_src if v == "z" else v for v in srcs]
         sel = [_selector(v) for v in srcs]
-        outw = [b | lim << 16 for b, lim in outs]
-        outw += [d_out | 1 << 16] * (fan - len(outw))
-        return ([_flags_word(uop, flags | flag["Valid"], rom),
-                 ins[0] | ins[1] << 16, ins[2] | sink << 16,
-                 sel[0] | sel[1] << 16, sel[2] | kval << 16]
-                + outw + [0] * (desc_words - 5 - fan))
+        return encode(_flags_word(uop, flags | flag["Valid"], rom), ins,
+                      sink, sel[0] | sel[1] << 16, sel[2] | kval << 16, outs)
 
     items = []
     cap = prog.cap
@@ -540,8 +619,7 @@ def pack_sparse(prog, feed_shape: Tuple[int, int], max_cycles: int
         items.append(item(_UOP["add"], [3, "z", "z"], [], [(int(b), 1)],
                           int(v), 0))
     n_rounds = -(-len(items) // LANES)
-    idle = [0, d_in | d_in << 16, d_in | n_out << 16, 0, 0]
-    idle += [d_out | 1 << 16] * fan + [0] * (desc_words - 5 - fan)
+    idle = encode(0, [d_in] * 3, n_out, 0, 0, [])
     items += [idle] * (n_rounds * LANES - len(items))
     max_cap = prog.max_cap
     zero_word = n_buf * max_cap + n_in * window      # the dummies' data
@@ -561,21 +639,35 @@ def pack_sparse(prog, feed_shape: Tuple[int, int], max_cycles: int
     values = dict(
         n_buf=n_buf, n_in=n_in, n_out=n_out, n_rows=rows, n_rounds=n_rounds,
         desc_words=desc_words, fan=fan, max_feed=max_feed, window=window,
-        refill=refill, max_cycles=max_cycles, blob_words=blob.size, **offs,
-        **state)
+        refill=refill, max_cycles=max_cycles, blob_words=blob.size,
+        global_route=int(wide), **offs, **state)
     return values, blob
+
+
+def sparse_plan(prog, feed_shape: Tuple[int, int], max_cycles: int,
+                smem_limit: int) -> Tuple[Dict[str, int], np.ndarray]:
+    """``pack_sparse`` on the route the program fits: the shared route if
+    its buffers fit the 16-bit fields and its blob and state ``smem_limit``
+    bytes of shared memory, else the global route (its wide descriptors
+    make it a second pack)."""
+    if _sparse_fits16(prog):
+        values, blob = pack_sparse(prog, feed_shape, max_cycles)
+        if 4 * values["s_words"] <= smem_limit:
+            return values, blob
+    return pack_sparse(prog, feed_shape, max_cycles, wide=True)
 
 
 def sparse_launcher(prog, feed: torch.Tensor, frem: torch.Tensor,
                     max_cycles: int):
     """Pack and upload a ``SparseProgram`` for ``sim_sparse`` on ``feed``'s
-    card: returns ``(result, launch)``, where each ``launch()`` runs the
-    kernel once into ``result``, a :class:`SparseResult`."""
+    card, on the route ``sparse_plan`` picks: returns ``(result,
+    launch)``, where each ``launch()`` runs the kernel once into
+    ``result``, a :class:`SparseResult`."""
     dev = feed.device
     rows, n_out = feed.shape[0], max(1, len(prog.output_names))
-    values, blob = pack_sparse(prog, tuple(feed.shape), max_cycles)
-    _check_smem("sim_sparse", values["s_words"], dev, prog.name)
-    blob_t = torch.from_numpy(blob).to(dev)
+    values, blob = sparse_plan(prog, tuple(feed.shape), max_cycles,
+                               _smem_limit(dev))
+    blob_t = _workspace(values, blob, dev, prog.name)
     feed_t = feed.to(torch.int64).contiguous()
     frem_t = frem.to(device=dev, dtype=torch.int64).contiguous()
     outm = torch.empty((n_out, max_cycles), dtype=torch.int64, device=dev)
@@ -594,7 +686,7 @@ def sparse_launcher(prog, feed: torch.Tensor, frem: torch.Tensor,
         if err != 0:
             raise RuntimeError(f"sim_sparse launch failed with CUDA error "
                                f"{err}")
-        sim_sparse.launches += 1
+        _count(sim_sparse, values)
 
     return result, launch
 
@@ -608,8 +700,9 @@ def sim_sparse(prog, feed: torch.Tensor, frem: torch.Tensor,
     device.
 
     CPU tensors go to the plain version. A CUDA ``feed`` launches the kernel
-    (one launch, one warp); a program past the descriptors' 16-bit fields or
-    a block's shared memory raises ``ValueError``.
+    (one launch, one warp), on the global route where the program does not
+    fit a block's shared memory or the 16-bit fields; a program larger than
+    the card's free memory raises ``ValueError``.
     """
     if feed.dim() != 2 or frem.shape != (feed.shape[0],):
         raise ValueError(f"feed {tuple(feed.shape)}, frem "
@@ -626,4 +719,5 @@ def sim_sparse(prog, feed: torch.Tensor, frem: torch.Tensor,
     return result
 
 
-sim_sparse.launches = 0
+sim_sparse.launches = sim_sparse.shared_launches = 0
+sim_sparse.global_launches = 0

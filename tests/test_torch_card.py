@@ -420,18 +420,64 @@ def test_sim_sparse_kernel_through_the_feed_window(card, monkeypatch):
 
 
 @pytest.mark.requires_cuda
-def test_sim_dense_raises_for_a_program_past_shared_memory(card):
-    """A latency ring longer than a block's shared memory is refused with a
-    clear error, never run on the plain version."""
+def test_sim_dense_raises_for_a_program_past_shared_memory(card,
+                                                           monkeypatch):
+    """A latency ring longer than a block's shared memory runs on the
+    global route, bit for bit numpy's; the only refusal left is a program
+    larger than the card's free memory, raised before any launch and never
+    run on the plain version."""
     g = DFG("deep")
     d = g.add("mem", name="d", op="delay", depth=70_000, latency=1)
     g.connect(g.add("input", name="i"), d)
     g.connect(d, g.add("output", name="o"))
     g.validate()
-    before = sim_dense.launches
-    with pytest.raises(ValueError, match="shared memory"):
-        simulate(g, {"i": [1, 2, 3]}, 8, backend="torch")
-    assert sim_dense.launches == before
+    ins = {"i": list(range(1, 200))}
+    before = (sim_dense.launches, sim_dense.global_launches)
+    assert simulate(g, ins, 8, backend="torch") == simulate(
+        g, ins, 8, backend="numpy")
+    assert (sim_dense.launches, sim_dense.global_launches) == (
+        before[0] + 1, before[1] + 1)
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda *a: (1024, 1024))
+    with pytest.raises(ValueError, match="backend='numpy'"):
+        simulate(g, ins, 8, backend="torch")
+    assert sim_dense.launches == before[0] + 1
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("width", [1018, 4096])
+def test_sim_dense_global_route_on_wide_dags(card, width):
+    """The smallest seeded wide DAG past a block's shared memory (width
+    1018: 2039 nodes) and one about 4x past it, 256 cycles each: one launch
+    on the global route, bit for bit the numpy backend's."""
+    g = _wide(0, width)
+    ins = _sim_inputs(g, 256)
+    before = (sim_dense.launches, sim_dense.global_launches)
+    got = simulate(g, ins, 256, backend="torch")
+    assert (sim_dense.launches, sim_dense.global_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert got == simulate(g, ins, 256, backend="numpy")
+
+
+@pytest.mark.requires_cuda
+def test_sim_sparse_global_route_on_a_wide_dag(card):
+    """The smallest seeded wide DAG past the sparse kernel's shared memory
+    (width 176, as a sparse program): one launch on the global route, end
+    state and streams bit for bit the plain version's and numpy's."""
+    g = _wide(0, 176)
+    g.sparse = True
+    ins = _sim_inputs(g, 64)
+    before = (sim_sparse.launches, sim_sparse.global_launches)
+    got = simulate_sparse(g, ins, 64 * 40, backend="torch")
+    assert (sim_sparse.launches, sim_sparse.global_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert got == simulate_sparse(g, ins, 64 * 40, backend="numpy")
+    prog = lower_sparse(g)
+    feed, frem = (torch.from_numpy(t).cuda()
+                  for t in _feed_matrix(prog, ins))
+    k, want = (sim_sparse(prog, feed, frem, 2560),
+               sim_sparse_plain(prog, feed, frem, 2560))
+    for field in ("blen", "frem", "ocnt", "fired", "rounds"):
+        assert torch.equal(getattr(k, field), getattr(want, field)), field
 
 
 _SIM_CALLS = ("simulate", "simulate_sparse", "equivalent",

@@ -95,7 +95,8 @@ def test_pass_config_defaults_match_reference(field, factory):
 def test_pass_config_keeps_only_reference_fields():
     ref_fields = {f.name for f in dataclasses.fields(RefPassConfig)}
     assert set(_FIELDS) <= ref_fields
-    assert {"power_cap_mw", "explore", "region"}.isdisjoint(_FIELDS)
+    # region waits for the port's multi-app driver
+    assert ref_fields - set(_FIELDS) == {"region"}
 
 
 def _compile_with(**kw):
@@ -145,9 +146,11 @@ def test_backend_env_knobs(monkeypatch, var, fn, value, want):
         assert getattr(config, fn)() == want
 
 
+# the reference's core modules the port has not carried over yet
+_UNPORTED = "multi|traffic|service|sched|lmmap"
 _LAZY = re.compile(
-    r"^\s*from\s+\.(cache)\b|"
-    r"^\s*from\s+\.\s+import\s+(cache)\b",
+    rf"^\s*from\s+\.({_UNPORTED})\b|"
+    rf"^\s*from\s+\.\s+import\s+({_UNPORTED})\b",
     re.MULTILINE)
 
 

@@ -554,15 +554,20 @@ def test_sparse_pack_marks_absent_entries(app):
     assert h["s_words"] * 4 < 64 * 1024
 
 
+def _counts():
+    return [getattr(fn, c) for fn in (K.sim_dense, K.sim_sparse)
+            for c in ("launches", "shared_launches", "global_launches")]
+
+
 def test_wrappers_on_the_cpu_take_the_plain_version():
     g = DENSE_APPS["harris"].build(1)
     prog = lower_dense(g)
-    before = (K.sim_dense.launches, K.sim_sparse.launches)
+    before = _counts()
     ins = _inputs(g, 40)
     in_t = torch.tensor([ins[n] for n in prog.input_names])
     assert torch.equal(K.sim_dense(prog, in_t, 40),
                        K.sim_dense_plain(prog, in_t, 40))
-    assert (K.sim_dense.launches, K.sim_sparse.launches) == before
+    assert _counts() == before
     with pytest.raises(ValueError):
         K.sim_dense(prog, in_t[:, :10], 40)
 
@@ -751,6 +756,9 @@ def test_memo_keys_on_the_backend():
 # in that interval and fails on a word that one lane writes and another
 # reads or writes (a race), or that is read while a copy into it is in
 # flight. The only races a design allows are named where they are allowed.
+# With ``wide`` a walker runs the global route's blob: the same rounds over
+# the wide descriptors, its workspace words checked as the shared words
+# are, and the staging copies made by the lanes as plain stores.
 
 M32 = 0xFFFFFFFF
 UOP_NAMES = ("add", "sub", "mul", "and", "or", "xor", "shr", "shl",
@@ -815,12 +823,13 @@ class _Warp:
             s.clear()
 
 
-def walk_dense(prog, in_mat, cycles):
+def walk_dense(prog, in_mat, cycles, wide=False):
     """``sim_dense`` over ``pack_dense``'s blob, lane by lane: the outputs
     [n_out][cycles], as the kernel flushes them from its output staging.
     Idle lanes all write the idle slot, which nothing reads: the one race
     the design allows."""
-    h, blob = pack_dense(prog, cycles)
+    h, blob = pack_dense(prog, cycles, wide)
+    assert h["global_route"] == int(wide)
     stride, ch, n_in, n_out = h["stride"], K.sim.CHUNK, h["n_in"], h["n_out"]
     idle = [h["s_val"] + b * stride + h["n_nodes"] + 2 for b in (0, 1)]
     w = _Warp(blob, h["s_words"], allowed=idle)
@@ -841,8 +850,11 @@ def walk_dense(prog, in_mat, cycles):
         width = min(ch, cycles - t0)
         for i in range(n_in * max(0, width)):
             r, k = divmod(i, width)
-            w.copy(inbuf + (c & 1) * n_in * ch + r * ch + k,
-                   int(in_mat[r][t0 + k]))
+            addr = inbuf + (c & 1) * n_in * ch + r * ch + k
+            if wide:
+                w.st(i % 32, addr, int(in_mat[r][t0 + k]))
+            else:
+                w.copy(addr, int(in_mat[r][t0 + k]))
 
     def flush(c):
         t0 = c * ch
@@ -863,6 +875,11 @@ def walk_dense(prog, in_mat, cycles):
     od, n_light, n_heavy = h["o_desc"], h["n_light"], h["n_heavy"]
     heavy0 = od + 8 * 32 * (n_light + (n_light > 0))
     desc = lambda base, k, lane: sm[base + 8 * (k * 32 + lane):][:8]  # noqa
+    # flags and micro-op: word 3's high bits, or word 7 on the global route;
+    # the destination's byte offset: word 3's low bits, or all of it
+    ctl = (lambda dw: dw[7]) if wide else (lambda dw: dw[3])  # noqa: E731
+    dest = ((lambda dw: dw[3]) if wide  # noqa: E731
+            else (lambda dw: dw[3] & ((1 << K.sim.D_SHIFT) - 1)))
     d = [desc(od, 0, lane) if n_light else [0] * 8 for lane in range(32)]
     hd = [desc(heavy0, 0, lane) if n_heavy else [0] * 8 for lane in range(32)]
     for t in range(cycles):
@@ -879,28 +896,28 @@ def walk_dense(prog, in_mat, cycles):
         inb = inbuf + ((u // ch) & 1) * n_in * ch + u % ch
         outb = outbuf + ((t // ch) & 1) * n_out * ch + t % ch
 
-        def store(lane, w3, value):
-            f = w3 >> K.sim.D_SHIFT & 0x3F
+        def store(lane, dw, value):
+            f = ctl(dw) >> K.sim.D_SHIFT & 0x3F
             base = Vn if f & fl["DNext"] else outb if f & fl["DOut"] else V
-            w.st(lane, base + (w3 & ((1 << K.sim.D_SHIFT) - 1)) // 4, value)
+            w.st(lane, base + dest(dw) // 4, value)
 
-        def xbase(w3):
-            return inb if w3 >> K.sim.D_SHIFT & fl["XIn"] else V
+        def xbase(dw):
+            return inb if ctl(dw) >> K.sim.D_SHIFT & fl["XIn"] else V
 
         for k in range(n_light):
             dn = [desc(od, k + 1, lane) for lane in range(32)]
             for lane in range(32):
                 dw = d[lane]
-                x = w.ld(lane, xbase(dw[3]) + dw[0] // 4)
+                x = w.ld(lane, xbase(dw) + dw[0] // 4)
                 y, z = w.ld(lane, V + dw[1] // 4), w.ld(lane, V + dw[2] // 4)
-                store(lane, dw[3], _alu16(dw[3] >> K.sim.D_UOP_SHIFT, x, y, z))
+                store(lane, dw, _alu16(ctl(dw) >> K.sim.D_UOP_SHIFT, x, y, z))
             w.sync()
             d = dn
         for k in range(n_heavy):
             for lane in range(32):
                 dw = hd[lane] if k == 0 else desc(heavy0, k, lane)
-                f = dw[3] >> K.sim.D_SHIFT & 0x3F
-                x = w.ld(lane, xbase(dw[3]) + dw[0] // 4)
+                f = ctl(dw) >> K.sim.D_SHIFT & 0x3F
+                x = w.ld(lane, xbase(dw) + dw[0] // 4)
                 y, z = w.ld(lane, V + dw[1] // 4), w.ld(lane, V + dw[2] // 4)
                 r = 0
                 if h["n_rom"]:
@@ -912,10 +929,10 @@ def walk_dense(prog, in_mat, cycles):
                 pn = 0 if p + 1 == dw[6] else p + 1
                 head = w.ld(lane, ring + dw[5] + pn)
                 v = r if f & fl["Rom"] else _alu16(
-                    dw[3] >> K.sim.D_UOP_SHIFT, x, y, z)
+                    ctl(dw) >> K.sim.D_UOP_SHIFT, x, y, z)
                 w.st(lane, ring + dw[5] + p, v)
                 w.st(lane, slot, pn)
-                store(lane, dw[3], head if f & fl["Ring"] else v)
+                store(lane, dw, head if f & fl["Ring"] else v)
         w.sync()
     last = (cycles - 1) // ch
     if cycles % ch and last > 0:
@@ -926,14 +943,15 @@ def walk_dense(prog, in_mat, cycles):
     return out
 
 
-def walk_sparse(prog, feed, frem, max_cycles):
+def walk_sparse(prog, feed, frem, max_cycles, wide=False):
     """``sim_sparse`` over ``pack_sparse``'s blob, lane by lane: (blen,
     frem, streams, ocnt, fired, rounds). A consumer reads its buffer's head
     even when the buffer is empty, and discards it (it does not fire); a
     producer may push into that word in the same round: the one race the
     design allows, so such a read is not recorded."""
     feed = np.asarray(feed)
-    h, blob = pack_sparse(prog, feed.shape, max_cycles)
+    h, blob = pack_sparse(prog, feed.shape, max_cycles, wide)
+    assert h["global_route"] == int(wide)
     w = _Warp(blob, h["s_words"])
     sm = w.sm
     n_buf, n_in, n_out = h["n_buf"], h["n_in"], h["n_out"]
@@ -957,8 +975,12 @@ def walk_sparse(prog, feed, frem, max_cycles):
         for j in range(n_in):
             for k in range(lo[j], lo[j] + span):
                 if k < frem0[j] and k < h["max_feed"]:
-                    w.copy(data + binfo(n_buf + j)[0] + k % h["window"],
-                           int(feed[j, k]))
+                    addr = data + binfo(n_buf + j)[0] + k % h["window"]
+                    if wide:         # lane i % 32 of the kernel's loop
+                        w.st((j * span + k - lo[j]) % 32, addr,
+                             int(feed[j, k]))
+                    else:
+                        w.copy(addr, int(feed[j, k]))
 
     R = h["refill"]
     stage([0] * n_in, 2 * R if R else h["max_feed"])
@@ -971,8 +993,14 @@ def walk_sparse(prog, feed, frem, max_cycles):
         Pc, Qc = P + cur * nb, Q + cur * nb
         Pn, Qn = P + (cur ^ 1) * nb, Q + (cur ^ 1) * nb
         flags = dw[0] >> 4 & 0xFF
-        ins = [dw[1] & 0xFFFF, dw[1] >> 16, dw[2] & 0xFFFF]
-        outs = dw[5:5 + h["fan"]]
+        fan = h["fan"]
+        if wide:
+            ins, sink, selxy, selzk = dw[1:4], dw[4], dw[5], dw[6]
+            outs = list(zip(dw[8:8 + fan], dw[8 + fan:8 + 2 * fan]))
+        else:
+            ins = [dw[1] & 0xFFFF, dw[1] >> 16, dw[2] & 0xFFFF]
+            sink, selxy, selzk = dw[2] >> 16, dw[3], dw[4]
+            outs = [(o & 0xFFFF, o >> 16) for o in dw[5:5 + fan]]
         ok = bool(flags & fl["Valid"])
         head, q, ra = [0] * 3, [0] * 3, [0] * 3
         for k, b in enumerate(ins):
@@ -984,18 +1012,16 @@ def walk_sparse(prog, feed, frem, max_cycles):
             head[k] = (w.sm[data + ra[k]] if p == q[k]
                        else w.ld(lane, data + ra[k]))
         po = []
-        for o in outs:
-            b, lim = o & 0xFFFF, o >> 16
+        for b, lim in outs:
             po.append(w.ld(lane, Pc + b))
             ok = ok and po[-1] - w.ld(lane, Qc + b) < lim
-        sink = dw[2] >> 16
         oc = w.ld(lane, ocnt + sink)
         kval = (w.ld(lane, accv + item) if flags & fl["Acc"]
-                else dw[4] >> 16)
+                else selzk >> 16)
         h01, h2k = head[0] | head[1] << 16, head[2] | kval << 16
-        x = _byte_perm(h01, h2k, dw[3] & 0xFFFF) & 0xFFFF
-        y = _byte_perm(h01, h2k, dw[3] >> 16) & 0xFFFF
-        z = _byte_perm(h01, h2k, dw[4] & 0xFFFF) & 0xFFFF
+        x = _byte_perm(h01, h2k, selxy & 0xFFFF) & 0xFFFF
+        y = _byte_perm(h01, h2k, selxy >> 16) & 0xFFFF
+        z = _byte_perm(h01, h2k, selzk & 0xFFFF) & 0xFFFF
         ro = h["o_rom"] + 4 * (dw[0] >> K.sim.ROM_SHIFT)
         idx = ((sm[ro + 2] * x) & M32) * sm[ro + 1] >> 32
         r = w.ld(lane, h["o_table"] + sm[ro] + idx)
@@ -1012,8 +1038,7 @@ def walk_sparse(prog, feed, frem, max_cycles):
             w.st(lane, Qn + b if real else mine, q[k] + fire)
             w.st(lane, rpa + b if real else mine,
                  wrap(ra[k] + 1, b) if fire else ra[k])
-        for o, p in zip(outs, po):
-            b = o & 0xFFFF
+        for (b, _), p in zip(outs, po):
             real = b < nt
             a = w.ld(lane, wpa + b)
             w.st(lane, Pn + b if real else mine, p + fire)
@@ -1057,18 +1082,18 @@ def walk_sparse(prog, feed, frem, max_cycles):
     return blen, frem_out, outm, counts, fired, rounds
 
 
-def _check_dense_walk(prog, ins, cycles):
+def _check_dense_walk(prog, ins, cycles, wide=False):
     x = _input_matrix(prog, ins, cycles)
     want = K.sim_dense_plain(prog, torch.from_numpy(x), cycles)
-    assert walk_dense(prog, x, cycles) == want.tolist()
+    assert walk_dense(prog, x, cycles, wide) == want.tolist()
 
 
-def _check_sparse_walk(prog, ins, max_cycles):
+def _check_sparse_walk(prog, ins, max_cycles, wide=False):
     feed, frem = _feed_matrix(prog, ins)
     want = K.sim_sparse_plain(prog, torch.from_numpy(feed),
                               torch.from_numpy(frem), max_cycles)
     blen, frem_out, outm, ocnt, fired, rounds = walk_sparse(
-        prog, feed, frem, max_cycles)
+        prog, feed, frem, max_cycles, wide)
     assert (blen, frem_out, ocnt, fired, rounds) == (
         want.blen.tolist(), want.frem.tolist(), want.ocnt.tolist(),
         int(want.fired), int(want.rounds))
@@ -1160,6 +1185,104 @@ def test_dense_walker_on_a_wide_dag():
     _check_dense_walk(prog, _inputs(g, 40), 40)
 
 
+# H100's opt-in shared memory a block, in bytes: what the plans are held to
+SMEM_LIMIT = 232_448
+
+
+@pytest.mark.parametrize("app", ALL_DENSE)
+def test_dense_walker_on_the_global_route(app):
+    """The global route's blob (wide descriptors, staging by plain stores)
+    walked lane by lane equals the plain version, race-free."""
+    g = _port_app(app)
+    _check_dense_walk(lower_dense(g), _inputs(g, WALK_CYCLES), WALK_CYCLES,
+                      wide=True)
+
+
+@pytest.mark.parametrize("app", sorted(SPARSE_APPS))
+def test_sparse_walker_on_the_global_route(app):
+    g = _port_app(app)
+    _check_sparse_walk(lower_sparse(g), _inputs(g, SPARSE_TOKENS),
+                       SPARSE_MAX, wide=True)
+
+
+def test_sparse_walker_on_the_global_route_through_the_feed_window(
+        monkeypatch):
+    monkeypatch.setattr(K.sim, "FEED_WHOLE_WORDS", 0)
+    g = _port_app("mttkrp")
+    rounds = _check_sparse_walk(lower_sparse(g), _inputs(g, 300), 300 * 40,
+                                wide=True)
+    assert rounds > 2 * K.sim.FEED_REFILL
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_global_route_walkers_on_seeded_dags(seed):
+    """Seeded DAGs (predicated ones too, a wide one whose stages loop over
+    lanes, and the wide one with a fan-out past the descriptor's four
+    register-held outputs as a sparse program) on the global route."""
+    for make in (_seeded_dfg, _seeded_pred_dfg):
+        pg = _port_graph(make(seed))
+        _check_dense_walk(lower_dense(pg), _inputs(pg, 40, seed), 40,
+                          wide=True)
+    g = _wide_dfg(seed)
+    _check_dense_walk(lower_dense(g), _inputs(g, 40, seed), 40, wide=True)
+    g = _wide_dfg(seed, width=12)
+    g.sparse = True
+    prog = lower_sparse(g)
+    assert pack_sparse(prog, (3, 16), 640)[0]["fan"] > 4
+    _check_sparse_walk(prog, _inputs(g, 16, seed), 640, wide=True)
+
+
+def test_plans_take_the_global_route_past_shared_memory():
+    """The plan packs on the shared route while the blob and state fit a
+    block's shared memory, else on the global route, from the packed sizes
+    alone; the apps stay on the shared route."""
+    for app in ALL_DENSE:
+        prog = lower_dense(_port_app(app))
+        assert K.dense_plan(prog, 256, SMEM_LIMIT)[0]["global_route"] == 0
+    for app in sorted(SPARSE_APPS):
+        prog = lower_sparse(_port_app(app))
+        h, _ = K.sparse_plan(prog, (len(prog.input_names), 64), 2560,
+                             SMEM_LIMIT)
+        assert h["global_route"] == 0
+    routes = []
+    for width in (80, 1024):
+        prog = lower_dense(_wide_dfg(0, width))
+        shared, _ = pack_dense(prog, 256)
+        h, blob = K.dense_plan(prog, 256, SMEM_LIMIT)
+        assert h["global_route"] == int(4 * shared["s_words"] > SMEM_LIMIT)
+        assert h["s_words"] == shared["s_words"] and h["blob_words"] == \
+            blob.size
+        routes.append(h["global_route"])
+    assert routes == [0, 1]
+    routes = []
+    for width in (40, 200):
+        g = _wide_dfg(0, width)
+        g.sparse = True
+        prog = lower_sparse(g)
+        shared, _ = pack_sparse(prog, (3, 64), 2560)
+        h, _ = K.sparse_plan(prog, (3, 64), 2560, SMEM_LIMIT)
+        assert h["global_route"] == int(4 * shared["s_words"] > SMEM_LIMIT)
+        routes.append(h["global_route"])
+    assert routes == [0, 1]
+
+
+def test_plans_take_the_global_route_past_the_16_bit_fields():
+    """A latency ring of 70 000 words passes the shared route's 16-bit
+    fields: the plan takes the global route whatever the shared memory, and
+    the shared route's pack refuses it."""
+    g = DFG("deep")
+    d = g.add("mem", name="d", op="delay", depth=70_000, latency=1)
+    g.connect(g.add("input", name="i"), d)
+    g.connect(d, g.add("output", name="o"))
+    prog = lower_dense(g.validate())
+    with pytest.raises(ValueError, match="16-bit"):
+        pack_dense(prog, 8)
+    h, _ = K.dense_plan(prog, 8, 1 << 30)
+    assert h["global_route"] == 1
+    ins = {"i": list(range(1, 9))}
+    _check_dense_walk(prog, ins, 8, wide=True)
+
+
 def test_dense_walker_on_a_routed_netlist():
     """A Table I design (harris, full pipelining) compiled and routed on
     the CPU at a few moves a node: its netlist's DFG."""
@@ -1188,7 +1311,7 @@ def test_micro_ops_and_flags_match_the_cuda_source():
     assert _flags(dense) == {n: f << K.sim.D_SHIFT
                              for n, f in K.sim.DENSE_FLAGS.items()}
     assert f"kChunk = {K.sim.CHUNK};" in dense
-    assert "d.w >> 24" in dense and K.sim.D_UOP_SHIFT == 24
+    assert "alu16(ctl >> 24" in dense and K.sim.D_UOP_SHIFT == 24
     sparse = (CSRC / "sim_sparse.cu").read_text()
     assert _flags(sparse) == {n: f << 4 for n, f in
                               K.sim.SPARSE_FLAGS.items()}
