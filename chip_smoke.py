@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py               # every phase
     python3 chip_smoke.py --phase sim   # phases 1, 2, Table I on the host, 7c
+    python3 chip_smoke.py --phase multi # phases 1, 2, 7e
 
 Drives the port (``src/repro_torch``) only. Phases, each printing its own
 lines:
@@ -118,6 +119,33 @@ lines:
              artifact; the five dense apps under caps of 0.9 and 0.7 x
              their uncapped power on the torch and numpy STA; and the keys
              of one torch-engine job on the CPU and on the card.
+7e. multi  — multi-app fabric sharing and online serving, at the reference
+             benchmarks' sizes on the default 32x16 fabric (100 moves):
+             benchmarks/multi_app.py's four mixes through compile_multi
+             (verify=True) on the thread and process backends and resident
+             by resident (serial), all equal, validate_regions holding, and
+             a one-app pack in a full-fabric region equal to compile();
+             dense2 and quad on the torch engines on the card, every
+             resident fenced, within 1.10x of the numpy placer's cost in
+             its region and at or below A*'s wirelength on its placement,
+             and its design through equivalent / sparse_equivalent and its
+             streams on the sim kernels (one launch a graph, counted from
+             0) equal to the interpreter's; benchmarks/serve_online.py's
+             wide_waves and churn_trace(48, 3) through one CompileService
+             each, FabricScheduler online against evaluate_static (online
+             must win on objective or rejections), every readmitted
+             compile equal to a fresh one with the same region and cap;
+             wide_waves again with a process-backend service (equal to the
+             thread backend's) and a burst of four requests the dispatch
+             thread sends to one pool of spawned workers, and on the torch
+             engines on the card, with tests/test_sched.py's soak generator
+             (6 sessions, 8x16 fabric, 20 moves: it evicts and readmits)
+             there too (every seated compile equal to a fresh one);
+             benchmarks/lm_lowering.py's blocks of every arch on the
+             Amber array (cgra_amber), unpipelined and full, through
+             compile_batch on the host, then llama3-8b and granite-moe on
+             the torch engines on the card (the same placer bar; their
+             wirelength beside A*'s is printed, not held).
 8. maxplus — the max-plus kernel against its plain version (bit for bit, in
              f32) at the reference test's shapes, at every closure size of
              the path, ragged, with half the entries at the NEG_INF floor,
@@ -200,6 +228,23 @@ FRONTIER_BUDGETS = (4, 16, 64, None)
 FRONTIER_CAP_FRACTIONS = (0.9, None)
 POWER_CAP_FRACTIONS = (0.9, 0.7)
 BATCH_CACHE = ROOT / "build" / "chip_smoke_cache"
+# multi-app sharing and serving (phase 7e): benchmarks/multi_app.py's mixes
+# and move budget, the mixes taken again on the torch engines, and
+# benchmarks/serve_online.py's tenants, period and churn trace (48
+# sessions, seed 3); the LM blocks taken again on the torch engines
+MULTI_MOVES = 100
+MULTI_MIXES = {"dense2": ("unsharp", "camera"),
+               "dense_sparse": ("unsharp", "vecadd"),
+               "sparse2": ("vecadd", "ttv"),
+               "quad": ("unsharp", "camera", "vecadd", "ttv")}
+MULTI_TORCH_MIXES = ("dense2", "quad")
+SERVE_NARROW, SERVE_WIDE = ("vecadd", "elemmul", "ttv", "mttkrp"), "harris"
+SERVE_PERIOD, SERVE_CHURN = 100_000, (48, 3)
+# evict and readmit on the card: tests/test_sched.py's soak generator at
+# its own settings (an 8x16 fabric of four column groups, 20 moves), 6
+# sessions of seed 1 (evicts, readmits and re-packs on the host engines)
+SOAK_SESSIONS, SOAK_MOVES = (6, 1), 20
+LM_TORCH_ARCHS = ("llama3-8b", "granite-moe-1b-a400m")
 
 
 def log(phase: str, msg: str) -> None:
@@ -2177,9 +2222,9 @@ def phase_sim(dev, card: str, table1: dict):
 
 
 def result_bytes(r) -> tuple:
-    """A compile result as phase 7d compares it: the summary, the design
-    digest (placement, routes, registers), the critical path and the
-    passes that ran."""
+    """A compile result as phases 7d and 7e compare it: the summary, the
+    design digest (placement, routes, registers), the critical path and
+    the passes that ran."""
     from repro_torch.core.netlist import design_digest
     return (json.dumps(r.summary()), design_digest(r.design),
             r.sta.critical_path_ns, r.pass_stats["pipeline"])
@@ -2440,9 +2485,463 @@ def phase_batch(dev, card: str, table1: dict, dev_runs: dict) -> None:
         f"{card}")
 
 
+def pack_bytes(m) -> tuple:
+    """A pack as phase 7e compares it: regions, the fabric summary, the
+    shared flush report and each resident's summary and design digest."""
+    import dataclasses
+    from repro_torch.core.netlist import design_digest
+    return (sorted((n, (r.row0, r.col0, r.rows, r.cols))
+                   for n, r in m.regions.items()),
+            json.dumps(m.summary, sort_keys=True),
+            json.dumps(dataclasses.asdict(m.flush), sort_keys=True),
+            [(r.app.name, json.dumps(r.summary(), sort_keys=True),
+              design_digest(r.design)) for r in m.results])
+
+
+def engine_bars(c, app, cfg) -> tuple:
+    """(torch placer cost, numpy placer cost under the same config, torch
+    wirelength, A*'s wirelength on the torch placement) of one compile:
+    tests/test_torch_pnr.py's bars on the torch engines, inside
+    ``cfg.region`` where it has one."""
+    from dataclasses import replace
+    from repro_torch.core import route
+    st = c.compile_to_stage(app, cfg, stage="routed").state
+    host = c.compile_to_stage(app, replace(cfg, pnr_backend="numpy"),
+                              stage="routed").state
+    astar = route(st["netlist"], st["placement"], st["place_fabric"],
+                  region=cfg.region)
+    return (st["pass_stats"]["pnr"]["place"]["best_cost"],
+            host["pass_stats"]["pnr"]["place"]["best_cost"],
+            st["design"].total_wirelength(), astar.total_wirelength())
+
+
+#: graphs ``resident_streams`` runs through the sim kernels: the source and
+#: the design (equivalent / sparse_equivalent), then the design's streams
+RESIDENT_GRAPHS = 3
+
+
+def resident_streams(r) -> tuple:
+    """(verdict through the sim kernels, the interpreter's verdict, whether
+    the streams are equal) of one resident, with the verify pass's inputs
+    (64 tokens a stream for a sparse app): equivalent / sparse_equivalent,
+    then the design's own streams, on the "torch" backend and the
+    interpreter."""
+    from repro_torch.core import (clear_ref_memo, equivalent, simulate,
+                                  simulate_sparse, sparse_equivalent)
+    ref, final = r.app.build(1), r.design.netlist.to_dfg()
+    rng = np.random.default_rng(0)
+    size, hi = (SIM_TOKENS, 0x10000) if r.app.sparse else (48, 255)
+    ins = {n: rng.integers(0, hi, size=size).tolist()
+           for n, nd in ref.nodes.items() if nd.kind == "input"}
+    out = {}
+    for backend in ("torch", "interpreter"):
+        clear_ref_memo()
+        if r.app.sparse:
+            out[backend] = (sparse_equivalent(ref, final, ins,
+                                              backend=backend),
+                            simulate_sparse(final, ins, backend=backend))
+        else:
+            out[backend] = (equivalent(ref, final, ins, n=32,
+                                       backend=backend),
+                            simulate(final, ins, SIM_NETLIST_CYCLES,
+                                     backend=backend))
+    return (out["torch"][0], out["interpreter"][0],
+            out["torch"][1] == out["interpreter"][1])
+
+
+def serve_apps(names: dict) -> dict:
+    """Apps under the trace's names (``{name: base app}``)."""
+    import dataclasses
+    from repro_torch.core import ALL_APPS
+    return {n: dataclasses.replace(ALL_APPS[b], name=n)
+            for n, b in names.items()}
+
+
+def wide_waves_trace():
+    """benchmarks/serve_online.py's ``wide_waves_trace``: four width-4
+    tenants fill the column groups, the 2nd and 4th depart, then the
+    width-8 harris arrives, admissible online only through the compacting
+    re-pack."""
+    from repro_torch.core import session_trace
+    sessions = [("a0", 0, 20_000_000), ("a1", 100, 5_000_000),
+                ("a2", 200, 20_000_000), ("a3", 300, 6_000_000),
+                ("w1", 8_000_000, 20_000_000)]
+    apps = serve_apps({"a0": "vecadd", "a1": "elemmul", "a2": "ttv",
+                       "a3": "mttkrp", "w1": SERVE_WIDE})
+    return session_trace(sessions, period=SERVE_PERIOD,
+                         name="wide_waves"), apps
+
+
+def churn_trace(n_sessions: int, seed: int):
+    """benchmarks/serve_online.py's ``churn_trace``: overlapping narrow and
+    wide tenants arriving and departing around the fabric's capacity."""
+    import random
+    from repro_torch.core import session_trace
+    rng = random.Random(seed)
+    bases = list(SERVE_NARROW) + [SERVE_WIDE]
+    names, sessions, t = {}, [], 0
+    for i in range(n_sessions):
+        base = rng.choice(bases)
+        name = f"{base}_s{i}"
+        names[name] = base
+        t += rng.randint(100_000, 400_000)
+        sessions.append((name, t, t + rng.randint(300_000, 1_500_000)))
+    return session_trace(sessions, period=SERVE_PERIOD,
+                         name=f"churn{seed}"), serve_apps(names)
+
+
+def soak_trace(n_sessions: int, seed: int):
+    """tests/test_sched.py's ``soak_trace``: overlapping random sessions of
+    the narrow sparse apps, the churn that evicts and readmits."""
+    import random
+    from repro_torch.core import session_trace
+    rng = random.Random(seed)
+    names, sessions, t = {}, [], 0
+    for i in range(n_sessions):
+        base = rng.choice(SERVE_NARROW)
+        name = f"{base}_s{i}"
+        names[name] = base
+        t += rng.randint(100_000, 400_000)
+        sessions.append((name, t, t + rng.randint(300_000, 1_200_000)))
+    return session_trace(sessions, period=SERVE_PERIOD,
+                         name=f"soak{seed}"), serve_apps(names)
+
+
+def serve_trace(trace, apps, cfg, svc) -> dict:
+    """``benchmarks/serve_online.py``'s ``run_trace`` through ``svc``:
+    online (``FabricScheduler.run``) and static (``evaluate_static``), each
+    seated compile recorded with its region and cap. Every readmitted
+    resident's compile is held to a fresh one with the same region and cap
+    (every seated compile with ``fresh="all"``)."""
+    from repro_torch.core import (FabricScheduler, evaluate_static,
+                                  sched_latency_weight)
+
+    seated = []
+
+    class Seats(FabricScheduler):
+        def _log(self, out, cycle, kind, app, **detail):
+            super()._log(out, cycle, kind, app, **detail)
+            moved = {"admit": [app], "readmit": [app],
+                     "repack": detail.get("moved", [])}.get(kind, [])
+            for n in moved:
+                res = self._residents[n]
+                seated.append((kind, n, res.region, res.cap_mw, res.result))
+
+    configs = {n: cfg for n in trace.arrivals}
+    weight = sched_latency_weight()
+    t0 = time.perf_counter()
+    online = Seats(service=svc, latency_weight=weight).run(
+        trace, apps, configs=configs)
+    t_online = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    static = evaluate_static(trace, apps, service=svc, configs=configs,
+                             latency_weight=weight)
+    t_static = time.perf_counter() - t0
+    wins = (online.objective > static.objective
+            or online.rejected < static.rejected)
+    return {"online": online, "static": static, "wins": wins,
+            "seconds": (t_online, t_static), "seated": seated}
+
+
+def check_seated(seated, kinds, cfg, fresh_compiler) -> int:
+    """Each seated compile of ``kinds`` equal byte for byte to a fresh
+    compile with the same region and cap; returns how many were held."""
+    from repro_torch.core import resident_config
+    n = 0
+    for kind, name, region, cap, served in seated:
+        if kind not in kinds:
+            continue
+        direct = fresh_compiler().compile(
+            served.app, resident_config(cfg, region, power_cap_mw=cap))
+        if result_bytes(direct) != result_bytes(served):
+            raise RuntimeError(f"multi serve: the {kind} compile of {name} "
+                               f"in {region} differs from a fresh compile")
+        n += 1
+    return n
+
+
+def phase_multi(dev, card: str) -> dict:
+    """Multi-app fabric sharing and online serving: packs on the host
+    backends and on the card's torch engines, each torch resident's design
+    through the sim kernels; the online scheduler against the static
+    packer; the LM blocks on the Amber array. Returns the sim kernels'
+    launches on this path, ``{"dense": (shared, global), "sparse": ...}``."""
+    from dataclasses import replace
+
+    from repro_torch.configs import ARCHS, cgra_amber
+    from repro_torch.core import (ALL_APPS, CascadeCompiler, CompileCache,
+                                  CompileService, Fabric, MultiAppSpec,
+                                  PassConfig, resident_config,
+                                  service_batch_window_s, service_max_batch,
+                                  validate_regions)
+    from repro_torch.core.lmmap import lower_block
+    from repro_torch.kernels.sim import sim_dense, sim_sparse
+
+    t_phase = time.perf_counter()
+
+    def fresh(**kw):
+        return CascadeCompiler(cache=CompileCache(),
+                               stage_cache=CompileCache(), **kw)
+
+    cfg = PassConfig.full(place_moves=MULTI_MOVES)
+    tcfg = replace(cfg, pnr_backend="torch", sta_backend="torch")
+
+    # 7e.1: benchmarks/multi_app.py's mixes on the host backends
+    host_packs = {}
+    for mix, names in MULTI_MIXES.items():
+        apps = [ALL_APPS[a] for a in names]
+        spec = MultiAppSpec.of(*apps, config=cfg)
+        packs, secs, methods = {}, {}, {}
+        for backend in ("thread", "process"):
+            c = fresh()
+            t0 = time.perf_counter()
+            packs[backend] = c.compile_multi(spec, verify=True,
+                                             backend=backend)
+            secs[backend] = time.perf_counter() - t0
+            methods[backend] = c.last_batch.get("start_method")
+        m = host_packs[mix] = packs["thread"]
+        validate_regions(c.fabric, list(m.regions.values()), list(m.regions))
+        c = fresh()
+        t0 = time.perf_counter()
+        serial = [c.compile(a, resident_config(cfg, m.regions[a.name]),
+                            verify=True) for a in apps]
+        secs["serial"] = time.perf_counter() - t0
+        if pack_bytes(packs["process"]) != pack_bytes(m) or [
+                result_bytes(r) for r in serial] != [
+                result_bytes(r) for r in m.results]:
+            raise RuntimeError(f"multi {mix}: the serial, thread and process "
+                               f"backends differ")
+        s = m.summary
+        log("multi", f"pack {mix} ({MULTI_MOVES} moves, verify=True): "
+            f"regions " + ", ".join(
+                f"{n} {r.rows}x{r.cols}@r{r.row0}c{r.col0}"
+                for n, r in sorted(m.regions.items()))
+            + f"; {s['freq_mhz']:.1f} MHz (limited by "
+            f"{s['freq_limited_by']}), shared flush register savings "
+            f"{m.flush.register_savings}, utilization "
+            f"{s['utilization']:.3f}; serial {secs['serial']:.3f} s, thread "
+            f"{secs['thread']:.3f} s, process {secs['process']:.3f} s (start "
+            f"method {methods['process']}); the three equal")
+    c = fresh()
+    app = ALL_APPS["unsharp"]
+    alone = c.compile(app, cfg, verify=True)
+    one = c.compile_multi(MultiAppSpec(jobs=((app, cfg),)), verify=True)
+    if not (one.results[0].cache_hit
+            and one.regions[app.name].covers(c.fabric)
+            and result_bytes(one.results[0]) == result_bytes(alone)):
+        raise RuntimeError("multi: a one-app pack in a full-fabric region "
+                           "is not compile()'s result")
+    log("multi", "a one-app pack (unsharp) in a full-fabric region == "
+        "compile() byte for byte (the same key: a cache hit)")
+
+    # 7e.2: packs on the card's torch engines; each resident's design
+    # through the sim kernels, counts from 0
+    for fn in (sim_dense, sim_sparse):
+        fn.launches = fn.shared_launches = fn.global_launches = 0
+    graphs = {"dense": 0, "sparse": 0}
+    for mix in MULTI_TORCH_MIXES:
+        apps = [ALL_APPS[a] for a in MULTI_MIXES[mix]]
+        c = fresh(device=dev)
+        t0 = time.perf_counter()
+        m = c.compile_multi(MultiAppSpec.of(*apps, config=tcfg),
+                            backend="thread")
+        secs = time.perf_counter() - t0
+        if m.regions != host_packs[mix].regions:
+            raise RuntimeError(f"multi torch {mix}: regions differ from the "
+                               f"host pack's")
+        parts = []
+        for r in m.results:
+            region = m.regions[r.app.name]
+            if r.pass_stats.get("region_fence", {}).get("region") != (
+                    region.row0, region.col0, region.rows, region.cols):
+                raise RuntimeError(f"multi torch {mix} {r.app.name}: no "
+                                   f"region fence check")
+            cost_t, cost_n, wl_t, wl_a = engine_bars(
+                c, r.app, resident_config(tcfg, region))
+            ok_t, ok_i, same = resident_streams(r)
+            kind = "sparse" if r.app.sparse else "dense"
+            graphs[kind] += RESIDENT_GRAPHS
+            if cost_t > 1.10 * cost_n or wl_t > wl_a or not (
+                    ok_t and ok_i and same):
+                raise RuntimeError(
+                    f"multi torch {mix} {r.app.name}: placer cost {cost_t} "
+                    f"(numpy {cost_n}), wirelength {wl_t} (A* {wl_a}), "
+                    f"equivalent {ok_t} (interpreter {ok_i}), streams "
+                    f"equal {same}")
+            parts.append(f"{r.app.name} fenced in {region.rows}x"
+                         f"{region.cols}@r{region.row0}c{region.col0}, "
+                         f"{r.sta.max_freq_mhz:.1f} MHz, placer cost "
+                         f"{cost_t / cost_n:.3f} x numpy's, wirelength "
+                         f"{wl_t} (A* {wl_a}), equivalent and streams == "
+                         f"the interpreter's")
+        log("multi", f"pack {mix} on the torch engines (pnr_backend="
+            f"sta_backend='torch', {MULTI_MOVES} moves, on the card): "
+            f"{secs:.3f} s; {m.summary['freq_mhz']:.1f} MHz; "
+            + "; ".join(parts))
+    launches = {"dense": (sim_dense.shared_launches,
+                          sim_dense.global_launches),
+                "sparse": (sim_sparse.shared_launches,
+                           sim_sparse.global_launches)}
+    if {k: sum(v) for k, v in launches.items()} != graphs or (
+            sim_dense.launches, sim_sparse.launches) != (graphs["dense"],
+                                                         graphs["sparse"]):
+        raise RuntimeError(f"multi: sim launches {launches}, want one a "
+                           f"graph {graphs}")
+    log("multi", f"sim kernel launches on this path: sim_dense "
+        f"{launches['dense']} (shared, global), sim_sparse "
+        f"{launches['sparse']}: one a graph simulated")
+
+    # 7e.3: benchmarks/serve_online.py's traces through one service each,
+    # online against static
+    svc_kw = dict(batch_window_s=service_batch_window_s(),
+                  max_batch=service_max_batch())
+    soak_fabric = Fabric(rows=8, cols=16, mem_col_stride=4,
+                         name="sched8x16")
+    legs = [("host, thread backend", wide_waves_trace(), cfg, {}),
+            ("host, thread backend", churn_trace(*SERVE_CHURN), cfg, {}),
+            ("host, process backend", wide_waves_trace(), cfg,
+             {"backend": "process"}),
+            ("torch engines on the card", wide_waves_trace(), tcfg,
+             {"device": dev}),
+            ("torch engines on the card", soak_trace(*SOAK_SESSIONS),
+             replace(tcfg, place_moves=SOAK_MOVES),
+             {"device": dev, "fabric": soak_fabric})]
+    outcomes = {}
+    for label, (trace, apps), leg_cfg, kw in legs:
+        soak = trace.name.startswith("soak")
+        svc = CompileService(**svc_kw, **kw).start()
+        try:
+            res = serve_trace(trace, apps, leg_cfg, svc)
+            stats = svc.stats()
+            lb = dict(svc.compiler.last_batch)
+        finally:
+            svc.stop()
+        on = res["online"]
+        # online must win on the benchmark's fragmentation traces; the
+        # soak is there to evict and readmit on the card
+        if not (on.evicted and on.readmitted if soak else res["wins"]):
+            raise RuntimeError(f"serve {trace.name} ({label}): "
+                               f"{on.summary()}")
+        device = kw.get("device")
+        kinds = ("admit", "readmit", "repack") if device else ("readmit",)
+        held = check_seated(res["seated"], kinds, leg_cfg,
+                            lambda: fresh(device=device,
+                                          fabric=kw.get("fabric")))
+        outcomes[(trace.name, label)] = res
+        on, st = res["online"].summary(), res["static"].summary()
+        log("serve", f"{trace.name} ({label}, {leg_cfg.place_moves} moves, "
+            f"{svc.compiler.fabric.name}): online "
+            f"admitted {on['admitted']}, readmitted {on['readmitted']}, "
+            f"evicted {on['evicted']}, repacks {on['repacks']}, rejected "
+            f"{on['rejected']}, objective {on['objective']}, "
+            f"{res['seconds'][0]:.3f} s wall; static admitted "
+            f"{st['admitted']}, rejected {st['rejected']}, objective "
+            f"{st['objective']}, {res['seconds'][1]:.3f} s wall; online "
+            f"{'wins' if res['wins'] else 'does not win'}; {held} {'/'.join(kinds)} compiles == fresh compiles "
+            f"with the same region and cap; service {stats['completed']} "
+            f"compiles, {stats['batches']} batches (largest "
+            f"{stats['largest_batch']}), {stats['dedup_inflight']} "
+            f"in-flight dedups; last batch {json.dumps(lb)}")
+    a, b = (outcomes[("wide_waves", f"host, {x} backend")]
+            for x in ("thread", "process"))
+    if [(json.dumps(o.events, sort_keys=True), o.objective)
+            for o in (a["online"], a["static"])] != [
+            (json.dumps(o.events, sort_keys=True), o.objective)
+            for o in (b["online"], b["static"])]:
+        raise RuntimeError("serve wide_waves: the process-backend service's "
+                           "outcome differs from the thread backend's")
+    # a burst the dispatch thread coalesces into one batch: one pool of
+    # spawned workers (CUDA is initialised in this process)
+    svc = CompileService(backend="process", **svc_kw)
+    burst = [ALL_APPS[a] for a in SERVE_NARROW]
+    tickets = [svc.submit(a, cfg) for a in burst]
+    t0 = time.perf_counter()
+    svc.start()
+    try:
+        got = [t.result(timeout=600) for t in tickets]
+        secs = time.perf_counter() - t0
+        lb = dict(svc.compiler.last_batch)
+    finally:
+        svc.stop()
+    want = [fresh().compile(a, cfg) for a in burst]
+    if lb.get("start_method") != "spawn" or lb.get("compiled") != len(
+            burst) or [result_bytes(r) for r in got] != [
+            result_bytes(r) for r in want]:
+        raise RuntimeError(f"serve burst: {lb}")
+    log("serve", f"a burst of {len(burst)} requests on the process-backend "
+        f"service: one batch from the dispatch thread in {secs:.3f} s, "
+        f"workers {lb['workers']}, start method {lb['start_method']}; "
+        f"results == serial compiles")
+
+    # 7e.4: benchmarks/lm_lowering.py's blocks on the Amber array
+    amber = dict(fabric=cgra_amber.make_fabric(),
+                 timing=cgra_amber.make_timing_model(),
+                 energy=cgra_amber.make_energy_params())
+    flows = (PassConfig.unpipelined, PassConfig.full)
+
+    def lm_rows(results, names):
+        return {n: (r0.sta.max_freq_mhz, r1.sta.max_freq_mhz,
+                    r0.sta.critical_path_ns / r1.sta.critical_path_ns,
+                    r0.power.edp_js / r1.power.edp_js)
+                for n, r0, r1 in zip(names, results[::2], results[1::2])}
+
+    c = CascadeCompiler(cache=CompileCache(), stage_cache=CompileCache(),
+                        **amber)
+    specs = {n: lower_block(a) for n, a in ARCHS.items()}
+    t0 = time.perf_counter()
+    res = c.compile_batch([(specs[n], f(place_moves=MULTI_MOVES))
+                           for n in ARCHS for f in flows])
+    secs = time.perf_counter() - t0
+    host = lm_rows(res, list(ARCHS))
+    for n, (unpip, pip, cp, edp) in host.items():
+        if not all(math.isfinite(x) and x > 0 for x in (unpip, pip, cp, edp)):
+            raise RuntimeError(f"lm {n}: {host[n]}")
+        log("lm", f"{n} ({ARCHS[n].family}, sparse path "
+            f"{int(specs[n].sparse)}) on {amber['fabric'].name}: unpip_mhz "
+            f"{unpip:.0f}, pip_mhz {pip:.0f}, cp_ratio {cp:.2f}, edp_ratio "
+            f"{edp:.2f}")
+    log("lm", f"{len(res)} block compiles through compile_batch on the host "
+        f"backends in {secs:.3f} s; last batch {json.dumps(c.last_batch)}")
+    ct = CascadeCompiler(cache=CompileCache(), stage_cache=CompileCache(),
+                         device=dev, **amber)
+    t0 = time.perf_counter()
+    res = ct.compile_batch([(specs[n], replace(
+        f(place_moves=MULTI_MOVES), pnr_backend="torch",
+        sta_backend="torch")) for n in LM_TORCH_ARCHS for f in flows],
+        backend="thread")
+    secs = time.perf_counter() - t0
+    for n, (unpip, pip, cp, edp) in lm_rows(res, LM_TORCH_ARCHS).items():
+        # the placer's bar holds; the wirelength against A*'s is a reading
+        # (the batched router is the reference's algorithm, held to A* on
+        # tests/test_torch_pnr.py's designs only)
+        bars = [engine_bars(ct, r.app, r.config) for r in res
+                if r.app.name == specs[n].name]
+        if any(ct_ > 1.10 * cn for ct_, cn, _, _ in bars):
+            raise RuntimeError(f"lm torch {n}: placer cost past its bar: "
+                               f"{bars}")
+        log("lm", f"{n} on the torch engines (card): unpip_mhz {unpip:.0f}, "
+            f"pip_mhz {pip:.0f}, cp_ratio {cp:.2f}, edp_ratio {edp:.2f} "
+            f"(host {host[n][2]:.2f}, {host[n][3]:.2f}); unpipelined, full: "
+            f"placer cost "
+            + ", ".join(f"{ct_ / cn:.3f}" for ct_, cn, _, _ in bars)
+            + " x numpy's; wirelength "
+            + ", ".join(f"{wt} (A* {wa})" for _, _, wt, wa in bars))
+    log("lm", f"{len(res)} block compiles on the torch engines in "
+        f"{secs:.3f} s")
+    log("multi", f"phase took {time.perf_counter() - t_phase:.1f} s on "
+        f"{card}")
+    return launches
+
+
+def print_ok() -> None:
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
 def main(argv) -> int:
-    if argv not in ([], ["--phase", "sim"]):
-        raise SystemExit("usage: python3 chip_smoke.py [--phase sim]")
+    if argv not in ([], ["--phase", "sim"], ["--phase", "multi"]):
+        raise SystemExit("usage: python3 chip_smoke.py [--phase sim|multi]")
     card = phase_device()
     # f32 comparisons run in full f32: no TF32 in matmuls or convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2450,12 +2949,17 @@ def main(argv) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     dev = torch.device("cuda")
     phase_build()
+    if argv == ["--phase", "multi"]:    # phases 1, 2, 7e
+        phase_multi(dev, card)
+        print_ok()
+        return 0
     if argv:                    # phases 1, 2, Table I on the host, 7c
         from repro_torch.core import CascadeCompiler
         _, table1, secs = table1_designs(CascadeCompiler())
         log("compile", f"Table I on the host in {secs:.2f} s")
         for e in phase_sim(dev, card, table1):
             log("sim", json.dumps(e))
+        print_ok()
         return 0
     decode = phase_kernels(dev)
     attn = phase_flash_attention(dev)
@@ -2469,6 +2973,11 @@ def main(argv) -> int:
     dev_runs = phase_engines(dev, card, table1)
     sim = phase_sim(dev, card, table1)
     phase_batch(dev, card, table1, dev_runs)
+    multi = phase_multi(dev, card)
+    for e in sim:             # the sim kernels' launches on both paths
+        kind = "dense" if e["name"].startswith("sim_dense") else "sparse"
+        e["launches"] += (multi[kind][1] if e["name"].endswith("_global")
+                          else sum(multi[kind]))
     maxplus = phase_maxplus(dev, path)
     stencil = phase_stencil(dev)
     maxplus["launches"], stencil["launches"] = mp_launches, st_launches
@@ -2477,9 +2986,7 @@ def main(argv) -> int:
     print(json.dumps({"kernels": [
         {k: e[k] for k in keys}
         for e in (decode, attn, maxplus, stencil, *sim)]}), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+    print_ok()
     return 0
 
 

@@ -7,7 +7,10 @@ register-insertion loop, the schedule/power reports, the interpreter
 simulator and ``CascadeCompiler`` with its compile and stage-artifact
 caches (``cache``), staged resume, ``compile_batch`` and the
 ``"power_capped"`` (``power_cap``) and ``"explore"`` (``explore``)
-schedules.  The
+schedules; multi-app fabric sharing (``multi``, ``compile_multi`` and the
+``"multi"`` schedules), traffic replay (``traffic``), the online compile
+service (``service``) and fabric scheduler (``sched``), and the LM-block
+lowering (``lmmap``).  The
 reference's jitted device engines are torch programs here: the lowered
 STA (``sta_vec``, ``sta_backend="numpy"``/``"torch"``), the
 parallel-tempering placer (``place_torch``) and the batched wavefront
@@ -21,6 +24,8 @@ Public API:
     Fabric, TimingModel, generate_timing_model
     DFG and the pipelining passes (compute/broadcast/post-PnR, matching)
     CascadeCompiler / PassConfig / CompileResult / compile_batch
+    MultiAppSpec / compile_multi / CompileService / FabricScheduler
+    TrafficTrace / replay
     CompileCache / DiskCache / compile_key / stage_key / StageArtifact
     power_capped_pipeline / ExploreSpec / ParetoFrontier
     DENSE_APPS / SPARSE_APPS / CONTROL_APPS benchmark suites
@@ -36,20 +41,30 @@ from .cache import (DEFAULT_CACHE, DEFAULT_STAGE_CACHE, CompileCache,
                     attach_stage_disk_cache, code_fingerprint, compile_key,
                     dfg_fingerprint, stage_key)
 from .compiler import (BATCH_BACKENDS, CACHED_STAGES, BatchCompileError,
-                       CascadeCompiler, CompileResult, PassConfig,
-                       compile_batch)
+                       CascadeCompiler, CompileResult, MultiAppSpec,
+                       PassConfig, compile_batch, compile_multi,
+                       resident_config)
 from .config import (PNR_BACKENDS, SIM_BACKENDS, STA_BACKENDS, cache_dir,
                      default_power_cap_mw, disk_cache_enabled, env_flag,
                      env_float, env_int, place_debug, pnr_backend,
-                     sim_backend, sta_backend, worker_count)
+                     sched_latency_weight, service_batch_window_s,
+                     service_max_batch, sim_backend, sta_backend,
+                     worker_count)
 from .dfg import DFG
 from .explore import (ExploreSpec, FrontierPoint, ParetoFrontier,
                       evaluate_candidate, explore_frontier, pareto_prune)
-from .flush import add_soft_flush, remove_flush
+from .flush import (SharedFlushReport, add_soft_flush,
+                    flush_network_registers, remove_flush, shared_flush,
+                    stateful_nodes)
 from .interconnect import Fabric, Hop, Region, SubFabric, Tile
-from .metrics import DesignMetrics, evaluate_design
+from .metrics import DesignMetrics, combine_metrics, evaluate_design
+from .multi import (MultiAppResult, PackingError, RectRequest, aligned_cols,
+                    assemble_pack, fabric_report, find_slot, fragmentation,
+                    free_area, pack_rects, pack_regions, region_request,
+                    repack_rects, sink_tiles_by_app, validate_regions)
 from .netlist import Netlist, RoutedDesign, extract_netlist
 from .passes import (CONFIG_FIELD_STAGE, DEFAULT_SCHEDULE, EXPLORE_SCHEDULE,
+                     MULTI_POWER_CAPPED_SCHEDULE, MULTI_SCHEDULE,
                      NAMED_SCHEDULES, PASS_REGISTRY, POWER_CAPPED_SCHEDULE,
                      STAGE_OF_PASS, STAGE_ORDER, CompileContext, Pass,
                      PassPipeline, StageArtifact, register_pass,
@@ -61,7 +76,11 @@ from .power import EnergyParams, PowerReport, power_report
 from .power_cap import (DesignCheckpoint, ParetoPoint, PowerCapResult,
                         evaluate_point, power_capped_pipeline)
 from .route import RouteParams, route
+from .sched import (POLICIES, FabricScheduler, Resident, ScheduleOutcome,
+                    compare_policies, evaluate_static)
 from .schedule import Schedule, schedule_round2
+from .service import (CompileService, ServiceCancelled, ServiceClosed,
+                      ServiceTicket, ServiceTimeout)
 from .sim import (clear_ref_memo, equivalent, output_latency, simulate,
                   simulate_sparse, sparse_equivalent)
 from .sim_vec import (DenseProgram, SimLoweringError, SparseProgram,
@@ -70,6 +89,9 @@ from .sim_vec import (DenseProgram, SimLoweringError, SparseProgram,
 from .sta import (STAReport, analyze, longest_path_maxplus,
                   sdf_simulate_fmax, timing_matrix)
 from .sta_vec import IncrementalSTA, LoweredSTA, analyze_vec, lower_design
+from .traffic import (AppTrafficStats, TrafficReport, TrafficTrace,
+                      flush_downtime_cycles, periodic_trace, poisson_trace,
+                      reconfig_cycles, replay, session_trace)
 from .timing_model import TECH_NS, TimingModel, generate_timing_model
 from .unroll import max_copies, subfabric_for
 
@@ -113,4 +135,20 @@ __all__ = [
     "SimLoweringError", "DenseProgram", "SparseProgram", "lower_dense",
     "lower_sparse", "simulate_dense_vec", "simulate_sparse_vec",
     "max_copies", "subfabric_for",
+    "MultiAppSpec", "MultiAppResult", "compile_multi", "PackingError",
+    "pack_regions", "region_request", "validate_regions",
+    "sink_tiles_by_app", "fabric_report", "RectRequest", "aligned_cols",
+    "find_slot", "pack_rects", "repack_rects", "free_area", "fragmentation",
+    "assemble_pack", "resident_config",
+    "CompileService", "ServiceTicket", "ServiceClosed", "ServiceCancelled",
+    "ServiceTimeout",
+    "FabricScheduler", "Resident", "ScheduleOutcome", "POLICIES",
+    "evaluate_static", "compare_policies",
+    "SharedFlushReport", "shared_flush", "flush_network_registers",
+    "stateful_nodes", "combine_metrics", "MULTI_SCHEDULE",
+    "MULTI_POWER_CAPPED_SCHEDULE",
+    "service_batch_window_s", "service_max_batch", "sched_latency_weight",
+    "TrafficTrace", "TrafficReport", "AppTrafficStats", "replay",
+    "periodic_trace", "poisson_trace", "session_trace",
+    "flush_downtime_cycles", "reconfig_cycles",
 ]

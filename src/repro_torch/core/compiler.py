@@ -17,9 +17,9 @@ second one, so a compile differing only in later knobs resumes from the
 deepest shared stage).  ``compile_batch()`` compiles many (app, config)
 pairs concurrently — across *processes* by default when more than one job
 misses the cache, since the SA place/route inner loop is pure Python and
-GIL-bound — deduplicating identical jobs through the cache.  The
-reference's multi-app driver (``compile_multi``) is a later slice of the
-port (``ROADMAP.md``).
+GIL-bound — deduplicating identical jobs through the cache.
+``compile_multi()`` packs several apps into disjoint regions of one shared
+fabric and compiles the residents through ``compile_batch``.
 """
 
 from __future__ import annotations
@@ -35,13 +35,16 @@ from typing import Dict, Iterable, List, Optional, Tuple, Union
 
 import torch
 
+from ..device import resolve_device
 from .apps import AppSpec
 from .cache import (DEFAULT_CACHE, DEFAULT_STAGE_CACHE, CompileCache,
                     app_fingerprint, compile_key, stage_key)
 from .config import worker_count
 from .explore import (ExploreSpec, ParetoFrontier, evaluate_candidate,
                       map_points_serial)
-from .interconnect import Fabric
+from .interconnect import Fabric, Region
+from .multi import (MultiAppResult, assemble_pack, pack_regions,
+                    validate_regions)
 from .netlist import Netlist, RoutedDesign, extract_netlist
 from .passes import (STAGE_ORDER, CompileContext, PassPipeline, StageArtifact,
                      resolve_schedule, stage_plan)
@@ -99,10 +102,15 @@ class PassConfig:
     #: schedule); ``None`` falls back to the single-point default spec.
     explore: Optional[ExploreSpec] = None
     #: Pass schedule: ``None`` -> default flow; a named schedule string
-    #: (``"default"`` / ``"power_capped"`` / ``"explore"``, see
-    #: ``repro_torch.core.passes.NAMED_SCHEDULES``); or an explicit tuple
-    #: of registered pass names.
+    #: (``"default"`` / ``"power_capped"`` / ``"explore"`` / ``"multi"``,
+    #: see ``repro_torch.core.passes.NAMED_SCHEDULES``); or an explicit
+    #: tuple of registered pass names.
     schedule: Union[str, Tuple[str, ...], None] = None
+    #: Rectangular sub-fabric this app owns on a shared, multi-app fabric
+    #: (``None`` = the whole fabric).  Set by ``compile_multi``; placement
+    #: site pools and routing edge costs never leave it, and it keys the
+    #: placed/routed stage artifacts (but not the shared ``mapped`` ones).
+    region: Optional[Region] = None
 
     @classmethod
     def unpipelined(cls, **kw) -> "PassConfig":
@@ -157,6 +165,79 @@ class CompileResult:
 #: One batch job: ``(app, config)`` — optionally ``(app, config, unroll)``.
 CompileJob = Union[Tuple[AppSpec, Optional[PassConfig]],
                    Tuple[AppSpec, Optional[PassConfig], Optional[int]]]
+
+
+@dataclass
+class MultiAppSpec:
+    """N co-resident applications to pack onto one shared fabric.
+
+    ``jobs`` are ordinary ``(app, config)`` pairs (``None`` config means
+    the default full flow); ``regions`` optionally pins each app to an
+    explicit :class:`~repro_torch.core.interconnect.Region` (parallel to
+    ``jobs``) instead of letting :func:`repro_torch.core.multi.pack_regions`
+    size and pack the strips automatically.
+    """
+
+    jobs: Tuple[Tuple[AppSpec, Optional[PassConfig]], ...]
+    regions: Optional[Tuple[Region, ...]] = None
+    name: str = "multi"
+
+    @classmethod
+    def of(cls, *apps: AppSpec, config: Optional[PassConfig] = None,
+           **kw) -> "MultiAppSpec":
+        """Spec from bare apps sharing one config (or the default)."""
+        return cls(jobs=tuple((a, config) for a in apps), **kw)
+
+    def normalized(self) -> List[Tuple[AppSpec, PassConfig]]:
+        for job in self.jobs:
+            # accept compile_batch-style (app, config, None) 3-tuples, but
+            # reject an actual unroll override the pack would ignore
+            if len(job) > 2 and job[2] is not None:
+                raise ValueError(
+                    f"MultiAppSpec jobs are (app, config) pairs; per-job "
+                    f"unroll overrides are not supported (got "
+                    f"unroll={job[2]!r} for {job[0].name!r}) — set "
+                    f"AppSpec.unroll instead")
+        out = [(job[0], (job[1] if len(job) > 1 and job[1] is not None
+                         else PassConfig()))
+               for job in self.jobs]
+        names = [app.name for app, _ in out]
+        if len(set(names)) != len(names):
+            raise ValueError(f"resident app names must be unique: {names}")
+        if self.regions is not None and len(self.regions) != len(out):
+            raise ValueError(
+                f"{len(self.regions)} explicit regions for {len(out)} apps")
+        for app, cfg in out:
+            if cfg.region is not None:
+                raise ValueError(
+                    f"{app.name}: PassConfig.region is assigned by "
+                    f"compile_multi — use MultiAppSpec.regions to pin one")
+            if cfg.schedule not in (None, "default", "multi"):
+                raise ValueError(
+                    f"{app.name}: compile_multi runs the 'multi' schedule "
+                    f"per resident; schedule={cfg.schedule!r} would be "
+                    f"silently discarded — leave it unset")
+        return out
+
+def resident_config(cfg: "PassConfig", region: Region,
+                    power_cap_mw: Optional[float] = None) -> "PassConfig":
+    """The config a pack resident actually compiles with.
+
+    Residents always harden their own flush (the pack provides the one
+    shared source; a mapped-stage soft flush keyed on region would alias
+    mapped artifacts) and run the ``"multi"`` schedule pinned to their
+    :class:`~repro_torch.core.interconnect.Region`.  With ``power_cap_mw`` the
+    resident runs ``"multi_power_capped"`` instead — same physical prefix
+    through the ``routed`` boundary, so re-capping an already-compiled
+    resident resumes from its routed stage artifact and only re-runs the
+    budgeted post-PnR pipelining.  Shared by ``compile_multi`` and the
+    online scheduler (:mod:`repro_torch.core.sched`).
+    """
+    if power_cap_mw is not None:
+        return dc_replace(cfg, region=region, schedule="multi_power_capped",
+                          harden_flush=True, power_cap_mw=power_cap_mw)
+    return dc_replace(cfg, region=region, schedule="multi",
+                      harden_flush=True)
 
 
 #: ``compile_batch`` backends.  "auto" picks "process" when more than one
@@ -522,6 +603,91 @@ class CascadeCompiler:
         return extract_netlist(art.state["graph"])
 
     # -- batch compile -----------------------------------------------------
+    def check_device(self, config: Optional[PassConfig]) -> None:
+        """Raise now if ``config`` runs a torch engine on a device that is
+        not there (the card without CUDA): the multi-app, service and
+        scheduler paths call it before any work, so a missing card is an
+        error up front, never a quiet fallback or a rejected admission."""
+        if config is not None and _runs_torch(config):
+            resolve_device(self.device)
+
+    # -- multi-app fabric sharing ------------------------------------------
+    def compile_multi(self, spec: Union[MultiAppSpec, Iterable[CompileJob]],
+                      verify: bool = False, use_cache: bool = True,
+                      backend: Optional[str] = None,
+                      max_workers: Optional[int] = None) -> MultiAppResult:
+        """Compile N apps into disjoint sub-fabrics of one shared fabric.
+
+        Each resident compiles through the ``"multi"`` named schedule with
+        its :class:`~repro_torch.core.interconnect.Region` in the config,
+        so its placement sites and routing edges never leave the window it
+        owns.
+        Resident configs are always hardened per-app (a co-resident does
+        not own a flush source; the pack provides the shared one), which
+        keeps ``region`` a pure placed-stage input — so a resident shares
+        ``mapped`` stage artifacts with the app's ordinary hardened
+        compiles (thread backend or warm in-memory/disk tiers; process
+        workers compile cold by design).  The residents then share exactly
+        one flush broadcast (:func:`repro_torch.core.flush.shared_flush`),
+        hardened when every resident's *requested* config hardens (paper
+        Section VI), and the fabric-level summary reports freq = min over
+        residents with power/EDP summed at that shared clock
+        (:func:`repro_torch.core.multi.fabric_report`).
+
+        A single app in a full-fabric region degenerates to an ordinary
+        ``compile()`` — same cache key, same metrics, byte-identical
+        result — so the multi driver is a strict superset of the
+        single-app flow.  (Its flush report is descriptive only: a soft
+        standalone compile already routes and times its own flush, so no
+        second model cap is applied.)  Per-app compiles go through
+        ``compile_batch`` (``backend``/``max_workers`` as there), so a
+        pack place-and-routes its residents on multiple cores.
+        """
+        if not isinstance(spec, MultiAppSpec):
+            # normalized() validates shape (incl. rejecting per-job unroll
+            # overrides) for both entry points
+            spec = MultiAppSpec(jobs=tuple(tuple(job) for job in spec))
+        jobs = spec.normalized()
+        for _, cfg in jobs:
+            self.check_device(cfg)
+        names = [app.name for app, _ in jobs]
+        passthrough = (len(jobs) == 1 and
+                       (spec.regions is None
+                        or spec.regions[0].covers(self.fabric)))
+        if passthrough:
+            app, cfg = jobs[0]
+            results = [self.compile(app, cfg, verify=verify,
+                                    use_cache=use_cache)]
+            regions = [Region.full(self.fabric)]
+        else:
+            if spec.regions is not None:
+                regions = list(spec.regions)
+            else:
+                # size against the graph the resident will actually place
+                # (hardened: no per-app __flush__ node) — this also warms
+                # exactly the mapped artifact the resident compile
+                # resumes from
+                requests = [(app.name,
+                             self.mapped_netlist(app, cfg,
+                                                 use_cache=use_cache))
+                            for app, cfg in jobs]
+                regions = pack_regions(self.fabric, requests)
+            validate_regions(self.fabric, regions, names)
+            rjobs = [(app, resident_config(cfg, r))
+                     for (app, cfg), r in zip(jobs, regions)]
+            results = self.compile_batch(rjobs, verify=verify,
+                                         use_cache=use_cache,
+                                         backend=backend,
+                                         max_workers=max_workers)
+        harden = all(cfg.harden_flush for _, cfg in jobs)
+        # a passthrough soft compile already routed + timed its own flush:
+        # tm=None keeps the model cap from double-charging it
+        return assemble_pack(spec.name, self.fabric, results,
+                             dict(zip(names, regions)),
+                             timing=None if passthrough else self.timing,
+                             energy=self.energy, harden=harden)
+
+    # -- batch compile -----------------------------------------------------
     def compile_batch(self, jobs: Iterable[CompileJob],
                       max_workers: Optional[int] = None,
                       verify: bool = False,
@@ -787,3 +953,12 @@ def compile_batch(jobs: Iterable[CompileJob],
                   **kw) -> List[CompileResult]:
     """Module-level convenience: batch-compile with a (fresh) compiler."""
     return (compiler or CascadeCompiler()).compile_batch(jobs, **kw)
+
+
+def compile_multi(spec: Union[MultiAppSpec, Iterable[CompileJob]],
+                  compiler: Optional[CascadeCompiler] = None,
+                  device=None, **kw) -> MultiAppResult:
+    """Module-level convenience: fabric-sharing compile with a (fresh)
+    compiler on ``device`` — see :meth:`CascadeCompiler.compile_multi`."""
+    return (compiler or CascadeCompiler(device=device)).compile_multi(
+        spec, **kw)

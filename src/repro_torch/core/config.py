@@ -26,6 +26,24 @@ The knobs of the compile flow and its driver:
                          "scalar", "numpy" or "torch".  Drivers copy it
                          into ``PassConfig.sta_backend``; the library never
                          reads it implicitly.
+    CASCADE_SERVICE_BATCH_WINDOW_MS
+                         how long the compile service's dispatcher holds
+                         the queue open after the first request of a
+                         batch, so concurrent arrivals coalesce into one
+                         ``compile_batch`` (default 5 ms).  Driver-side
+                         only: drivers pass it to the ``CompileService``
+                         constructor, the service never reads env vars.
+    CASCADE_SERVICE_MAX_BATCH
+                         upper bound on requests per dispatched service
+                         batch (default 8).  Driver-side only, as above.
+    CASCADE_SCHED_LATENCY_WEIGHT
+                         default latency weight of the traffic
+                         ``objective()`` the online scheduler admits by:
+                         requests/s of throughput one millisecond of mean
+                         latency is worth (default 1.0).  Driver-side
+                         only — drivers pass it into ``replay()`` /
+                         ``FabricScheduler``; the library default stays
+                         pinned at 1.0.
 
 Every place, route, STA and simulator backend runs in this package
 (``torch`` on the caller's device: the compiler's for place, route and
@@ -111,6 +129,38 @@ def env_int(name: str, default: Optional[int] = None) -> Optional[int]:
             f"falling back to default {default!r}",
             UserWarning, stacklevel=2)
         return default
+
+
+def service_batch_window_s(default: float = 0.005) -> float:
+    """Dispatcher batch window in *seconds* for the compile service
+    (``CASCADE_SERVICE_BATCH_WINDOW_MS``, milliseconds in the env).
+
+    Driver-side only: CLIs pass the value to the ``CompileService``
+    constructor — the service itself never reads the environment, so its
+    behaviour is fully determined by its arguments.
+    """
+    ms = env_float("CASCADE_SERVICE_BATCH_WINDOW_MS")
+    return default if ms is None else max(0.0, ms / 1e3)
+
+
+def service_max_batch(default: int = 8) -> int:
+    """Max requests per dispatched service batch
+    (``CASCADE_SERVICE_MAX_BATCH``), driver-side only; always >= 1."""
+    n = env_int("CASCADE_SERVICE_MAX_BATCH", default)
+    return max(1, n if n is not None else default)
+
+
+def sched_latency_weight(default: float = 1.0) -> float:
+    """Default objective latency weight for scheduler drivers
+    (``CASCADE_SCHED_LATENCY_WEIGHT``).
+
+    Driver-side only: benchmark CLIs pass it into ``replay()`` /
+    ``FabricScheduler`` — the library's own default stays pinned at 1.0
+    (regression-tested), so cached results and admission decisions never
+    depend on ambient environment state.
+    """
+    w = env_float("CASCADE_SCHED_LATENCY_WEIGHT", default)
+    return default if w is None else w
 
 
 def default_power_cap_mw(default: Optional[float] = None) -> Optional[float]:

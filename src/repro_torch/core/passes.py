@@ -23,8 +23,9 @@ whose config differs only in post-PnR knobs resumes from the cached routed
 design instead of repeating mapping/placement/routing — the mechanism
 behind the in-compile design-space exploration of
 :mod:`repro_torch.core.explore`.  The named schedules are ``"default"``,
-``"power_capped"`` and ``"explore"``; the reference's multi-app schedules
-and its region fence wait for the port's ``multi`` module.
+``"power_capped"``, ``"explore"`` and the multi-app ``"multi"`` and
+``"multi_power_capped"`` (a resident pinned to its region, with the
+region fence).
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ from .broadcast import broadcast_pipelining
 from .dfg import CONTROL_PORT, DFG, PRED_PORT
 from .explore import ExploreSpec, ParetoFrontier, PointMap, explore_frontier
 from .flush import add_soft_flush
-from .interconnect import Fabric
+from .interconnect import Fabric, Region, SubFabric
 from .metrics import DesignMetrics, evaluate_design
 from .netlist import Netlist, RoutedDesign, extract_netlist
 from .pipelining import compute_pipelining
@@ -186,12 +187,40 @@ EXPLORE_SCHEDULE = tuple(
     "pareto_frontier" if name == "post_pnr" else name
     for name in DEFAULT_SCHEDULE)
 
+#: The multi-app fabric-sharing flow (:mod:`repro_torch.core.multi`): the
+#: default schedule plus a report-stage fence check asserting no placed node
+#: or routed hop left the app's region.  The physical prefix (through the
+#: ``routed`` boundary) is pass-for-pass identical to the default schedule,
+#: so a region'd compile resumes from the *same* ``mapped`` stage artifacts
+#: an app's ordinary compiles already cached (``PassConfig.region`` is a
+#: ``placed``-stage field, so it keys the placed/routed artifacts but not
+#: the mapped ones).  The per-app soft-flush pass never runs for a pack
+#: resident — ``compile_multi`` hardens every resident config and
+#: provides the one shared flush source instead.
+_AFTER_MATCH = DEFAULT_SCHEDULE.index("match_check") + 1
+MULTI_SCHEDULE = (DEFAULT_SCHEDULE[:_AFTER_MATCH] + ("region_fence_check",)
+                  + DEFAULT_SCHEDULE[_AFTER_MATCH:])
+
+#: A pack resident under a power budget: the ``"multi"`` flow with the
+#: post-PnR register insertion replaced by ``power_capped_pipeline``.  The
+#: online scheduler (:mod:`repro_torch.core.sched`) re-runs residents
+#: through this when the *pack-level* cap is exceeded, handing each
+#: resident its share of the budget — the physical prefix through the
+#: ``routed`` boundary is pass-for-pass identical to ``"multi"``, so a
+#: re-capped resident resumes from the routed stage artifact its uncapped
+#: compile already cached and only repeats the budgeted pipelining.
+MULTI_POWER_CAPPED_SCHEDULE = tuple(
+    "power_capped_pipeline" if name == "post_pnr" else name
+    for name in MULTI_SCHEDULE)
+
 #: Declarative schedules by name — ``PassConfig.schedule`` may be one of
 #: these strings instead of an explicit pass-name tuple.
 NAMED_SCHEDULES: Dict[str, Sequence[str]] = {
     "default": DEFAULT_SCHEDULE,
     "power_capped": POWER_CAPPED_SCHEDULE,
     "explore": EXPLORE_SCHEDULE,
+    "multi": MULTI_SCHEDULE,
+    "multi_power_capped": MULTI_POWER_CAPPED_SCHEDULE,
 }
 
 
@@ -219,6 +248,7 @@ STAGE_OF_PASS: Dict[str, str] = {
     "power_capped_pipeline": "pipelined",
     "pareto_frontier": "pipelined",
     "match_check": "report",
+    "region_fence_check": "report",
     "sta": "report",
     "schedule_round2": "report",
     "power": "report",
@@ -251,6 +281,7 @@ CONFIG_FIELD_STAGE: Dict[str, str] = {
     "placement_gamma": "placed",
     "seed": "placed",
     "place_moves": "placed",
+    "region": "placed",              # first constrains placement sites
     "pnr_backend": "placed",         # kernels differ from placement on
     "pnr_replicas": "placed",
     "post_pnr_budget": "pipelined",
@@ -459,33 +490,78 @@ def _broadcast(ctx: CompileContext):
                gate=lambda ctx: (not ctx.config.harden_flush
                                  and not ctx.app.sparse))
 def _soft_flush(ctx: CompileContext):
-    """Software-routed flush broadcast baseline (Section VI)."""
+    """Software-routed flush broadcast baseline (Section VI).
+
+    The gate deliberately never consults ``config.region``: region is a
+    ``placed``-stage field, so a mapped-stage pass keying on it would
+    alias mapped stage artifacts between region'd and region-less
+    compiles.  ``compile_multi`` instead sets ``harden_flush=True`` on
+    every resident config — a co-resident app does not own a flush
+    source; the pack provides one *shared* broadcast spanning all
+    residents (:func:`repro_torch.core.flush.shared_flush`)."""
     ctx.require(graph=ctx.graph)
     return add_soft_flush(ctx.graph)
+
+
+def _stamp_window(nl, fabric: Fabric, region: Region) -> Region:
+    """The low-unrolling stamp window anchored at a region's origin.
+
+    Sizes the window against a fabric of the *region's* dimensions (same
+    column pattern — the packer stride-aligns ``col0``, so global MEM
+    columns land where the sizing assumes), then anchors it at the
+    region's north-west corner so the placement stays in global
+    coordinates inside the window the app owns.
+    """
+    probe = Fabric(rows=region.rows, cols=region.cols,
+                   mem_col_stride=fabric.mem_col_stride,
+                   tracks16=fabric.tracks16, tracks1=fabric.tracks1,
+                   name=fabric.name)
+    win = subfabric_for(nl, probe)
+    return Region(region.row0, region.col0, win.rows, win.cols)
 
 
 def _run_place(ctx: CompileContext):
     """Netlist extraction + criticality-driven placement (Eq. 1).
 
-    Low-unrolling duplication places one copy on the smallest sub-fabric
-    that holds it and stamps the rest across the fabric."""
+    With ``config.region`` set (multi-app fabric sharing) every site the
+    annealer may propose lies inside the app's region; low-unrolling
+    duplication stamps within the region instead of across the fabric.
+    """
     ctx.require(graph=ctx.graph)
     app, cfg = ctx.app, ctx.config
+    region = cfg.region
     ctx.source_dfg = ctx.graph.copy()
     nl = extract_netlist(ctx.graph)
-    if cfg.low_unroll_dup and not app.sparse:
+    if cfg.low_unroll_dup and not app.sparse and region is None:
         fabric = subfabric_for(nl, ctx.fabric)
         ctx.copies = min(ctx.copies, max_copies(nl, ctx.fabric, fabric))
+    elif (cfg.low_unroll_dup and not app.sparse
+          and region.col0 % ctx.fabric.mem_col_stride == 0):
+        win = _stamp_window(nl, ctx.fabric, region)
+        fabric = ctx.fabric.subregion(win)
+        ctx.copies = min(ctx.copies, max(1, (region.rows // win.rows)
+                                         * (region.cols // win.cols)))
     else:
-        fabric = ctx.fabric
-    tm = (ctx.timing if fabric is ctx.fabric
+        fabric = (ctx.fabric if region is None
+                  else ctx.fabric.subregion(region))
+        if region is not None:
+            # no stamp grid inside a stride-misaligned region: account for
+            # exactly the one placed copy rather than claiming phantom ones
+            ctx.copies = 1
+    # a SubFabric is a masked *view* of ctx.fabric (same global geometry),
+    # so its timing model is a value-identical subset of ctx.timing —
+    # regenerating one per resident would be pure waste; only the
+    # re-origined low-unroll window needs its own
+    tm = (ctx.timing if (fabric is ctx.fabric
+                         or isinstance(fabric, SubFabric))
           else generate_timing_model(fabric))
     pp = PlaceParams(alpha=cfg.placement_alpha, gamma=cfg.placement_gamma,
                      seed=cfg.seed, moves_per_node=cfg.place_moves,
                      backend=cfg.pnr_backend,
                      replicas=cfg.pnr_replicas or None)
     place_stats: dict = {}
-    placement = place(nl, fabric, pp, stats=place_stats, device=ctx.device)
+    placement = place(nl, fabric, pp, stats=place_stats, region=region,
+                      device=ctx.device)
     ctx.netlist, ctx.place_fabric, ctx.place_timing = nl, fabric, tm
     ctx.placement = placement
     return {"fabric": fabric.name, "copies": ctx.copies,
@@ -494,12 +570,15 @@ def _run_place(ctx: CompileContext):
 
 
 def _run_route(ctx: CompileContext):
-    """Tree routing with PathFinder-style overuse negotiation."""
+    """Tree routing with PathFinder-style overuse negotiation.
+
+    With ``config.region`` set, edges crossing the region boundary cost
+    ``inf`` — a resident's nets can never borrow a neighbour's tracks."""
     ctx.require(netlist=ctx.netlist, placement=ctx.placement,
                 place_fabric=ctx.place_fabric)
     design = route(ctx.netlist, ctx.placement, ctx.place_fabric,
                    RouteParams(backend=ctx.config.pnr_backend),
-                   device=ctx.device)
+                   region=ctx.config.region, device=ctx.device)
     design.unroll_copies = ctx.copies
     design.source_dfg = ctx.source_dfg
     ctx.design = design
@@ -516,8 +595,8 @@ register_pass("route", stats_key="route")(_run_route)
 @register_pass("pnr", stats_key="pnr")
 def _pnr(ctx: CompileContext):
     """Composite place+route — kept so explicit custom schedules written
-    against the pre-split flow keep working; the default schedule uses the
-    separate ``place`` / ``route`` passes."""
+    against the pre-split flow keep working; the named schedules use the
+    separate ``place`` / ``route`` passes (distinct stage boundaries)."""
     stats = _run_place(ctx)
     stats["route"] = _run_route(ctx)
     return stats
@@ -525,11 +604,17 @@ def _pnr(ctx: CompileContext):
 
 def _post_pnr_params(ctx: CompileContext) -> PostPnRParams:
     """The inner-loop parameters; the fabric-derived default register
-    budget is half the area of the placement fabric."""
+    budget scales with the area the app actually owns: the placed
+    window's region when one is set (multi-app sharing), the whole
+    placement fabric otherwise."""
     cfg = ctx.config
     budget = cfg.post_pnr_budget
     if budget is None:
-        budget = ctx.place_fabric.rows * ctx.place_fabric.cols // 2
+        pf = ctx.place_fabric
+        pf_region = getattr(pf, "region", None)
+        area = (pf_region.area() if pf_region is not None
+                else pf.rows * pf.cols)
+        budget = area // 2
     return PostPnRParams(max_iters=cfg.post_pnr_iters, register_budget=budget)
 
 
@@ -629,6 +714,29 @@ def _match_check(ctx: CompileContext):
             raise AssertionError(
                 f"{ctx.app.name}: predicated regions unbalanced after "
                 f"flow: " + "; ".join(problems))
+
+
+@register_pass("region_fence_check", stats_key="region_fence",
+               gate=lambda ctx: ctx.config.region is not None)
+def _region_fence_check(ctx: CompileContext):
+    """Invariant (multi-app fabric sharing): a co-resident app's design
+    must stay strictly inside the region it owns — no placed node and no
+    routed hop may touch a foreign sub-fabric's tiles."""
+    ctx.require(design=ctx.design)
+    region = ctx.config.region
+    design = ctx.design
+    stray_nodes = sorted(n for n, t in design.placement.items()
+                         if not region.contains(t))
+    stray_hops = sorted(
+        str(rb.branch.key) for rb in design.routes.values()
+        if any(not (region.contains(h.src) and region.contains(h.dst))
+               for h in rb.hops))
+    if stray_nodes or stray_hops:
+        raise AssertionError(
+            f"{ctx.app.name}: design escaped region {region}: "
+            f"nodes {stray_nodes[:5]}, routes {stray_hops[:5]}")
+    return {"nodes": len(design.placement), "routes": len(design.routes),
+            "region": (region.row0, region.col0, region.rows, region.cols)}
 
 
 def _metrics_of(ctx: CompileContext) -> DesignMetrics:

@@ -11,9 +11,11 @@ f32 within 2e-3, bf16 within rtol 1e-2 / atol 1e-3, max-plus bit for bit.
 The compiler's torch engines are held to the port's host engines: STA bit
 for bit, place and route by legality, determinism and A*'s wirelength.
 The simulator kernels are held to their plain versions on the card and to
-the numpy backend, bit for bit. The last tests run anywhere: without CUDA,
+the numpy backend, bit for bit. Two tests run anywhere: without CUDA,
 the torch engines and the torch sim backend raise unless the CPU was asked
-for.
+for. The last two hold a two-app pack on the torch engines on the card to
+its regions and its residents' streams to the interpreter's, and an
+evicted-then-readmitted resident's compile on the card to a fresh one.
 """
 
 import copy
@@ -504,3 +506,94 @@ def test_torch_sim_backend_raises_without_cuda_unless_cpu_asked(call,
         calls[call](backend="torch")
     assert (calls[call](backend="torch", device="cpu")
             == calls[call](backend="numpy"))
+
+
+# ---------------------------------------------------------------------------
+# multi-app fabric sharing and the online scheduler on the card
+# ---------------------------------------------------------------------------
+
+MULTI_TORCH = PassConfig.full(place_moves=20, pnr_backend="torch",
+                              sta_backend="torch")
+
+
+def _resident_streams(r):
+    """(verdict through the kernels, the interpreter's verdict, streams
+    through the kernels, the interpreter's streams) of one resident, with
+    the verify pass's inputs (64 tokens a stream for a sparse app)."""
+    from repro_torch.core import clear_ref_memo
+    ref, final = r.app.build(1), r.design.netlist.to_dfg()
+    rng = np.random.default_rng(0)
+    size, hi = (64, 0x10000) if r.app.sparse else (48, 255)
+    ins = {n: rng.integers(0, hi, size=size).tolist()
+           for n, nd in ref.nodes.items() if nd.kind == "input"}
+    out = []
+    for backend in ("torch", "interpreter"):
+        clear_ref_memo()
+        if r.app.sparse:
+            out.append((sparse_equivalent(ref, final, ins, backend=backend),
+                        simulate_sparse(final, ins, backend=backend)))
+        else:
+            out.append((equivalent(ref, final, ins, n=32, backend=backend),
+                        simulate(final, ins, 128, backend=backend)))
+    return out[0][0], out[1][0], out[0][1], out[1][1]
+
+
+@pytest.mark.requires_cuda
+def test_two_app_pack_on_the_card_fenced_and_simulates(card):
+    from repro_torch.core import CompileCache, MultiAppSpec
+    c = CascadeCompiler(cache=CompileCache(), stage_cache=CompileCache(),
+                        device="cuda")
+    m = c.compile_multi(MultiAppSpec.of(ALL_APPS["unsharp"],
+                                        ALL_APPS["vecadd"],
+                                        config=MULTI_TORCH),
+                        backend="thread")
+    sim_dense.launches = sim_sparse.launches = 0
+    for r in m.results:
+        region = m.regions[r.app.name]
+        assert "region_fence_check" in r.pass_stats["pipeline"]
+        assert all(region.contains(t) for t in r.design.placement.values())
+        for rb in r.design.routes.values():
+            assert all(region.contains(h.src) and region.contains(h.dst)
+                       for h in rb.hops)
+        ok_t, ok_i, got, want = _resident_streams(r)
+        assert ok_t is ok_i is True and got == want
+    # one launch a graph: source, design, design again for the streams
+    assert (sim_dense.launches, sim_sparse.launches) == (3, 3)
+
+
+@pytest.mark.requires_cuda
+def test_evict_and_readmit_on_the_card_byte_identical(card):
+    import json
+    from repro_torch.core import (CompileCache, CompileService,
+                                  FabricScheduler, resident_config,
+                                  session_trace)
+    narrow = Fabric(rows=8, cols=8, mem_col_stride=4, name="sched8x8")
+    trace = session_trace([("vecadd", 0, 10_000_000),
+                           ("elemmul", 100, None),
+                           ("ttv", 5_000_000, 30_000_000)],
+                          period=100_000, name="readmit")
+    seated = {}
+
+    class Audit(FabricScheduler):
+        def _compile_into(self, app, cfg, slot, *a):
+            ok = super()._compile_into(app, cfg, slot, *a)
+            if ok:
+                seated[app.name] = (slot, self._residents[app.name].result)
+            return ok
+
+    svc = CompileService(fabric=narrow, batch_window_s=0.0,
+                         device="cuda").start()
+    try:
+        out = Audit(service=svc, allow_evict=False).run(
+            trace, ALL_APPS, configs={n: MULTI_TORCH for n in trace.arrivals})
+    finally:
+        svc.stop()
+    assert out.rejected == 1 and out.readmitted == 1
+    region, served = seated["ttv"]
+    fresh = CascadeCompiler(fabric=narrow, cache=CompileCache(),
+                            stage_cache=CompileCache(), device="cuda")
+    direct = fresh.compile(ALL_APPS["ttv"],
+                           resident_config(MULTI_TORCH, region))
+    assert served.design.placement == direct.design.placement
+    assert (json.dumps(served.summary(), sort_keys=True)
+            == json.dumps(direct.summary(), sort_keys=True))

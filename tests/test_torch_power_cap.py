@@ -69,11 +69,15 @@ def test_named_schedule_resolution():
     assert resolve_schedule("default") == DEFAULT_SCHEDULE
     assert resolve_schedule("power_capped") == POWER_CAPPED_SCHEDULE
     assert resolve_schedule(("build", "pnr")) == ("build", "pnr")
-    # the reference's "multi" schedules wait for the port's multi module
-    assert set(NAMED_SCHEDULES) == {"default", "power_capped", "explore"}
+    assert set(NAMED_SCHEDULES) == {"default", "power_capped", "explore",
+                                    "multi", "multi_power_capped"}
+    # the capped schedules are their base flows with post_pnr swapped out
     assert POWER_CAPPED_SCHEDULE == tuple(
         "power_capped_pipeline" if n == "post_pnr" else n
         for n in DEFAULT_SCHEDULE)
+    assert NAMED_SCHEDULES["multi_power_capped"] == tuple(
+        "power_capped_pipeline" if n == "post_pnr" else n
+        for n in NAMED_SCHEDULES["multi"])
 
 
 def test_unknown_named_schedule_raises():
