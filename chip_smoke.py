@@ -3,6 +3,7 @@
     python3 chip_smoke.py               # every phase
     python3 chip_smoke.py --phase sim   # phases 1, 2, Table I on the host, 7c
     python3 chip_smoke.py --phase multi # phases 1, 2, 7e
+    python3 chip_smoke.py --phase families  # phases 1, 2, 4b
 
 Drives the port (``src/repro_torch``) only. Phases, each printing its own
 lines:
@@ -40,6 +41,30 @@ lines:
              count (all on the tensor cores) and its device kernels, prefill
              against the no-cache forward, and one decode step through the
              kernel against the einsum cache branch.
+4b. families — the six families beyond dense at full width through
+             ``repro_torch.launch.serve.serve`` (batch 4, prompt 128, 32
+             generated tokens, random weights from the seeds):
+             granite-moe-1b-a400m (24 layers), llama4-maverick-400b-a17b
+             (depth cut to 2: one dense and one MoE layer), rwkv6-7b (32),
+             zamba2-2.7b (54, the shared block 9 times), llama-3.2-vision-11b
+             (40 + 8 cross blocks, 1601 image tokens), whisper-small (12 +
+             12, 1500 frames). Each: prefill and decode tok/s, the decode
+             step beside the bytes it must move at 3.35 TB/s, peak memory,
+             flash_decode launches (= decode steps x self-attention layers,
+             by route) and flash_attention's (whisper's encoder, in each
+             prefill); one bf16 decode step through both cache branches
+             (printed). Then each family's flash_decode branch against its
+             einsum branch in f32 at full width and the serve depth; the
+             two attention kernels at the families' shapes against their
+             plain versions, timed beside bound and SDPA (flash_decode at
+             hd 80 / G 1 on CUDA cores, hd 64 / G 1 and G 2 and hd 128 /
+             G 5 on the tensor cores; flash_attention non-causal at S = 1500
+             and causal at granite's training shape); granite-moe trained
+             at full width and depth (4 steps of 2 x 4096 tokens: losses
+             finite, the router aux in the loss, launch count, step ms,
+             tok/s, model TFLOP/s, peak memory); zamba2's full-width
+             training refusing hd 80 before any launch; ``train --arch <a>
+             --smoke --steps 4`` for each of the six.
 5. profile — device time by kernel over two decode steps, the split and
              combine kernels of flash_decode wherever they rank.
 6. train   — llama3-8b at full width and 8 layers (random weights from a
@@ -245,6 +270,17 @@ SERVE_PERIOD, SERVE_CHURN = 100_000, (48, 3)
 # sessions of seed 1 (evicts, readmits and re-packs on the host engines)
 SOAK_SESSIONS, SOAK_MOVES = (6, 1), 20
 LM_TORCH_ARCHS = ("llama3-8b", "granite-moe-1b-a400m")
+# the families beyond dense (phase 4b): each served at the full width of a
+# shipped config at BATCH x PROMPT + GEN; llama4-maverick at depth 2 (one
+# dense and one MoE layer, one period of its interleave: 37 GB of bf16
+# weights, where its 48 layers would hold about 790 GB); granite-moe also
+# trained at full width and depth at the llama3 train cell's 2 x 4096 tokens
+FAMILY_ARCHS = ("granite-moe-1b-a400m", "llama4-maverick-400b-a17b",
+                "rwkv6-7b", "zamba2-2.7b", "llama-3.2-vision-11b",
+                "whisper-small")
+FULL_DEPTH = {"llama4-maverick-400b-a17b": 48}
+FAMILY_DEPTH = {"llama4-maverick-400b-a17b": 2}
+FAMILY_TRAIN = "granite-moe-1b-a400m"
 
 
 def log(phase: str, msg: str) -> None:
@@ -879,6 +915,481 @@ def phase_train_smoke(card: str) -> None:
         f"launches {want} = 4 steps x {want // 4} a step, all on the bf16 "
         f"tensor-core kernel at d = 16; losses "
         f"{[round(x, 4) for x in r.losses]}; {secs:.1f} s on {card}")
+
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: the families beyond dense
+
+
+def self_attention_layers(cfg) -> int:
+    """Self-attention applications in one token step of ``cfg``: one
+    flash_decode call each in a decode step."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.num_layers // (cfg.shared_attn_every or cfg.num_layers)
+    return cfg.num_layers
+
+
+def train_attention_launches(cfg) -> int:
+    """flash_attention launches one training step of ``cfg`` makes: one a
+    self-attention application, twice where remat="full" recomputes it in
+    backward (the layers the reference's remat wraps: not the hybrid's
+    shared block, the vlm's cross blocks or the MoE layers of an
+    interleave); cross-attention is the einsum."""
+    r = 2 if cfg.remat == "full" else 1
+    L = cfg.num_layers
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return self_attention_layers(cfg)
+    if cfg.family == "audio":
+        return r * ((cfg.encoder_layers or L) + L)
+    if cfg.family == "moe" and cfg.moe_layer_period > 1:
+        n_moe = L // cfg.moe_layer_period
+        return r * (L - n_moe) + n_moe
+    return r * L
+
+
+def tree_items(tree, pre=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from tree_items(v, f"{pre}{k}.")
+        else:
+            yield f"{pre}{k}", v
+
+
+def decode_floor_bytes(model, params, cache, pos: int, batch: int) -> int:
+    """Bytes one decode step at ``pos`` must move: each weight it reads once
+    (of the token table only the batch's rows; not whisper's encoder nor any
+    cross-attention K/V projection, whose outputs the cache holds; every
+    expert, which the reference's dense dispatch runs at capacity 1), the
+    self-attention K/V rows up to ``pos`` read and one row written, the
+    cross K/V read, the recurrent states read and written, the logits
+    written."""
+    cfg = model.cfg
+    total = 0
+    for name, t in tree_items(params):
+        parts = name.split(".")
+        if parts[0] in ("encoder", "enc_final_norm") or (
+                "xattn" in parts and parts[-1] in ("wk", "wv", "bk", "bv")):
+            continue
+        rows = batch if name == "embed.tok" else t.shape[0]
+        total += t[:rows].numel() * t.element_size()
+    for name, t in tree_items(cache):
+        parts = name.split(".")
+        if parts[-1] in ("k", "v") and parts[0] != "cross":
+            total += (pos + 2) * t[:, :, :, :1].numel() * t.element_size()
+        elif parts[-1] in ("k", "v"):
+            total += t.numel() * t.element_size()
+        else:
+            total += 2 * t.numel() * t.element_size()
+    return total + batch * cfg.padded_vocab * 2
+
+
+def clone_tree(tree):
+    return {k: clone_tree(v) if isinstance(v, dict) else v.clone()
+            for k, v in tree.items()}
+
+
+def family_config(arch: str):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if arch in FAMILY_DEPTH:
+        cfg = cfg.replace(num_layers=FAMILY_DEPTH[arch])
+    return cfg
+
+
+def serve_family(arch: str, card: str) -> tuple:
+    """One family at full width through ``serve.serve``: counts, readings,
+    and one bf16 decode step through both cache branches (printed)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.launch import serve
+    from repro_torch.models import LM
+
+    cfg = family_config(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in (flash_decode, flash_attention):
+        for name in ("launches", "tensor_core_launches",
+                     "cuda_core_launches"):
+            setattr(fn, name, 0)
+    flash_decode.device_launches = 0
+    t0 = time.perf_counter()
+    r = serve.serve(cfg, batch=BATCH, prompt_len=PROMPT, gen=GEN,
+                    device="cuda")
+    secs = time.perf_counter() - t0
+    fd = (flash_decode.launches, flash_decode.tensor_core_launches,
+          flash_decode.cuda_core_launches, flash_decode.device_launches)
+    fa = (flash_attention.launches, flash_attention.tensor_core_launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    m = r.model.cfg
+    calls = self_attention_layers(m)
+    want_fd = (GEN - 1) * calls
+    # whisper's encoder runs flash_attention in each of serve's two
+    # prefills (the untimed one and the timed one)
+    want_fa = 2 * m.encoder_layers if m.family == "audio" else 0
+    p = importlib.import_module(
+        "repro_torch.kernels.flash_decode.flash_decode").plan(
+        BATCH, m.num_kv_heads, m.num_heads // m.num_kv_heads, PROMPT + GEN,
+        m.resolved_head_dim, 2, 32,
+        torch.cuda.get_device_properties(0).multi_processor_count)
+    tc, n_split = p.tensor_cores, p.n_split
+    want = (want_fd, want_fd if tc else 0, 0 if tc else want_fd,
+            want_fd * (1 + (n_split > 1)))
+    if fd != want or fa != (want_fa, want_fa):
+        raise RuntimeError(f"{arch}: flash_decode (calls, tensor cores, CUDA "
+                           f"cores, device kernels) {fd}, want {want}; "
+                           f"flash_attention (calls, tensor cores) {fa}, "
+                           f"want {(want_fa, want_fa)}")
+    if r.tokens.shape != (BATCH, GEN) or not torch.isfinite(
+            r.logits.float()).all():
+        raise RuntimeError(f"{arch}: non-finite logits or a bad shape")
+    floor_ms = 1e3 * decode_floor_bytes(
+        r.model, r.params, r.cache, PROMPT + GEN // 2, BATCH) / HBM_BYTES_PER_S
+    step_ms = 1e3 * r.decode_s / r.decode_steps
+    n = m.param_count()
+    log("families", f"{arch} ({m.family}, {m.num_layers} layers"
+        + (f" of {FULL_DEPTH[arch]}, depth cut" if arch in FAMILY_DEPTH
+           else "")
+        + f", d_model {m.d_model}, {n / 1e9:.3f} B params): prefill "
+        f"{BATCH * PROMPT / r.prefill_s:.1f} tok/s ({1e3 * r.prefill_s:.2f} "
+        f"ms), decode {BATCH * r.decode_steps / r.decode_s:.1f} tok/s "
+        f"({step_ms:.2f} ms/step, weight-and-cache floor {floor_ms:.3f} ms "
+        f"at {HBM_BYTES_PER_S / 1e12:.2f} TB/s: {floor_ms / step_ms:.3f} of "
+        f"it), peak memory {peak:.2f} GiB, {secs:.1f} s in all, on {card}")
+    log("families", f"{arch}: flash_decode {fd[0]} calls = {GEN - 1} steps x "
+        f"{calls} self-attention layers on the "
+        f"{'tensor' if tc else 'CUDA'} cores (hd {m.resolved_head_dim}, G "
+        f"{m.num_heads // m.num_kv_heads}, n_split {n_split}), {fd[3]} "
+        f"device kernels; flash_attention {fa[0]} calls")
+
+    # bf16: one decode step from copies of the same cache through the
+    # kernel's branch and the einsum cache branch (a reading: rounding grows
+    # over depth)
+    if calls:
+        with torch.inference_mode():
+            batch = {"tokens": r.tokens[:, -1:]}
+            lf, _ = r.model.decode_step(r.params, batch, clone_tree(r.cache),
+                                        r.next_pos)
+            le, _ = LM(m.replace(use_flash=False)).decode_step(
+                r.params, batch, clone_tree(r.cache), r.next_pos)
+            d = (lf.float() - le.float()).abs()
+            log("families", f"{arch}: bf16 decode step, flash_decode vs "
+                f"einsum cache branch: max abs diff {d.max().item():.3g}, "
+                f"mean {d.mean().item():.3g}, logit std "
+                f"{le.float().std().item():.3g}")
+
+    def step():
+        with torch.inference_mode():
+            r.model.decode_step(r.params, {"tokens": r.tokens[:, -1:]},
+                                r.cache, r.next_pos)
+    device_profile("families", f"{arch}: 2 decode steps", step, reps=2,
+                   watch="flash_decode")
+    del r
+    torch.cuda.empty_cache()
+    return fd[0], fa[0]
+
+
+def family_branches(arch: str) -> None:
+    """The flash_decode branch against the einsum cache branch in f32, at
+    full width and the serve run's depth (maverick: 2 layers, 74 GB of f32
+    weights): prefill and one decode step on each model from its own f32
+    cache, weights drawn in f32 from the serve run's seed."""
+    from dataclasses import replace as dc_replace
+
+    from repro_torch.launch import serve
+    from repro_torch.models import LM
+    from repro_torch.models.params import init_params, map_defs
+
+    cfg = family_config(arch)
+    fl, es = LM(cfg.replace(use_flash=True)), LM(cfg.replace(use_flash=False))
+    if not self_attention_layers(cfg):
+        log("families", f"{arch}: no self-attention, no flash_decode branch "
+            f"to hold")
+        return
+    f32 = map_defs(lambda d: dc_replace(d, dtype=torch.float32),
+                   fl.param_defs())
+    params = init_params(f32, torch.Generator(device="cuda").manual_seed(0),
+                         torch.device("cuda"))
+    prompts = torch.randint(
+        0, cfg.vocab_size, (BATCH, PROMPT), device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(1))
+    batch = serve.prefill_batch(fl, prompts)
+    cdefs = map_defs(lambda d: dc_replace(d, dtype=torch.float32),
+                     fl.cache_defs(BATCH, PROMPT + 1))
+    out = {}
+    with torch.inference_mode():
+        for name, m in (("flash", fl), ("einsum", es)):
+            cache = init_params(cdefs, None, torch.device("cuda"))
+            lp, _ = m.prefill(params, batch, cache)
+            tok = {"tokens": torch.argmax(lp, -1)[:, None]} if not out \
+                else out["flash"][2]
+            ld, _ = m.decode_step(params, tok, cache, PROMPT)
+            out[name] = (lp, ld, tok)
+            del cache
+    tol = TOL[torch.float32]
+    errs = []
+    for i, what in ((0, "prefill"), (1, "decode step")):
+        a, b = out["flash"][i], out["einsum"][i]
+        torch.testing.assert_close(a, b, rtol=tol, atol=tol)
+        errs.append(f"{what} {(a - b).abs().max().item():.3g}")
+    log("families", f"{arch} f32 at full width, {cfg.num_layers} layers: "
+        f"flash_decode branch vs einsum cache branch, max abs err "
+        + ", ".join(errs) + f" (tol {tol})")
+    del params, out
+    torch.cuda.empty_cache()
+
+
+def family_kernel_shapes(dev) -> dict:
+    """The two attention kernels at the shapes the families give them,
+    against their plain versions, and timed beside their bounds and SDPA:
+    flash_decode at zamba2's hd 80 / G 1 (CUDA cores, 10 16-byte chunks a
+    row), whisper's hd 64 / G 1, granite-moe's hd 64 / G 2 and maverick's
+    hd 128 / G 5 (tensor cores);
+    flash_attention at whisper's encoder (non-causal, S = 1500, tails
+    masked on both axes) and granite's training shape (causal, G = 2)."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.flash_decode import flash_decode, flash_decode_ref
+    fd = importlib.import_module(
+        "repro_torch.kernels.flash_decode.flash_decode")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator(device=dev).manual_seed(5)
+    t = PROMPT + GEN
+    rows = {}
+    max_err = {"flash_decode": 0.0, "flash_attention": 0.0}
+    # (name, KV, G, hd, tensor cores)
+    for name, kv, g, hd, tc in (("zamba2", 32, 1, 80, False),
+                                ("whisper", 12, 1, 64, True),
+                                ("granite", 8, 2, 64, True),
+                                ("maverick", 8, 5, 128, True)):
+        def inputs(lens, sets=1):
+            return [tuple(torch.randn(s, generator=gen, device=dev).to(
+                torch.bfloat16) for s in ((len(lens), kv, g, hd),
+                                          (len(lens), kv, t, hd),
+                                          (len(lens), kv, t, hd)))
+                    + (torch.tensor(lens, dtype=torch.int32, device=dev),)
+                    for _ in range(sets)]
+        for lens in ([1, 37, 128, 160], [144] * 4, [160, 3, 129, 97]):
+            q, k, v, ln = inputs(lens)[0]
+            want = flash_decode_ref(q, k, v, ln).float()
+            for n_split in (None, 1, 7, -(-t // 32)):
+                p = fd.plan(len(lens), kv, g, t, hd, 2, 32, sms, n_split)
+                if p.tensor_cores != tc:
+                    raise RuntimeError(f"flash_decode {name}: route "
+                                       f"tensor_cores={p.tensor_cores}")
+                got = (flash_decode(q, k, v, ln) if n_split is None
+                       else fd._launch(q, k, v, ln, 32, p)).float()
+                torch.cuda.synchronize()
+                torch.testing.assert_close(got, want,
+                                           **KERNEL_TOL[torch.bfloat16])
+                err = (got - want).abs().max().item()
+                max_err["flash_decode"] = max(max_err["flash_decode"], err)
+            log("kernels", f"flash_decode bf16 {name} B=4 KV={kv} G={g} "
+                f"hd={hd} T={t} lengths={lens}: "
+                f"{'tensor' if tc else 'CUDA'} cores, n_split in (plan "
+                f"{fd.plan(4, kv, g, t, hd, 2, 32, sms).n_split}, 1, 7, "
+                f"{-(-t // 32)}): max abs err {err:.3g} (tol "
+                f"{KERNEL_TOL[torch.bfloat16]})")
+        arg_sets = inputs([144] * 4, sets=40)
+        masks = [(torch.arange(t, device=dev)[None, :] < a[3][:, None])
+                 [:, None, None, :] for a in arg_sets]
+        lib_sets = [a[:3] + (mk,) for a, mk in zip(arg_sets, masks)]
+        bound_ms, bound_by = decode_bound(*arg_sets[0][:2], arg_sets[0][3])
+        r = {"ms": time_ms(flash_decode, arg_sets, 400),
+             "plain_ms": time_ms(flash_decode_ref, arg_sets, 400),
+             "bound_ms": bound_ms, "bound_by": bound_by,
+             "library_ms": time_ms(sdpa_decode, lib_sets, 400)}
+        rows[f"flash_decode {name}"] = r
+        log("kernels", f"flash_decode bf16 {name} B=4 KV={kv} G={g} hd={hd} "
+            f"T={t} lengths=144: " + json.dumps(r) + f", roofline share "
+            f"{r['bound_ms'] / r['ms']:.3f}")
+        del arg_sets, lib_sets
+    for name, b, h, kv, s, causal in (("whisper encoder", 4, 12, 12, 1500,
+                                       False),
+                                      ("granite train", 2, 16, 8, 4096,
+                                       True)):
+        q, k, v = (torch.randn((b, s, heads, 64), generator=gen,
+                               device=dev).to(torch.bfloat16).transpose(1, 2)
+                   for heads in (h, kv, kv))
+        before = flash_attention.tensor_core_launches
+        got = flash_attention(q, k, v, causal=causal)
+        want = flash_attention_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        if flash_attention.tensor_core_launches != before + 1:
+            raise RuntimeError(f"flash_attention {name}: not on the tensor "
+                               f"cores")
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **KERNEL_TOL[torch.bfloat16])
+        err = (got.float() - want.float()).abs().max().item()
+        max_err["flash_attention"] = max(max_err["flash_attention"], err)
+        dense = [x.contiguous() for x in (q, k, v)]
+
+        def sdpa(q, k, v, causal=causal):
+            return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                  enable_gqa=True)
+        bound_ms, bound_by = attention_bound(q, k, causal)
+        r = {"ms": time_ms(lambda *a: flash_attention(*a, causal=causal),
+                           [(q, k, v)], 20),
+             "plain_ms": time_ms(lambda *a: flash_attention_plain(
+                 *a, causal=causal), [(q, k, v)], 4),
+             "bound_ms": bound_ms, "bound_by": bound_by,
+             "library_ms": time_ms(sdpa, [tuple(dense)], 20)}
+        rows[f"flash_attention {name}"] = r
+        log("attention", f"flash_attention bf16 {name} B={b} H={h} KV={kv} "
+            f"S={s} d=64 causal={causal}, model layout: max abs err "
+            f"{err:.3g} (tol {KERNEL_TOL[torch.bfloat16]}); " + json.dumps(r)
+            + f", roofline share {r['bound_ms'] / r['ms']:.3f}")
+        del q, k, v, got, want, dense
+        torch.cuda.empty_cache()
+    log("kernels", f"family shapes: max abs err {json.dumps(max_err)}")
+    return rows
+
+
+def train_family(card: str) -> int:
+    """granite-moe at full width and depth through ``train.train``: 4 steps
+    of 2 x 4096 tokens; the router aux in the loss checked on one batch."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import steps as S
+    from repro_torch.launch import train
+    from repro_torch.models import LM
+
+    cfg = get_config(FAMILY_TRAIN)
+    shape = ShapeSpec("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for name in ("launches", "tensor_core_launches", "cuda_core_launches"):
+        setattr(flash_attention, name, 0)
+    r = train.train(cfg, shape, steps=TRAIN_STEPS, device="cuda",
+                    log=lambda m: log("families", m))
+    got = (flash_attention.launches, flash_attention.tensor_core_launches)
+    want = TRAIN_STEPS * train_attention_launches(r.model.cfg)
+    if got != (want, want):
+        raise RuntimeError(f"{FAMILY_TRAIN} train: flash_attention (calls, "
+                           f"tensor cores) {got}, want {(want, want)}")
+    if len(r.losses) != TRAIN_STEPS or not all(
+            math.isfinite(x) for x in r.losses):
+        raise RuntimeError(f"{FAMILY_TRAIN} train losses: {r.losses}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step_s = sum(r.step_times[1:]) / len(r.step_times[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n_act = cfg.active_param_count()
+    data = SyntheticLMData(cfg, shape, device="cuda")
+    batch = data.batch(0)
+    params = r.state["params"]
+    with torch.no_grad():
+        loss = r.model.loss(params, batch).item()
+        base = LM(r.model.cfg.replace(router_aux_coef=0.0)).loss(
+            params, batch).item()
+        _, aux = r.model.forward(params, batch)
+    term = cfg.router_aux_coef * aux.item()
+    if not (math.isfinite(term) and term > 0
+            and abs(loss - base - term) <= 1e-3 * abs(loss)):
+        raise RuntimeError(f"{FAMILY_TRAIN}: loss {loss} - {base} without "
+                           f"the aux != {term}")
+    log("families", f"{FAMILY_TRAIN} train (full width and depth, "
+        f"{cfg.num_layers} layers, {cfg.param_count() / 1e9:.3f} B params, "
+        f"{n_act / 1e9:.3f} B active) {TRAIN_BATCH} x {TRAIN_SEQ} tokens: "
+        f"losses {[round(x, 4) for x in r.losses]}; step times (s) "
+        f"{[round(x, 4) for x in r.step_times]}; steps after the first "
+        f"{1e3 * step_s:.1f} ms, {tokens / step_s:.1f} tok/s, model "
+        f"{6 * n_act * tokens / step_s / 1e12:.1f} TFLOP/s (6 x active "
+        f"params x tokens), peak memory {peak:.2f} GiB, on {card}")
+    log("families", f"{FAMILY_TRAIN}: flash_attention {got[0]} calls = "
+        f"{TRAIN_STEPS} steps x {want // TRAIN_STEPS} (remat='full'), all on "
+        f"the tensor cores; the router aux term on step 0's batch "
+        f"{term:.6f} (loss {loss:.6f}, without it {base:.6f})")
+    opt_cfg = S.make_optimizer_config(cfg, total_steps=TRAIN_STEPS)
+    step_fn = S.make_train_step(r.model, opt_cfg)
+    state = {"s": r.state}
+
+    def one_step():
+        state["s"], _ = step_fn(state["s"], data.batch(TRAIN_STEPS))
+    device_profile("families", f"{FAMILY_TRAIN}: 1 train step", one_step,
+                   reps=1, watch="flash_attention")
+    del r, params, batch, state
+    torch.cuda.empty_cache()
+    return got[0]
+
+
+def zamba2_train_refusal() -> None:
+    """zamba2's head dim 80 is not one flash_attention takes: its training
+    forward raises before any launch, with no padding and no other route."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import LM
+
+    cfg = family_config("zamba2-2.7b").replace(num_layers=6, use_flash=True)
+    m = LM(cfg)
+    params = m.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+    toks = torch.zeros((1, 128), dtype=torch.long, device="cuda")
+    before = flash_attention.launches
+    try:
+        m.loss(params, {"tokens": toks, "labels": toks})
+    except ValueError as e:
+        if "head dims" not in str(e) or flash_attention.launches != before:
+            raise
+        log("families", f"zamba2-2.7b full-width training refuses, before "
+            f"any launch: {e}")
+    else:
+        raise RuntimeError("zamba2 trained at head dim 80")
+    del params
+    torch.cuda.empty_cache()
+
+
+def train_smoke_families(card: str) -> int:
+    """``train --arch <a> --smoke --steps 4`` for each family on the card."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import train
+
+    total = 0
+    for arch in FAMILY_ARCHS:
+        for name in ("launches", "tensor_core_launches",
+                     "cuda_core_launches"):
+            setattr(flash_attention, name, 0)
+        t0 = time.perf_counter()
+        r = train.main(["--arch", arch, "--smoke", "--steps", "4"])
+        secs = time.perf_counter() - t0
+        want = 4 * train_attention_launches(r.model.cfg)
+        got = (flash_attention.launches, flash_attention.tensor_core_launches)
+        if got != (want, want):
+            raise RuntimeError(f"train --smoke {arch}: flash_attention "
+                               f"(calls, tensor cores) {got}, want "
+                               f"{(want, want)}")
+        if len(r.losses) != 4 or not all(math.isfinite(x)
+                                         for x in r.losses):
+            raise RuntimeError(f"train --smoke {arch}: losses {r.losses}")
+        total += got[0]
+        log("families", f"train --smoke {arch}: losses "
+            f"{[round(x, 4) for x in r.losses]}, flash_attention {got[0]} "
+            f"calls on the tensor cores, {secs:.1f} s on {card}")
+        del r
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_families(dev, card: str) -> tuple:
+    """Phase 4b; returns (flash_decode, flash_attention) launches of its
+    main paths (serving the six, training granite, the train smokes) and
+    the kernels' rows at the families' shapes."""
+    t0 = time.perf_counter()
+    fd = fa = 0
+    for arch in FAMILY_ARCHS:
+        a, b = serve_family(arch, card)
+        fd, fa = fd + a, fa + b
+    for arch in FAMILY_ARCHS:
+        family_branches(arch)
+    rows = family_kernel_shapes(dev)
+    fa += train_family(card)
+    zamba2_train_refusal()
+    fa += train_smoke_families(card)
+    log("families", f"phase took {time.perf_counter() - t0:.1f} s on {card}")
+    return fd, fa, rows
 
 
 def check_adamw_step(model, state, batch, opt_cfg) -> None:
@@ -2940,8 +3451,10 @@ def print_ok() -> None:
 
 
 def main(argv) -> int:
-    if argv not in ([], ["--phase", "sim"], ["--phase", "multi"]):
-        raise SystemExit("usage: python3 chip_smoke.py [--phase sim|multi]")
+    if argv not in ([], ["--phase", "sim"], ["--phase", "multi"],
+                    ["--phase", "families"]):
+        raise SystemExit("usage: python3 chip_smoke.py "
+                         "[--phase sim|multi|families]")
     card = phase_device()
     # f32 comparisons run in full f32: no TF32 in matmuls or convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2951,6 +3464,10 @@ def main(argv) -> int:
     phase_build()
     if argv == ["--phase", "multi"]:    # phases 1, 2, 7e
         phase_multi(dev, card)
+        print_ok()
+        return 0
+    if argv == ["--phase", "families"]:     # phases 1, 2, 4b
+        phase_families(dev, card)
         print_ok()
         return 0
     if argv:                    # phases 1, 2, Table I on the host, 7c
@@ -2969,6 +3486,9 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     phase_train_smoke(card)
     torch.cuda.empty_cache()
+    fam_decode, fam_attn, _ = phase_families(dev, card)
+    decode["launches"] += fam_decode
+    attn["launches"] += fam_attn
     path, mp_launches, st_launches, table1 = phase_compile(dev, card)
     dev_runs = phase_engines(dev, card, table1)
     sim = phase_sim(dev, card, table1)

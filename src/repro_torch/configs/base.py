@@ -19,6 +19,10 @@ import math
 from dataclasses import dataclass, field
 from typing import Dict, Optional, Tuple
 
+# whisper's stub encoder memory: a fixed 1500 frames (the reference's
+# ``LM.frames_len``)
+AUDIO_FRAMES = 1500
+
 # ---------------------------------------------------------------------------
 # helpers
 

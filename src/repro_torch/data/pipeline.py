@@ -3,10 +3,13 @@
 
 The same numpy draws as the JAX package's ``SyntheticLMData`` (a
 ``SeedSequence([seed, step])`` generator, Zipf-like tokens by inverting a
-power-law CDF, labels the next-token shift), so for the same (seed, step)
-the port trains on exactly the reference's token arrays; a restarted run
-replays the stream it would have seen. Batches come back as int64 tensors on
-``device``. The reference's ``batch_specs`` / ``batch_logical_axes`` serve
+power-law CDF, labels the next-token shift; then, for vlm and audio models
+outside decode shapes, standard-normal ``image_embeds`` [B, num_image_tokens,
+D] or ``frames`` [B, 1500, D] drawn from the same generator and rounded to
+bf16), so for the same (seed, step) the port trains on exactly the
+reference's arrays; a restarted run replays the stream it would have seen.
+Batches come back on ``device``: tokens and labels as int64, the embeddings
+as bf16. The reference's ``batch_specs`` / ``batch_logical_axes`` serve
 its sharded dry run and are not ported.
 """
 
@@ -18,7 +21,7 @@ from typing import Dict, Optional, Union
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig, ShapeSpec
+from repro_torch.configs.base import AUDIO_FRAMES, ModelConfig, ShapeSpec
 from repro_torch.device import resolve_device
 
 
@@ -35,10 +38,6 @@ class SyntheticLMData:
 
     def batch(self, step: int) -> Dict[str, torch.Tensor]:
         """The full global batch for ``step``."""
-        if self.cfg.family in ("vlm", "audio"):
-            raise NotImplementedError(
-                f"{self.cfg.family} inputs are not ported yet (ROADMAP: LM "
-                "substrate queue)")
         rng = self._rng(step)
         b, s = self.shape.global_batch, self.shape.seq_len
         v = self.cfg.vocab_size
@@ -48,6 +47,15 @@ class SyntheticLMData:
         dev = resolve_device(self.device)
         toks = torch.from_numpy(toks).to(dev)
         out = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        stub = {"vlm": ("image_embeds", self.cfg.num_image_tokens),
+                "audio": ("frames", AUDIO_FRAMES)}.get(self.cfg.family)
+        if stub is not None and self.shape.kind != "decode":
+            name, n = stub
+            # numpy's f32 -> bf16 cast (ml_dtypes) and torch's both round to
+            # nearest even: the reference's bytes
+            emb = rng.standard_normal((b, n, self.cfg.d_model),
+                                      dtype=np.float32)
+            out[name] = torch.from_numpy(emb).to(dev).to(torch.bfloat16)
         if self.shape.kind == "decode":
             out = {"tokens": out["tokens"][:, :1]}
         return out

@@ -3,12 +3,15 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
         --batch 4 --prompt-len 128 --gen 32
 
-Runs on the card unless ``--device cpu`` is given; ``--smoke`` uses the
-reduced config. The model is served as ``cfg.replace(use_flash=True)``, so
-every decode step runs attention through the ``flash_decode`` kernel.
-Weights and prompts are random, drawn from seeded generators on the device.
-Decoding is greedy; ``--temperature`` is accepted and ignored, as in the JAX
-package's driver.
+Any of the ten archs (``--arch``); runs on the card unless ``--device cpu``
+is given; ``--smoke`` uses the reduced config. The model is served as
+``cfg.replace(use_flash=True)``, so every decode step runs its
+self-attention through the ``flash_decode`` kernel (and whisper's encoder,
+in prefill, through ``flash_attention``). Weights and prompts are random,
+drawn from seeded generators on the device; vlm and audio prompts come with
+the reference driver's stub inputs, ``0.1 * ones`` bf16 ``image_embeds``
+[B, num_image_tokens, D] and ``frames`` [B, 1500, D]. Decoding is greedy;
+``--temperature`` is accepted and ignored, as in the JAX package's driver.
 """
 
 from __future__ import annotations
@@ -16,16 +19,17 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import torch
 
 from repro_torch.configs import ARCHS, get_config
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import AUDIO_FRAMES, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.launch import steps as S
 from repro_torch.models import LM
 from repro_torch.models.params import Tree
+from repro_torch.optim.adamw import tree_leaves
 
 
 @dataclasses.dataclass
@@ -47,12 +51,32 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def prefill_batch(model: LM, prompts: torch.Tensor
+                  ) -> Dict[str, torch.Tensor]:
+    """The prompts with the reference driver's stub inputs of vlm and audio
+    models (``src/repro/launch/serve.py``)."""
+    cfg = model.cfg
+    b, dev = prompts.shape[0], prompts.device
+    batch = {"tokens": prompts}
+    if cfg.family == "vlm":
+        batch["image_embeds"] = 0.1 * torch.ones(
+            (b, cfg.num_image_tokens, cfg.d_model), dtype=torch.bfloat16,
+            device=dev)
+    if cfg.family == "audio":
+        batch["frames"] = 0.1 * torch.ones(
+            (b, AUDIO_FRAMES, cfg.d_model),
+            dtype=torch.bfloat16, device=dev)
+    return batch
+
+
 def serve(cfg: ModelConfig, *, batch: int, prompt_len: int, gen: int,
           device=None) -> Served:
     """Random-init ``cfg`` (seed 0), prefill ``batch`` random prompts (seed
     1), decode ``gen`` tokens greedily. The prefill is run once untimed
     first, and the first decode step is left out of ``decode_s``, so both
-    times exclude one-time set-up (the kernel's build at first use included)."""
+    times exclude one-time set-up (the kernel's build at first use
+    included). The cache is zeroed before the timed prefill: prefill starts
+    recurrent states from the cache's, as in the reference."""
     dev = resolve_device(device)
     model = LM(cfg.replace(use_flash=True))
     params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
@@ -63,10 +87,13 @@ def serve(cfg: ModelConfig, *, batch: int, prompt_len: int, gen: int,
         0, cfg.vocab_size, (batch, prompt_len), device=dev,
         generator=torch.Generator(device=dev).manual_seed(1))
 
-    prefill(params, {"tokens": prompts}, cache)
+    batch0 = prefill_batch(model, prompts)
+    prefill(params, batch0, cache)
+    for t in tree_leaves(cache):
+        t.zero_()
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = prefill(params, {"tokens": prompts}, cache)
+    logits, cache = prefill(params, batch0, cache)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
 
@@ -107,8 +134,9 @@ def main(argv: Optional[List[str]] = None) -> Served:
     r = serve(cfg, batch=b, prompt_len=plen, gen=gen, device=args.device)
 
     gen_toks = b * r.decode_steps
-    print(f"[serve] {cfg.name} on {args.device}: prefill {b}x{plen} in "
-          f"{r.prefill_s:.3f}s ({b * plen / max(r.prefill_s, 1e-9):.0f} tok/s)")
+    print(f"[serve] {cfg.name} ({cfg.family}) on {args.device}: prefill "
+          f"{b}x{plen} in {r.prefill_s:.3f}s "
+          f"({b * plen / max(r.prefill_s, 1e-9):.0f} tok/s)")
     print(f"[serve] decode {gen_toks} tokens ({r.decode_steps} steps after the "
           f"first) in {r.decode_s:.3f}s "
           f"({gen_toks / max(r.decode_s, 1e-9):.1f} tok/s)")

@@ -1,18 +1,22 @@
-"""Training driver: the fault-tolerant loop over the llama-family train step.
+"""Training driver: the fault-tolerant loop over the train step of any arch.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b \
         --shape train_4k --steps 100 [--smoke] [--ckpt-dir /path] \
         [--fail-at 30,60] [--resume] [--device cpu]
 
-Runs on the card unless ``--device cpu`` is given; ``--smoke`` uses the
-reduced config at 4 x 128 tokens. The model is trained as
-``cfg.replace(use_flash=True)``, so every layer's forward attention runs the
-``flash_attention`` kernel (its backward goes through the plain version).
-Weights are random, drawn from a seeded generator on the device; batches
-come from ``SyntheticLMData`` (seed 0). ``--lr`` is accepted and ignored,
-as in the JAX package's driver (the schedule's peak is the optimizer's
-default). The reference's ``--multi-pod`` (its production mesh over pods)
-is left out: the port runs on one card.
+Any of the ten archs (``--arch``); runs on the card unless ``--device cpu``
+is given; ``--smoke`` uses the reduced config at 4 x 128 tokens. The model
+is trained as ``cfg.replace(use_flash=True)``, so every layer's forward
+self-attention runs the ``flash_attention`` kernel (its backward goes
+through the plain version; cross-attention stays the einsum, as in the
+reference); the kernel takes head dims 16, 32, 64 and 128, so zamba2 (80)
+trains at ``--smoke`` only and raises at full width. Weights are random,
+drawn from a seeded generator on the device; batches come from
+``SyntheticLMData`` (seed 0), with its ``image_embeds`` / ``frames`` for
+vlm and audio models; the loss carries MoE models' router aux. ``--lr`` is
+accepted and ignored, as in the JAX package's driver (the schedule's peak
+is the optimizer's default). The reference's ``--multi-pod`` (its
+production mesh over pods) is left out: the port runs on one card.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Transformer building blocks of the dense serving path.
+"""Transformer building blocks of every family's serving and training path.
 
 Every layer is a plain function over a params subtree (a dict of tensors built
 from the matching ``*_defs`` builder), with the JAX package's layouts and
@@ -14,7 +14,12 @@ Attention runs one of five ways:
   (``"flash"``, the training path), online softmax over 512-row blocks in
   plain torch (``"blockwise"``) or the full-score einsum (``"einsum"``).
 
-MoE is not ported yet (ROADMAP: the LM substrate queue).
+Cross-attention (``memory=``) takes keys and values from the memory and
+ropes neither side. MoE is the reference's capacity-based grouped routing:
+an f32 router, top-k with renormalised gates, a stable sort of the
+(token, choice) pairs by expert into a dense [B, E, capacity, D] block
+(pairs past an expert's capacity are dropped), the experts' SwiGLU as
+batched products, and a token-side gather to combine.
 """
 
 from __future__ import annotations
@@ -164,38 +169,58 @@ def _blockwise_attention(q, k, v, *, causal: bool, bq: int = 512,
     return torch.cat(blocks, dim=1)[:, :sq].to(q.dtype)
 
 
-def attention(p: Tree, x: torch.Tensor, cfg, *, positions: torch.Tensor,
-              causal: bool = True, cache: Optional[Tree] = None,
-              cache_pos: Optional[int] = None, impl: str = "einsum"
-              ) -> Tuple[torch.Tensor, Optional[Tree]]:
-    """Self-attention (causal unless ``causal=False``) with an optional KV
-    cache.
+def cache_attention(qg: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Attention in f32 directly in cache layout: q [B, S, KV, G, hd]
+    against K/V [B, KV, T, hd] (transposing a full cache would read and
+    write it twice per step), the keys limited by ``mask`` [S, T] where
+    given. Returns [B, S, KV, G, hd] in q's dtype."""
+    sc = torch.einsum("bskgd,bktd->bkgst", qg.float(),
+                      ck.float()) / math.sqrt(qg.shape[-1])
+    if mask is not None:
+        sc = sc.masked_fill(~mask, _NEG_INF)
+    pr = torch.softmax(sc, dim=-1)
+    return torch.einsum("bkgst,bktd->bskgd", pr, cv.float()).to(qg.dtype)
 
-    x: [B, S, D]. cache: dict with "k"/"v" [B, KV, S_max, hd], written in
-    place at ``cache_pos`` (the reference's ``dynamic_update_slice`` returns
-    a new cache; updating in place saves a copy of the whole cache per
-    step). Returns (y [B, S, D], the cache or None).
+
+def attention(p: Tree, x: torch.Tensor, cfg, *, positions: torch.Tensor,
+              causal: bool = True, memory: Optional[torch.Tensor] = None,
+              cache: Optional[Tree] = None, cache_pos: Optional[int] = None,
+              impl: str = "einsum") -> Tuple[torch.Tensor, Optional[Tree]]:
+    """Self- or cross-attention, the former with an optional KV cache.
+
+    x: [B, S, D]. memory: [B, T, D] for cross-attention (keys and values
+    come from it, and neither q nor k is rope'd); it takes no cache (decode
+    reads precomputed cross K/V). cache: dict with "k"/"v" [B, KV, S_max,
+    hd], written in place at ``cache_pos`` (the reference's
+    ``dynamic_update_slice`` returns a new cache; updating in place saves a
+    copy of the whole cache per step). Returns (y [B, S, D], the cache or
+    None).
     """
+    if memory is not None and cache is not None:
+        raise ValueError("cross-attention takes no cache")
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     hq, hkv = cfg.num_heads, cfg.num_kv_heads
     g = hq // hkv
 
+    src = x if memory is None else memory
     q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    k = src @ p["wk"]
+    v = src @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = q.reshape(b, s, hq, hd)
-    k = k.reshape(b, s, hkv, hd)
-    v = v.reshape(b, s, hkv, hd)
+    k = k.reshape(b, src.shape[1], hkv, hd)
+    v = v.reshape(b, src.shape[1], hkv, hd)
 
-    q = rope(q, positions, cfg.rope_theta)
-    if cache is None:
-        kpos = positions
-    else:
-        kpos = (cache_pos + torch.arange(s, device=x.device))[None, :]
-    k = rope(k, kpos, cfg.rope_theta)
+    if memory is None:
+        q = rope(q, positions, cfg.rope_theta)
+        if cache is None:
+            kpos = positions
+        else:
+            kpos = (cache_pos + torch.arange(s, device=x.device))[None, :]
+        k = rope(k, kpos, cfg.rope_theta)
 
     qg = q.reshape(b, s, hkv, g, hd)
     if cache is not None:
@@ -213,18 +238,12 @@ def attention(p: Tree, x: torch.Tensor, cfg, *, positions: torch.Tensor,
                           device=x.device)
         out = flash_decode(qg[:, 0], ck, cv, lens)[:, None]   # [B,1,KV,G,hd]
     elif cache is not None:
-        # attention directly in cache layout [B, KV, T, hd]: transposing
-        # the full cache would read and write it twice per step
-        sc = torch.einsum("bskgd,bktd->bkgst", qg.float(),
-                          ck.float()) / math.sqrt(hd)
         rows = cache_pos + torch.arange(s, device=x.device)[:, None]
         cols = torch.arange(t, device=x.device)[None, :]
         mask = cols < cache_pos + s                      # frontier
         if causal:
             mask = mask & (rows >= cols)
-        sc = sc.masked_fill(~mask, _NEG_INF)
-        pr = torch.softmax(sc, dim=-1)
-        out = torch.einsum("bkgst,bktd->bskgd", pr, cv.float()).to(x.dtype)
+        out = cache_attention(qg, ck, cv, mask)
     elif impl == "flash":
         # [B, S, H, hd] seen as [B, H, S, hd] through strides: the kernel
         # reads and writes the model's layout, and its output transposed
@@ -248,22 +267,125 @@ def attention(p: Tree, x: torch.Tensor, cfg, *, positions: torch.Tensor,
 # MLP
 
 
-def mlp_defs(cfg, layers: int = 0) -> Tree:
+def mlp_defs(cfg, gated: bool = True, layers: int = 0) -> Tree:
     d, f = cfg.d_model, cfg.d_ff
     pre = (layers,) if layers else ()
-    return {
+    out = {
         "w_up": ParamDef(pre + (d, f)),
         "w_down": ParamDef(pre + (f, d),
                            scale=1.0 / max(1, 2 * cfg.num_layers) ** 0.5),
-        "w_gate": ParamDef(pre + (d, f)),
     }
+    if gated:
+        out["w_gate"] = ParamDef(pre + (d, f))
+    return out
 
 
 def mlp(p: Tree, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU in the activation dtype: silu(x @ w_gate) * (x @ w_up)."""
+    """In the activation dtype: SwiGLU, silu(x @ w_gate) * (x @ w_up), or
+    without ``w_gate`` gelu(x @ w_up) in the tanh approximation (the
+    default of the reference's ``jax.nn.gelu``)."""
     up = x @ p["w_up"]
-    h = F.silu(x @ p["w_gate"]) * up
+    if "w_gate" in p:
+        h = F.silu(x @ p["w_gate"]) * up
+    else:
+        h = F.gelu(up, approximate="tanh")
     return h @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# MoE (capacity-based grouped routing, gather-only dataflow)
+
+
+def moe_defs(cfg, layers: int = 0) -> Tree:
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+    pre = (layers,) if layers else ()
+    return {
+        "router": ParamDef(pre + (d, e), dtype=torch.float32),
+        "w_gate": ParamDef(pre + (e, d, f)),
+        "w_up": ParamDef(pre + (e, d, f)),
+        "w_down": ParamDef(pre + (e, f, d),
+                           scale=1.0 / max(1, 2 * cfg.num_layers) ** 0.5),
+    }
+
+
+def moe_capacity(cfg, s: int) -> int:
+    """Slots an expert has per sequence: ceil(s * k / e * capacity_factor)."""
+    return int(math.ceil(s * cfg.experts_per_token / cfg.num_experts
+                         * cfg.capacity_factor))
+
+
+def moe_route(p: Tree, x: torch.Tensor, cfg
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The router: an f32 softmax over experts, the top k with their gates
+    renormalised, and the Switch load-balance loss over the first choice
+    (e * sum_e f_e * p_e). Returns (gates [B,S,k] f32, choice [B,S,k],
+    aux)."""
+    e, k = cfg.num_experts, cfg.experts_per_token
+    probs = torch.softmax(x.float() @ p["router"], dim=-1)      # [B,S,E]
+    gates, choice = torch.topk(probs, k, dim=-1)
+    gates = gates / gates.sum(-1, keepdim=True).clamp(min=1e-9)
+    density = F.one_hot(choice[..., 0], e).float().mean(dim=(0, 1))
+    aux = e * (density * probs.mean(dim=(0, 1))).sum()
+    return gates, choice, aux
+
+
+def moe_dispatch(ids: torch.Tensor, e: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                            torch.Tensor]:
+    """Pseudo-tokens ids [B, T] (token-major expert choices) sorted by
+    expert, stably, so that each expert keeps its earliest tokens. Returns
+    (order [B,T], counts [B,E], starts [B,E], rank [B,T]): the sort, the
+    tokens an expert got, where its group starts in the sort, and each
+    pseudo-token's place within its expert's group."""
+    b, t = ids.shape
+    order = torch.argsort(ids, dim=1, stable=True)
+    counts = torch.zeros((b, e), dtype=ids.dtype, device=ids.device)
+    counts.scatter_add_(1, ids, torch.ones_like(ids))
+    starts = counts.cumsum(1) - counts
+    rank_sorted = (torch.arange(t, device=ids.device)[None, :]
+                   - starts.gather(1, ids.gather(1, order)))
+    rank = torch.empty_like(ids).scatter_(1, order, rank_sorted)
+    return order, counts, starts, rank
+
+
+def moe_ffn(p: Tree, x: torch.Tensor, cfg
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (output, load-balance aux loss). Routing groups are
+    sequences: tokens go into a dense [B, E, capacity, D] block, pairs past
+    an expert's capacity are dropped (their output is 0), and each token
+    sums its experts' outputs weighted by its gates. A decode step (S = 1,
+    capacity 1) runs every expert, as in the reference."""
+    b, s, d = x.shape
+    e, k = cfg.num_experts, cfg.experts_per_token
+    cap = moe_capacity(cfg, s)
+    gates, choice, aux = moe_route(p, x, cfg)
+
+    # ---- pseudo-token dispatch along seq --------------------------------
+    t = s * k
+    ids = choice.reshape(b, t)
+    order, counts, starts, rank = moe_dispatch(ids, e)
+
+    # ---- gather tokens into [B, E, cap, D] -------------------------------
+    slots = torch.arange(cap, device=x.device)
+    slot_i = (starts[:, :, None] + slots).clamp(0, t - 1)      # [B,E,cap]
+    valid = slots[None, None, :] < counts[:, :, None]
+    slot_tok = order.gather(1, slot_i.reshape(b, e * cap))
+    src_tok = (slot_tok // k).clamp(0, s - 1)                  # [B,E*cap]
+    xe = x.gather(1, src_tok[..., None].expand(b, e * cap, d))
+    xe = xe.reshape(b, e, cap, d).masked_fill(~valid[..., None], 0)
+
+    # ---- expert FFN ------------------------------------------------------
+    h = torch.einsum("becd,edf->becf", xe, p["w_gate"])
+    h = F.silu(h) * torch.einsum("becd,edf->becf", xe, p["w_up"])
+    ye = torch.einsum("becf,efd->becd", h, p["w_down"])
+
+    # ---- combine: token-side gather from [B, E*cap, D] --------------------
+    tok_slot = (ids * cap + rank).clamp(0, e * cap - 1)        # [B,T]
+    yp = ye.reshape(b, e * cap, d).gather(
+        1, tok_slot[..., None].expand(b, t, d))
+    yp = yp.masked_fill(~(rank < cap)[..., None], 0).reshape(b, s, k, d)
+    y = (yp * gates[..., None].to(yp.dtype)).sum(dim=2)
+    return y.to(x.dtype), aux
 
 
 # ---------------------------------------------------------------------------

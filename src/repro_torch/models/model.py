@@ -1,34 +1,55 @@
-"""LM for the dense family (llama3 / qwen2.5 / minicpm / mistral-large).
+"""LM — one model class covering every architecture family of the JAX package.
 
-A stack of L identical pre-norm blocks (GQA attention + SwiGLU MLP) with the
-parameters stacked along a leading layer axis, as in the JAX package. A
-Python loop over layers takes the place of ``lax.scan``.
+Families and their block stacks (the reference's, with the parameters
+stacked along a leading layer axis; a Python loop over layers takes the
+place of ``lax.scan``):
+
+  dense   (llama3 / qwen2.5 / minicpm / mistral-large): L identical pre-norm
+          blocks (GQA attention + SwiGLU MLP).
+  moe     (granite / llama4-maverick): groups of (period-1) dense layers + 1
+          MoE layer.
+  ssm     (rwkv6): RWKV6 time-mix / channel-mix layers.
+  hybrid  (zamba2): groups of Mamba2 layers, one SHARED attention+MLP block
+          applied after each group (its weights are not stacked).
+  vlm     (llama-3.2-vision): groups of self-attention layers, each followed
+          by a cross-attention block (into stub image embeddings, no
+          self-attention in it).
+  audio   (whisper): a bidirectional encoder over stub frame embeddings, then
+          a decoder of causal self-attention + cross-attention into the
+          encoder's output; biased layer norms, gelu MLPs.
 
 Entry points, as in the reference:
-  ``loss``         — training loss (next-token cross-entropy + z-loss)
-  ``forward``      — no-cache logits (flash, blockwise or einsum attention)
-  ``prefill``      — forward + KV-cache fill, returns last-position logits
+  ``loss``         — training loss (next-token cross-entropy + z-loss, plus
+                     ``router_aux_coef`` x the MoE load-balance aux)
+  ``forward``      — no-cache logits and the summed MoE aux
+  ``prefill``      — forward + cache fill, returns last-position logits
   ``decode_step``  — one token per sequence against the cache
 
-``cfg.remat`` wraps each layer of ``forward`` as the reference's remat
-policy wraps its scanned body: ``"full"`` recomputes the layer in backward
-(``torch.utils.checkpoint``), ``"none"`` keeps its activations.
+``cfg.remat`` wraps the layers the reference's remat policy wraps:
+``"full"`` recomputes a layer in backward (``torch.utils.checkpoint``),
+``"none"`` keeps its activations.
 
-The KV cache is preallocated as [L, B, KV, S_max, hd] and written in place.
-Other families (moe, ssm, hybrid, vlm, audio) are not ported yet.
+Caches are preallocated (``init_cache``) and written in place: KV caches at
+the step's position, recurrent states (RWKV's ``wkv`` and token shifts,
+Mamba2's ``ssm`` and conv history) and the cross-attention K/V (computed
+at prefill) whole, so a decode step reads and writes the same tensors
+every step.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import AUDIO_FRAMES, ModelConfig
 from repro_torch.device import resolve_device
 from . import layers as Lyr
+from . import ssm as Ssm
 from .params import ParamDef, Tree, init_params
+
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
 def layer_slice(tree: Tree, i: int) -> Tree:
@@ -46,6 +67,15 @@ def layer_list(tree: Tree, n: int) -> list:
     flat = {k: layer_list(v, n) if isinstance(v, dict) else v.unbind(0)
             for k, v in tree.items()}
     return [{k: v[i] for k, v in flat.items()} for i in range(n)]
+
+
+def _write(dst: Tree, src: Tree) -> None:
+    """Copy a tree of tensors into a preallocated tree of the same paths."""
+    for k, v in dst.items():
+        if isinstance(v, dict):
+            _write(v, src[k])
+        else:
+            v.copy_(src[k])
 
 
 def _remat(fn, policy: str):
@@ -68,10 +98,9 @@ def _remat(fn, policy: str):
 
 class LM:
     def __init__(self, cfg: ModelConfig):
-        if cfg.family != "dense" or cfg.num_experts:
-            raise NotImplementedError(
-                f"{cfg.name}: family {cfg.family!r} is not ported yet "
-                "(ROADMAP: LM substrate queue); only dense models run")
+        if cfg.family not in FAMILIES:
+            raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}; "
+                             f"have {FAMILIES}")
         self.cfg = cfg
 
     def _impl(self, s: int) -> str:
@@ -88,17 +117,52 @@ class LM:
 
     def param_defs(self) -> Tree:
         cfg = self.cfg
-        L, d = cfg.num_layers, cfg.d_model
-        return {
-            "embed": Lyr.embed_defs(cfg),
-            "final_norm": Lyr.norm_defs(d),
-            "blocks": {
-                "ln2": Lyr.norm_defs(d, prefix=(L,)),
-                "ln1": Lyr.norm_defs(d, prefix=(L,)),
-                "attn": Lyr.attention_defs(cfg, layers=L),
-                "ffn": Lyr.mlp_defs(cfg, layers=L),
-            },
-        }
+        L, d, fam = cfg.num_layers, cfg.d_model, cfg.family
+        defs: Tree = {"embed": Lyr.embed_defs(cfg),
+                      "final_norm": Lyr.norm_defs(
+                          d, with_bias=fam == "audio")}
+        if fam == "ssm":
+            defs["blocks"] = Ssm.rwkv_defs(cfg, L)
+        elif fam == "hybrid":
+            defs["blocks"] = Ssm.mamba_defs(cfg, L)
+            defs["shared_attn"] = self._dense_block_defs(layers=0)
+        elif fam == "audio":
+            defs["encoder"] = self._dense_block_defs(
+                layers=cfg.encoder_layers or L, gated=False, with_bias=True)
+            defs["blocks"] = self._dense_block_defs(
+                layers=L, gated=False, with_bias=True, cross=True)
+            defs["enc_final_norm"] = Lyr.norm_defs(d, with_bias=True)
+        elif fam == "vlm":
+            defs["blocks"] = self._dense_block_defs(layers=L)
+            # llama3.2-style cross layers: cross-attn + MLP, no self-attn
+            defs["cross_blocks"] = self._dense_block_defs(
+                layers=L // cfg.cross_attn_every, cross=True, cross_only=True)
+        elif fam == "moe":
+            n_moe = L // cfg.moe_layer_period
+            if cfg.moe_layer_period > 1:
+                defs["blocks"] = self._dense_block_defs(layers=L - n_moe)
+            defs["moe_blocks"] = self._dense_block_defs(layers=n_moe, moe=True)
+        else:
+            defs["blocks"] = self._dense_block_defs(layers=L)
+        return defs
+
+    def _dense_block_defs(self, layers: int, gated: bool = True,
+                          with_bias: bool = False, moe: bool = False,
+                          cross: bool = False, cross_only: bool = False
+                          ) -> Tree:
+        cfg = self.cfg
+        d = cfg.d_model
+        pre = (layers,) if layers else ()
+        out = {"ln2": Lyr.norm_defs(d, with_bias, pre)}
+        if not cross_only:
+            out["ln1"] = Lyr.norm_defs(d, with_bias, pre)
+            out["attn"] = Lyr.attention_defs(cfg, layers=layers)
+        out["ffn"] = (Lyr.moe_defs(cfg, layers=layers) if moe else
+                      Lyr.mlp_defs(cfg, gated=gated, layers=layers))
+        if cross:
+            out["ln_x"] = Lyr.norm_defs(d, with_bias, pre)
+            out["xattn"] = Lyr.attention_defs(cfg, layers=layers)
+        return out
 
     def init(self, generator: torch.Generator,
              device: Optional[torch.device] = None) -> Tree:
@@ -107,61 +171,229 @@ class LM:
                            resolve_device(device))
 
     # ------------------------------------------------------------------
+    # block appliers (p = one layer's param slice)
 
-    def _dense_block(self, p: Tree, x, positions, *, impl, cache=None,
-                     cache_pos=None):
+    def _dense_block(self, p: Tree, x, positions, *, impl, causal=True,
+                     memory=None, cache=None, cache_pos=None,
+                     xmemory_kv=None):
+        """Pre-norm block: self-attention (if the block has one), then
+        cross-attention (if it has one: into ``memory``, or in decode into
+        the precomputed ``xmemory_kv``), then the MLP or MoE. Returns (x,
+        the MoE aux or None)."""
         cfg = self.cfg
-        h = Lyr.apply_norm(p["ln1"], x, cfg.norm_eps)
-        a, new_cache = Lyr.attention(p["attn"], h, cfg, positions=positions,
-                                     cache=cache, cache_pos=cache_pos,
-                                     impl=impl)
-        x = x + a
+        if "attn" in p:
+            h = Lyr.apply_norm(p["ln1"], x, cfg.norm_eps)
+            a, _ = Lyr.attention(p["attn"], h, cfg, positions=positions,
+                                 causal=causal, cache=cache,
+                                 cache_pos=cache_pos, impl=impl)
+            x = x + a
+        if "xattn" in p:
+            h = Lyr.apply_norm(p["ln_x"], x, cfg.norm_eps)
+            if xmemory_kv is not None:       # decode: precomputed cross K/V
+                xa = self._cross_from_kv(p["xattn"], h, xmemory_kv)
+            else:
+                xa, _ = Lyr.attention(p["xattn"], h, cfg, positions=positions,
+                                      causal=False, memory=memory,
+                                      impl="einsum")
+            x = x + xa
         h = Lyr.apply_norm(p["ln2"], x, cfg.norm_eps)
-        return x + Lyr.mlp(p["ffn"], h), new_cache
+        if "router" in p["ffn"]:
+            m, aux = Lyr.moe_ffn(p["ffn"], h, cfg)
+            return x + m, aux
+        return x + Lyr.mlp(p["ffn"], h), None
+
+    def _cross_from_kv(self, p: Tree, x, kv: Tree) -> torch.Tensor:
+        """Cross-attention against precomputed K/V [B, KV, T, hd], read in
+        that layout (the reference's einsum attention, no mask)."""
+        cfg = self.cfg
+        b, s, _ = x.shape
+        hd = cfg.resolved_head_dim
+        hq, hkv = cfg.num_heads, cfg.num_kv_heads
+        q = x @ p["wq"]
+        if "bq" in p:
+            q = q + p["bq"]
+        out = Lyr.cache_attention(q.reshape(b, s, hkv, hq // hkv, hd),
+                                  kv["k"], kv["v"])
+        return out.reshape(b, s, hq * hd) @ p["wo"]
+
+    def _cross_kv(self, p: Tree, memory: torch.Tensor) -> Tree:
+        """Cross K/V of ``memory`` for decode, [B, KV, T, hd] each."""
+        cfg = self.cfg
+        b, t, _ = memory.shape
+        hd, hkv = cfg.resolved_head_dim, cfg.num_kv_heads
+        k = memory @ p["wk"]
+        v = memory @ p["wv"]
+        if "bk" in p:
+            k, v = k + p["bk"], v + p["bv"]
+        return {"k": k.reshape(b, t, hkv, hd).transpose(1, 2),
+                "v": v.reshape(b, t, hkv, hd).transpose(1, 2)}
+
+    def _attn_layers(self, params: Tree) -> List[Tree]:
+        """The attention + FFN layers of a dense or moe stack in depth
+        order (moe: (period-1) dense layers, then one MoE layer, a group)."""
+        cfg = self.cfg
+        if cfg.family != "moe":
+            return layer_list(params["blocks"], cfg.num_layers)
+        period = cfg.moe_layer_period
+        n_moe = cfg.num_layers // period
+        dense = layer_list(params["blocks"], cfg.num_layers - n_moe) \
+            if period > 1 else []
+        out = []
+        for g, moe in enumerate(layer_list(params["moe_blocks"], n_moe)):
+            out += dense[g * (period - 1):(g + 1) * (period - 1)] + [moe]
+        return out
+
+    # ------------------------------------------------------------------
+    # forward (training / no-cache)
 
     def forward(self, params: Tree, batch: Dict[str, torch.Tensor]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Returns (logits [B,S,V], moe_aux), aux being 0 for dense models."""
+        """Returns (logits [B,S,V], the summed MoE aux; 0 without MoE)."""
         cfg = self.cfg
         tokens = batch["tokens"]
         b, s = tokens.shape
         positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
         x = Lyr.embed(params["embed"], tokens)
         impl = self._impl(s)
-
-        def body(x, p):
-            return self._dense_block(p, x, positions, impl=impl)[0]
-        body = _remat(body, cfg.remat)
-        for p in layer_list(params["blocks"], cfg.num_layers):
-            x = body(x, p)
+        fam = cfg.family
+        aux = None
+        if fam == "ssm":
+            body = _remat(lambda x, p: Ssm.rwkv_block(p, x, cfg)[0],
+                          cfg.remat)
+            for p in layer_list(params["blocks"], cfg.num_layers):
+                x = body(x, p)
+        elif fam == "hybrid":
+            x = self._hybrid_forward(params, x, positions, impl)
+        elif fam == "audio":
+            x = self._audio_forward(params, batch, x, positions, impl)
+        elif fam == "vlm":
+            x = self._vlm_forward(params, batch, x, positions, impl)
+        else:                       # dense, moe
+            x, aux = self._moe_forward(params, x, positions, impl)
         x = Lyr.apply_norm(params["final_norm"], x, cfg.norm_eps)
         logits = Lyr.unembed(params["embed"], x)
-        return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return logits, aux
+
+    def _block_fn(self, positions, impl, remat: bool, **kw):
+        """``_dense_block`` as f(x, p) -> (x, aux), remat'd if asked."""
+        def block(x, p):
+            return self._dense_block(p, x, positions, impl=impl, **kw)
+        return _remat(block, self.cfg.remat) if remat else block
+
+    def _hybrid_forward(self, params, x, positions, impl):
+        """Mamba2 layers, the shared block (not remat'd) after each group of
+        ``shared_attn_every``."""
+        cfg = self.cfg
+        k = cfg.shared_attn_every or cfg.num_layers
+        inner = _remat(lambda x, p: Ssm.mamba_block(p, x, cfg)[0], cfg.remat)
+        shared = self._block_fn(positions, impl, remat=False)
+        for i, p in enumerate(layer_list(params["blocks"], cfg.num_layers)):
+            x = inner(x, p)
+            if (i + 1) % k == 0:
+                x, _ = shared(x, params["shared_attn"])
+        return x
+
+    def _moe_forward(self, params, x, positions, impl):
+        """Dense layers, and for moe (period-1) dense layers then one MoE
+        layer a group; returns (x, the summed aux or None). Under period 1
+        the reference remats its group (one MoE layer), under period > 1
+        the dense layers only."""
+        cfg = self.cfg
+        dense = self._block_fn(positions, impl, remat=True)
+        moe = self._block_fn(positions, impl,
+                             remat=cfg.moe_layer_period == 1)
+        aux = None
+        for p in self._attn_layers(params):
+            x, a = (moe if "router" in p["ffn"] else dense)(x, p)
+            if a is not None:
+                aux = a if aux is None else aux + a
+        return x, aux
+
+    def _vlm_forward(self, params, batch, x, positions, impl):
+        """Self-attention layers, a cross-attention block (not remat'd) into
+        ``image_embeds`` after each group of ``cross_attn_every``."""
+        cfg = self.cfg
+        memory = batch["image_embeds"].to(x.dtype)
+        k = cfg.cross_attn_every
+        inner = self._block_fn(positions, impl, remat=True)
+        cross_fn = self._block_fn(positions, impl, remat=False,
+                                  memory=memory)
+        cross = layer_list(params["cross_blocks"], cfg.num_layers // k)
+        for i, p in enumerate(layer_list(params["blocks"], cfg.num_layers)):
+            x, _ = inner(x, p)
+            if (i + 1) % k == 0:
+                x, _ = cross_fn(x, cross[i // k])
+        return x
+
+    def _audio_forward(self, params, batch, x, positions, impl):
+        """The decoder over the encoder's output of ``frames``."""
+        memory = self._encode(params, batch["frames"].to(x.dtype))
+        body = self._block_fn(positions, impl, remat=True, memory=memory)
+        for p in layer_list(params["blocks"], self.cfg.num_layers):
+            x, _ = body(x, p)
+        return x
+
+    def _encode(self, params: Tree, frames: torch.Tensor) -> torch.Tensor:
+        """Whisper encoder over stub frame embeddings [B, T, D]:
+        bidirectional self-attention blocks, then a biased layer norm."""
+        cfg = self.cfg
+        b, t, _ = frames.shape
+        pos = torch.arange(t, device=frames.device)[None].expand(b, t)
+        body = self._block_fn(pos, self._impl(t), remat=True, causal=False)
+        x = frames
+        for p in layer_list(params["encoder"],
+                            cfg.encoder_layers or cfg.num_layers):
+            x, _ = body(x, p)
+        return Lyr.apply_norm(params["enc_final_norm"], x, cfg.norm_eps)
 
     def loss(self, params: Tree, batch: Dict[str, torch.Tensor]
              ) -> torch.Tensor:
-        """Mean next-token NLL plus ``z_loss * mean(lse^2)``, in f32.
+        """Mean next-token NLL plus ``z_loss * mean(lse^2)``, in f32, plus
+        ``router_aux_coef * aux`` for MoE models.
 
         The true logit is gathered instead of the reference's one-hot
         product: the same value, without a [B, S, V] f32 one-hot (4.2 GB at
         batch 2 x 4096 tokens of a 128k vocab)."""
         cfg = self.cfg
-        logits, _ = self.forward(params, batch)
+        logits, aux = self.forward(params, batch)
         logits = logits.float()
         lse = torch.logsumexp(logits, dim=-1)
         true_logit = logits.gather(-1, batch["labels"][..., None].long())[..., 0]
         nll = lse - true_logit
-        return nll.mean() + cfg.z_loss * (lse * lse).mean()
+        loss = nll.mean() + cfg.z_loss * (lse * lse).mean()
+        if cfg.num_experts:
+            loss = loss + cfg.router_aux_coef * aux
+        return loss
 
     # ------------------------------------------------------------------
     # serving: cache defs / prefill / decode
 
     def cache_defs(self, batch: int, max_seq: int) -> Tree:
         cfg = self.cfg
-        shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_seq,
-                 cfg.resolved_head_dim)
-        return {"self": {"k": ParamDef(shape, init="zeros"),
-                         "v": ParamDef(shape, init="zeros")}}
+        L, fam = cfg.num_layers, cfg.family
+
+        def kv(layers, seq):
+            shape = (layers, batch, cfg.num_kv_heads, seq,
+                     cfg.resolved_head_dim)
+            return {"k": ParamDef(shape, init="zeros"),
+                    "v": ParamDef(shape, init="zeros")}
+
+        if fam == "ssm":
+            return Ssm.rwkv_state_defs(cfg, batch, L)
+        if fam == "hybrid":
+            groups = L // (cfg.shared_attn_every or L)
+            return {"mamba": Ssm.mamba_state_defs(cfg, batch, L),
+                    "shared": kv(groups, max_seq)}
+        if fam == "audio":
+            return {"self": kv(L, max_seq),
+                    "cross": kv(L, AUDIO_FRAMES)}
+        if fam == "vlm":
+            return {"self": kv(L, max_seq),
+                    "cross": kv(L // cfg.cross_attn_every,
+                                cfg.num_image_tokens)}
+        return {"self": kv(L, max_seq)}
 
     def init_cache(self, batch: int, max_seq: int,
                    device: Optional[torch.device] = None) -> Tree:
@@ -170,14 +402,16 @@ class LM:
 
     def prefill(self, params: Tree, batch: Dict[str, torch.Tensor],
                 cache: Tree) -> Tuple[torch.Tensor, Tree]:
-        """Run the full prompt, filling cache; returns (last logits, cache)."""
+        """Run the full prompt, filling the cache (vlm: ``image_embeds``,
+        audio: ``frames`` give the cross K/V); returns (last logits, cache).
+        Recurrent states start from the cache's, as in the reference."""
         cfg = self.cfg
         tokens = batch["tokens"]
         b, s = tokens.shape
         positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
         x = Lyr.embed(params["embed"], tokens)
-        x, cache = self._stack_with_cache(params, x, positions, cache,
-                                          cache_pos=0, impl=self._impl(s))
+        x = self._stack_with_cache(params, batch, x, positions, cache,
+                                   cache_pos=0, impl=self._impl(s))
         x = Lyr.apply_norm(params["final_norm"], x[:, -1:], cfg.norm_eps)
         logits = Lyr.unembed(params["embed"], x)
         return logits[:, 0], cache
@@ -191,17 +425,62 @@ class LM:
         positions = torch.full((b, 1), pos, dtype=torch.int32,
                                device=tokens.device)
         x = Lyr.embed(params["embed"], tokens)
-        x, cache = self._stack_with_cache(params, x, positions, cache,
-                                          cache_pos=pos, impl="einsum")
+        x = self._stack_with_cache(params, batch, x, positions, cache,
+                                   cache_pos=pos, impl="einsum")
         x = Lyr.apply_norm(params["final_norm"], x, cfg.norm_eps)
         logits = Lyr.unembed(params["embed"], x)
         return logits[:, 0], cache
 
-    def _stack_with_cache(self, params, x, positions, cache, cache_pos, impl):
-        kc, vc = cache["self"]["k"], cache["self"]["v"]
-        for i in range(self.cfg.num_layers):
-            x, _ = self._dense_block(layer_slice(params["blocks"], i), x,
-                                     positions, impl=impl,
-                                     cache={"k": kc[i], "v": vc[i]},
-                                     cache_pos=cache_pos)
-        return x, cache
+    def _stack_with_cache(self, params, batch, x, positions, cache,
+                          cache_pos, impl):
+        """Every layer against the cache, written in place; returns x."""
+        cfg = self.cfg
+        fam, L = cfg.family, cfg.num_layers
+
+        def attn_block(p, x, kv, i, **kw):
+            return self._dense_block(
+                p, x, positions, impl=impl, cache=layer_slice(kv, i),
+                cache_pos=cache_pos, **kw)[0]
+
+        if fam == "ssm":
+            for i, p in enumerate(layer_list(params["blocks"], L)):
+                st = layer_slice(cache, i)
+                x, new = Ssm.rwkv_block(p, x, cfg, state=st)
+                _write(st, new)
+        elif fam == "hybrid":
+            k = cfg.shared_attn_every or L
+            for i, p in enumerate(layer_list(params["blocks"], L)):
+                st = layer_slice(cache["mamba"], i)
+                x, new = Ssm.mamba_block(p, x, cfg, state=st)
+                _write(st, new)
+                if (i + 1) % k == 0:
+                    x = attn_block(params["shared_attn"], x, cache["shared"],
+                                   i // k)
+        elif fam == "vlm":
+            k = cfg.cross_attn_every
+            cross = layer_list(params["cross_blocks"], L // k)
+            if "image_embeds" in batch:    # prefill: compute cross K/V now
+                mem = batch["image_embeds"].to(x.dtype)
+                for g, cp in enumerate(cross):
+                    _write(layer_slice(cache["cross"], g),
+                           self._cross_kv(cp["xattn"], mem))
+            for i, p in enumerate(layer_list(params["blocks"], L)):
+                x = attn_block(p, x, cache["self"], i)
+                if (i + 1) % k == 0:
+                    x, _ = self._dense_block(
+                        cross[i // k], x, positions, impl=impl,
+                        xmemory_kv=layer_slice(cache["cross"], i // k))
+        elif fam == "audio":
+            blocks = layer_list(params["blocks"], L)
+            if "frames" in batch:          # prefill: encode + cross K/V
+                mem = self._encode(params, batch["frames"].to(x.dtype))
+                for i, p in enumerate(blocks):
+                    _write(layer_slice(cache["cross"], i),
+                           self._cross_kv(p["xattn"], mem))
+            for i, p in enumerate(blocks):
+                x = attn_block(p, x, cache["self"], i,
+                               xmemory_kv=layer_slice(cache["cross"], i))
+        else:
+            for i, p in enumerate(self._attn_layers(params)):
+                x = attn_block(p, x, cache["self"], i)
+        return x

@@ -23,8 +23,8 @@ Tree = Dict[str, Any]
 class ParamDef:
     shape: Tuple[int, ...]
     dtype: torch.dtype = torch.bfloat16
-    init: str = "normal"                      # normal | zeros | ones
-    scale: float = 1.0                        # stddev multiplier
+    init: str = "normal"                      # normal | zeros | ones | const
+    scale: float = 1.0                        # stddev multiplier / const value
     fan_in: Optional[int] = None              # None -> last-but-one dim
 
 
@@ -34,6 +34,8 @@ def _init_leaf(d: ParamDef, generator: Optional[torch.Generator],
         return torch.zeros(d.shape, dtype=d.dtype, device=device)
     if d.init == "ones":
         return torch.ones(d.shape, dtype=d.dtype, device=device)
+    if d.init == "const":
+        return torch.full(d.shape, d.scale, dtype=d.dtype, device=device)
     fan = d.fan_in
     if fan is None:
         fan = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
@@ -52,8 +54,8 @@ def init_params(defs: Tree, generator: Optional[torch.Generator],
                 device: torch.device) -> Tree:
     """Draw every leaf in f32 on ``device`` from ``generator``, then cast.
 
-    ``generator`` must live on ``device`` (it may be None when every leaf is
-    zeros or ones, as in a cache). Leaves are drawn in the order of the
+    ``generator`` must live on ``device`` (it may be None when no leaf is
+    drawn at random, as in a cache). Leaves are drawn in the order of the
     definition dict, so a seed gives the same weights on every run.
     """
     return map_defs(lambda d: _init_leaf(d, generator, device), defs)

@@ -1,0 +1,322 @@
+"""Sub-quadratic sequence mixers: RWKV6 (Finch) and Mamba2 (SSD).
+
+Both use the reference's chunked-recurrence strategy: the sequence is split
+into chunks of ``cfg.chunk_size``; a Python loop (the reference's
+``lax.scan``) carries the recurrent state across chunks while each chunk
+computes its intra-chunk interactions with a masked pairwise-decay tensor.
+Every pairwise exponent is of the form ``logA[t-1] - logA[i]`` with
+i <= t-1 and logA non-increasing, taken through ``exp(min(diff, 0))``, so
+no ``exp`` argument is positive (``torch.minimum`` splits the gradient at
+a tie, as ``jnp.minimum`` does). The recurrences run in f32; a ragged last
+chunk is padded with the identity (zero inputs, decay 1). Decode runs the
+chunked form with t = 1, as the reference does.
+
+State shapes (per layer, carried through decode and written in place by
+the model):
+  RWKV6  : wkv [B, nh, hd, hd] f32 (key-dim x value-dim outer-product
+           state), shift_tm / shift_cm [B, D] (the last *normed* input of
+           the time and channel mixes)
+  Mamba2 : ssm [B, nh, hd, st] f32 (head-dim x ssm-state outer-product
+           state), conv [B, W-1, di + 2 st] (the causal conv's history)
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .layers import rms_norm
+from .params import ParamDef
+
+Tree = Dict[str, Any]
+
+LORA_MAA = 32        # rwkv6 token-shift lora rank
+LORA_DECAY = 64      # rwkv6 data-dependent decay lora rank
+
+
+def _pad_time(a: torch.Tensor, tp: int) -> torch.Tensor:
+    """Zero-pad dim 1 (time) of ``a`` up to ``tp``."""
+    pad = [0, 0] * (a.dim() - 2) + [0, tp - a.shape[1]]
+    return F.pad(a, pad)
+
+
+# ===========================================================================
+# RWKV6 (Finch) — data-dependent decay linear attention
+# ===========================================================================
+
+
+def rwkv_defs(cfg, layers: int) -> Tree:
+    d = cfg.d_model
+    nh = d // cfg.ssm_head_dim
+    hd = cfg.ssm_head_dim
+    f = cfg.d_ff
+    out_scale = 1.0 / max(1, 2 * cfg.num_layers) ** 0.5
+
+    def w(shape, **kw):
+        return ParamDef((layers,) + shape, **kw)
+
+    return {
+        "ln1": {"scale": w((d,), init="ones")},
+        "ln2": {"scale": w((d,), init="ones")},
+        # token-shift ddlerp
+        "maa_x": w((d,), init="zeros"),
+        "maa_rkvwg": w((5, d), init="zeros"),
+        "maa_w1": w((d, 5 * LORA_MAA)),
+        "maa_w2": w((5, LORA_MAA, d), fan_in=LORA_MAA),
+        # data-dependent decay
+        "decay": w((d,), init="const", scale=-6.0),
+        "td_w1": w((d, LORA_DECAY)),
+        "td_w2": w((LORA_DECAY, d), fan_in=LORA_DECAY),
+        "bonus": w((nh, hd)),                          # time_faaaa / u
+        # projections
+        "wr": w((d, d)),
+        "wk": w((d, d)),
+        "wv": w((d, d)),
+        "wg": w((d, d)),
+        "wo": w((d, d), scale=out_scale),
+        "ln_x": {"scale": w((d,), init="ones")},
+        # channel mix
+        "cm_maa_k": w((d,), init="zeros"),
+        "cm_maa_r": w((d,), init="zeros"),
+        "cm_wk": w((d, f)),
+        "cm_wv": w((f, d), scale=out_scale),
+        "cm_wr": w((d, d)),
+    }
+
+
+def _token_shift(x: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
+    """x[t-1] stream: prev is the last token of the previous segment."""
+    return torch.cat([prev[:, None, :], x[:, :-1, :]], dim=1)
+
+
+def rwkv_wkv_chunked(r, k, v, w_log, u, state, chunk: int):
+    """WKV recurrence, chunked.
+
+    r/k/v/w_log: [B, T, nh, hd]; u: [nh, hd]; state: [B, nh, hd, hd].
+    out_t = r_t . (S_t + u*k_t (x) v_t);  S_{t+1} = diag(w_t) S_t + k_t (x) v_t
+    Returns out [B, T, nh, hd] in r's dtype, and the final state in f32.
+    """
+    b, t, nh, hd = r.shape
+    c = min(chunk, t)
+    tp = -(-t // c) * c
+    if tp != t:
+        # identity padding: k=v=r=0 contribute nothing, w_log=0 is decay 1
+        r, k, v, w_log = (_pad_time(a, tp) for a in (r, k, v, w_log))
+    idx = torch.arange(c, device=r.device)
+    below = (idx[:, None] > idx[None, :])[None, :, :, None, None]
+    u32 = u.float()
+    state = state.float()
+    outs = []
+    for i in range(0, tp, c):
+        rr, kk, vv, ww = (a[:, i:i + c].float() for a in (r, k, v, w_log))
+        log_a = torch.cumsum(ww, dim=1)               # inclusive
+        log_a_prev = log_a - ww                       # exclusive
+        # inter-chunk: state contribution
+        inter = torch.einsum("bcnd,bnde->bcne", rr * torch.exp(log_a_prev),
+                             state)
+        # intra-chunk pairwise (strictly lower-triangular)
+        diff = log_a_prev[:, :, None] - log_a[:, None]    # [B,c,c,nh,hd]
+        dec = torch.exp(torch.minimum(diff, diff.new_zeros(()))) * below
+        scores = (rr[:, :, None] * kk[:, None] * dec).sum(-1)   # [B,t,i,nh]
+        intra = torch.einsum("btin,bine->btne", scores, vv)
+        # bonus (current token)
+        bonus = (rr * u32 * kk).sum(-1)
+        intra = intra + bonus[..., None] * vv
+        # state update
+        k_dec = kk * torch.exp(log_a[:, -1:] - log_a)
+        state = state * torch.exp(log_a[:, -1])[..., None] + \
+            torch.einsum("bind,bine->bnde", k_dec, vv)
+        outs.append((inter + intra).to(r.dtype))
+    return torch.cat(outs, dim=1)[:, :t], state
+
+
+def rwkv_block(p: Tree, x: torch.Tensor, cfg, state: Optional[Tree] = None
+               ) -> Tuple[torch.Tensor, Optional[Tree]]:
+    """One RWKV6 layer (time mix + channel mix). ``state`` carries {"wkv",
+    "shift_tm", "shift_cm"} for prefill and decode; None in training (the
+    shift sees zeros before t=0). Returns (y, the new state or None); the
+    caller writes the new state where it keeps it."""
+    b, t, d = x.shape
+    nh, hd = d // cfg.ssm_head_dim, cfg.ssm_head_dim
+    eps = cfg.norm_eps
+    decode = state is not None
+
+    # ---- time mix -------------------------------------------------------
+    xn = rms_norm(x, p["ln1"]["scale"], eps)
+    prev_tm = state["shift_tm"] if decode else x.new_zeros((b, d))
+    xprev = _token_shift(xn, prev_tm.to(xn.dtype))
+    dx = xprev - xn
+    xxx = xn + dx * p["maa_x"]
+    ddd = torch.tanh(xxx @ p["maa_w1"]).reshape(b, t, 5, LORA_MAA)
+    ddd = torch.einsum("btfl,fld->btfd", ddd, p["maa_w2"])
+    mixed = xn[:, :, None, :] + dx[:, :, None, :] * \
+        (p["maa_rkvwg"][None, None] + ddd)
+    xr, xk, xv, xw, xg = mixed.unbind(2)
+
+    r = (xr @ p["wr"]).reshape(b, t, nh, hd)
+    k = (xk @ p["wk"]).reshape(b, t, nh, hd)
+    v = (xv @ p["wv"]).reshape(b, t, nh, hd)
+    g = F.silu(xg @ p["wg"])
+
+    dd = p["decay"] + torch.tanh(xw @ p["td_w1"]) @ p["td_w2"]
+    w_log = -torch.exp(dd.float()).reshape(b, t, nh, hd)   # log decay, < 0
+
+    wkv0 = state["wkv"] if decode else \
+        torch.zeros((b, nh, hd, hd), dtype=torch.float32, device=x.device)
+    out, wkv = rwkv_wkv_chunked(r, k, v, w_log, p["bonus"], wkv0,
+                                min(cfg.chunk_size, t))
+    out = rms_norm(out.reshape(b, t, d), p["ln_x"]["scale"], eps) * g
+    x = x + out @ p["wo"]
+
+    # ---- channel mix ----------------------------------------------------
+    xn2 = rms_norm(x, p["ln2"]["scale"], eps)
+    prev_cm = state["shift_cm"] if decode else x.new_zeros((b, d))
+    dx2 = _token_shift(xn2, prev_cm.to(xn2.dtype)) - xn2
+    xk2 = xn2 + dx2 * p["cm_maa_k"]
+    xr2 = xn2 + dx2 * p["cm_maa_r"]
+    kk = torch.square(torch.relu(xk2 @ p["cm_wk"]))
+    x = x + torch.sigmoid(xr2 @ p["cm_wr"]) * (kk @ p["cm_wv"])
+
+    new_state = None
+    if decode:
+        new_state = {"wkv": wkv, "shift_tm": xn[:, -1], "shift_cm": xn2[:, -1]}
+    return x, new_state
+
+
+def rwkv_state_defs(cfg, batch: int, layers: int) -> Tree:
+    d = cfg.d_model
+    nh, hd = d // cfg.ssm_head_dim, cfg.ssm_head_dim
+    return {
+        "wkv": ParamDef((layers, batch, nh, hd, hd), dtype=torch.float32,
+                        init="zeros"),
+        "shift_tm": ParamDef((layers, batch, d), init="zeros"),
+        "shift_cm": ParamDef((layers, batch, d), init="zeros"),
+    }
+
+
+# ===========================================================================
+# Mamba2 (SSD)
+# ===========================================================================
+
+
+def mamba_defs(cfg, layers: int) -> Tree:
+    d, di, st = cfg.d_model, cfg.d_inner, cfg.ssm_state
+    nh = cfg.ssm_heads
+    wconv = cfg.ssm_conv_width
+
+    def w(shape, **kw):
+        return ParamDef((layers,) + shape, **kw)
+
+    return {
+        "ln": {"scale": w((d,), init="ones")},
+        # in_proj -> [z (di), x (di), B (st), C (st), dt (nh)]
+        "w_in": w((d, 2 * di + 2 * st + nh)),
+        "conv_w": w((wconv, di + 2 * st), fan_in=wconv),
+        "conv_b": w((di + 2 * st,), init="zeros"),
+        "a_log": w((nh,), init="const", scale=0.5),
+        "dt_bias": w((nh,), init="zeros"),
+        "d_skip": w((nh,), init="ones"),
+        "norm": {"scale": w((di,), init="ones")},
+        "w_out": w((di, d), scale=1.0 / max(1, 2 * cfg.num_layers) ** 0.5),
+    }
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 buf: Optional[torch.Tensor]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv along time. x: [B, T, C]; w: [W, C].
+    buf: [B, W-1, C] history for decode (None -> zero history). Returns
+    (silu(conv + b), the last W-1 inputs)."""
+    wlen = w.shape[0]
+    hist = x.new_zeros((x.shape[0], wlen - 1, x.shape[2])) if buf is None \
+        else buf.to(x.dtype)
+    xp = torch.cat([hist, x], dim=1)
+    out = sum(xp[:, i:i + x.shape[1], :] * w[i] for i in range(wlen))
+    return F.silu(out + b), xp[:, -(wlen - 1):, :]
+
+
+def mamba_ssd_chunked(xh, B, C, log_a, state, chunk: int):
+    """SSD scan. xh: [B,T,nh,hd] (dt-scaled inputs), B/C: [B,T,st],
+    log_a: [B,T,nh] (log decay <= 0), state: [B,nh,hd,st]. Returns
+    (y [B,T,nh,hd] f32, the final state f32)."""
+    b, t, nh, hd = xh.shape
+    c = min(chunk, t)
+    tp = -(-t // c) * c
+    if tp != t:
+        # identity padding: x=B=C=0 contribute nothing, logA=0 is decay 1
+        xh, B, C, log_a = (_pad_time(a, tp) for a in (xh, B, C, log_a))
+    idx = torch.arange(c, device=xh.device)
+    causal = (idx[:, None] >= idx[None, :])[None, :, :, None]
+    state = state.float()
+    outs = []
+    for i in range(0, tp, c):
+        xx, bb, cc, aa = (a[:, i:i + c].float() for a in (xh, B, C, log_a))
+        log_c = torch.cumsum(aa, dim=1)               # [B,c,nh] inclusive
+        # inter: y_t += exp(logA_t) * C_t . state
+        inter = torch.einsum("bts,bnds->btnd", cc, state) * \
+            torch.exp(log_c)[..., None]
+        # intra (i <= t): dec[t,i] = exp(logA_t - logA_i)
+        diff = log_c[:, :, None] - log_c[:, None]     # [B,c,c,nh]
+        dec = torch.exp(torch.minimum(diff, diff.new_zeros(()))) * causal
+        scores = torch.einsum("bts,bis->bti", cc, bb)[..., None] * dec
+        intra = torch.einsum("btin,bind->btnd", scores, xx)
+        # state update
+        x_dec = xx * torch.exp(log_c[:, -1:] - log_c)[..., None]
+        state = state * torch.exp(log_c[:, -1])[..., None, None] + \
+            torch.einsum("bind,bis->bnds", x_dec, bb)
+        outs.append(inter + intra)
+    return torch.cat(outs, dim=1)[:, :t], state
+
+
+def mamba_block(p: Tree, x: torch.Tensor, cfg,
+                state: Optional[Tree] = None
+                ) -> Tuple[torch.Tensor, Optional[Tree]]:
+    """One Mamba2 layer. ``state``: {"ssm", "conv"} for prefill and decode,
+    None in training. Returns (y, the new state or None)."""
+    b, t, d = x.shape
+    di, stt, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    hd = cfg.ssm_head_dim
+    decode = state is not None
+
+    xn = rms_norm(x, p["ln"]["scale"], cfg.norm_eps)
+    z, xin, Bc, Cc, dt = torch.split(xn @ p["w_in"], [di, di, stt, stt, nh],
+                                     dim=-1)
+    conv_out, conv_buf = _causal_conv(
+        torch.cat([xin, Bc, Cc], dim=-1), p["conv_w"], p["conv_b"],
+        state["conv"] if decode else None)
+    xin, Bc, Cc = torch.split(conv_out, [di, stt, stt], dim=-1)
+
+    # softplus as the reference's jax.nn.softplus, log(1 + e^x), in f32
+    dt = dt.float() + p["dt_bias"]
+    dt = torch.logaddexp(dt, torch.zeros_like(dt))              # [B,T,nh]
+    log_a = -torch.exp(p["a_log"].float())[None, None] * dt
+    xh = xin.reshape(b, t, nh, hd)
+    xh_dt = xh.float() * dt[..., None]
+
+    ssm0 = state["ssm"] if decode else \
+        torch.zeros((b, nh, hd, stt), dtype=torch.float32, device=x.device)
+    y, ssm = mamba_ssd_chunked(xh_dt, Bc, Cc, log_a, ssm0,
+                               min(cfg.chunk_size, t))
+    y = y + p["d_skip"].float()[None, None, :, None] * xh.float()
+    y = y.reshape(b, t, di).to(x.dtype)
+    y = rms_norm(y, p["norm"]["scale"], cfg.norm_eps) * F.silu(z)
+    out = x + y @ p["w_out"]
+
+    new_state = None
+    if decode:
+        new_state = {"ssm": ssm, "conv": conv_buf}
+    return out, new_state
+
+
+def mamba_state_defs(cfg, batch: int, layers: int) -> Tree:
+    di, stt, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    hd = cfg.ssm_head_dim
+    wconv = cfg.ssm_conv_width
+    return {
+        "ssm": ParamDef((layers, batch, nh, hd, stt), dtype=torch.float32,
+                        init="zeros"),
+        "conv": ParamDef((layers, batch, wconv - 1, di + 2 * stt),
+                         init="zeros"),
+    }

@@ -8,8 +8,11 @@ also collects on a machine with a card and no JAX:
 
 Each kernel is held to its plain version at the bars of ``chip_smoke.py``:
 f32 within 2e-3, bf16 within rtol 1e-2 / atol 1e-3, max-plus bit for bit.
-The compiler's torch engines are held to the port's host engines: STA bit
-for bit, place and route by legality, determinism and A*'s wirelength.
+The LM families beyond dense run their decode and training shapes
+through the two attention kernels, and each family's smoke config serves
+and trains on the card. The compiler's torch engines are held to the
+port's host engines: STA bit for bit, place and route by legality,
+determinism and A*'s wirelength.
 The simulator kernels are held to their plain versions on the card and to
 the numpy backend, bit for bit. Two tests run anywhere: without CUDA,
 the torch engines and the torch sim backend raise unless the CPU was asked
@@ -163,6 +166,93 @@ def test_train_smoke_runs_through_the_tensor_cores(card):
     assert (flash_attention.launches, flash_attention.tensor_core_launches,
             flash_attention.cuda_core_launches) == (want, want, 0)
     assert len(r.losses) == 4 and all(np.isfinite(r.losses))
+
+
+# ---------------------------------------------------------------------------
+# the LM families beyond dense
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kv,g,hd,tensor_cores", [
+    (32, 1, 80, False),          # zamba2's shared attention: CUDA cores
+    (12, 1, 64, True),           # whisper: the tensor cores at G = 1
+    (8, 2, 64, True),            # granite-moe: G = 2
+    (8, 5, 128, True)])          # maverick: G = 5
+def test_flash_decode_at_the_families_shapes(card, kv, g, hd, tensor_cores):
+    """On the card: the families' decode shapes (serve cache of 160 slots)
+    at every split choice against the plain version, on the route the plan
+    names."""
+    gen = torch.Generator(device="cuda").manual_seed(hd)
+    t = 160
+    q, k, v = (torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16)
+               for s in ((4, kv, g, hd), (4, kv, t, hd), (4, kv, t, hd)))
+    ln = torch.tensor([1, 37, 144, 160], dtype=torch.int32, device="cuda")
+    want = flash_decode_ref(q, k, v, ln).float()
+    for n_split in (None, 1, 7, -(-t // 32)):
+        p = FD_MOD.plan(4, kv, g, t, hd, 2, 32, card, n_split)
+        assert p.tensor_cores == tensor_cores
+        got = (flash_decode(q, k, v, ln) if n_split is None
+               else FD_MOD._launch(q, k, v, ln, 32, p))
+        torch.testing.assert_close(got.float(), want,
+                                   **KERNEL_TOL[torch.bfloat16])
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("b,h,kv,s,causal", [
+    (2, 12, 12, 1500, False),    # whisper's encoder: tails on both axes
+    (1, 16, 8, 4096, True)])     # granite's training shape, G = 2
+def test_flash_attention_at_the_families_shapes(card, b, h, kv, s, causal):
+    """On the card: bf16 at d = 64 in the model's [B, S, H, d] layout,
+    through the tensor-core kernel, against the plain version."""
+    gen = torch.Generator(device="cuda").manual_seed(s)
+    q, k, v = (torch.randn((b, s, n, 64), generator=gen, device="cuda")
+               .to(torch.bfloat16).transpose(1, 2) for n in (h, kv, kv))
+    before = flash_attention.tensor_core_launches
+    got = flash_attention(q, k, v, causal=causal)
+    assert flash_attention.tensor_core_launches == before + 1
+    torch.testing.assert_close(
+        got.float(), flash_attention_plain(q, k, v, causal=causal).float(),
+        **KERNEL_TOL[torch.bfloat16])
+
+
+FAMILY_ARCHS = ("granite-moe-1b-a400m", "llama4-maverick-400b-a17b",
+                "rwkv6-7b", "zamba2-2.7b", "llama-3.2-vision-11b",
+                "whisper-small")
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_serve_smoke_each_family_on_the_card(card, arch):
+    """On the card: each family's smoke config through ``serve``: finite
+    logits, one flash_decode call a decode step and self-attention layer
+    (none for rwkv6), greedy tokens from those logits."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    cfg = get_config(arch).smoke()
+    flash_decode.launches = 0
+    r = serve.serve(cfg, batch=2, prompt_len=8, gen=4, device="cuda")
+    layers = {"ssm": 0,
+              "hybrid": cfg.num_layers // (cfg.shared_attn_every or 1)
+              }.get(cfg.family, cfg.num_layers)
+    assert flash_decode.launches == 3 * layers
+    assert torch.isfinite(r.logits.float()).all()
+    assert torch.equal(r.tokens, r.logits.argmax(-1).T)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("arch", ("granite-moe-1b-a400m", "whisper-small"))
+def test_train_smoke_of_a_family_on_the_card(card, arch):
+    """On the card: ``train --arch <a> --smoke --steps 2`` with finite
+    losses, every flash_attention launch on the tensor cores."""
+    for name in ("launches", "tensor_core_launches", "cuda_core_launches"):
+        setattr(flash_attention, name, 0)
+    r = T.main(["--arch", arch, "--smoke", "--steps", "2"])
+    assert len(r.losses) == 2 and all(np.isfinite(r.losses))
+    assert flash_attention.launches == flash_attention.tensor_core_launches
+    assert flash_attention.launches > 0 and \
+        flash_attention.cuda_core_launches == 0
 
 
 # ---------------------------------------------------------------------------

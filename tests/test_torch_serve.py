@@ -137,9 +137,25 @@ def test_config_copies_agree_with_reference(arch):
     assert {"remat", "optimizer", "grad_compress"} <= kept
 
 
-def test_only_dense_models_are_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LM(get_config("granite-moe-1b-a400m").smoke())
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_lm_builds_every_arch_with_the_reference_param_tree(arch):
+    """Every family builds, and its full-size parameter tree equals the
+    reference's path for path in shape and dtype (definitions only, no
+    allocation): the f32 router and the rest in bf16."""
+    ref, port = RefLM(ref_get_config(arch)), LM(get_config(arch))
+
+    def flat(tree, pre=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from flat(v, f"{pre}{k}.")
+            else:
+                yield f"{pre}{k}", v
+
+    want = {n: (tuple(s.shape), str(s.dtype)) for n, s in flat(ref.shapes())}
+    got = {n: (tuple(d.shape), str(d.dtype).removeprefix("torch."))
+           for n, d in flat(port.param_defs())}
+    assert got == want
+    assert param_count(port.param_defs()) == ref_param_count(ref.param_defs())
 
 
 def test_serve_cli_runs_on_cpu():
@@ -177,6 +193,7 @@ def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 10
+    assert REPO / "src" / "repro_torch" / "models" / "ssm.py" in files
     hits = [f"{f.relative_to(REPO)}: {m.group(0).strip()}"
             for f in files for m in _FORBIDDEN.finditer(f.read_text())]
     assert hits == []
