@@ -4,6 +4,9 @@
     python3 chip_smoke.py --phase sim   # phases 1, 2, Table I on the host, 7c
     python3 chip_smoke.py --phase multi # phases 1, 2, 7e
     python3 chip_smoke.py --phase families  # phases 1, 2, 4b
+    python3 chip_smoke.py --phase train # phases 1, 2, 3b, 6 (with the
+                                        # "dots" leg and the mesh), and
+                                        # 4b's zamba2 training
 
 Drives the port (``src/repro_torch``) only. Phases, each printing its own
 lines:
@@ -30,11 +33,15 @@ lines:
              model's strided layout, the training shape included; at the
              bf16 kernel's tile edges (S = 1, 127, 128, 129, 255), Sq !=
              Skv around 128 and a batch slice with a batch stride that is
-             not dense, and at head dim 16 at S = 1, 127, 128, 129. Checks
-             that every bf16 call went to the tensor-core kernel and every
-             f32 call to the CUDA-core one, prints the bf16 kernel's
-             registers, spills and shared memory, and times the kernel, the
-             plain version and SDPA at the training shape.
+             not dense, and at head dims 16, 48, 80, 96 and 112 at S = 1,
+             127, 128, 129 (the last four also in the model's layout, at Sq
+             != Skv and in a batch slice), and at zamba2's training shape
+             (d = 80). Checks that every bf16 call went to the tensor-core
+             kernel and every f32 call to the CUDA-core one, prints the bf16
+             kernel's registers, spills (failing on any) and shared memory
+             at every head dim, and times the kernel, the plain version and
+             SDPA at llama3-8b's training shape and, on both routes, at
+             zamba2's.
 4. serve   — llama3-8b at full width and depth (random weights from a seed)
              through ``repro_torch.launch.serve``: batch 4, prompt 128, 32
              generated tokens. Checks finite logits, the kernel's launch
@@ -62,9 +69,11 @@ lines:
              and causal at granite's training shape); granite-moe trained
              at full width and depth (4 steps of 2 x 4096 tokens: losses
              finite, the router aux in the loss, launch count, step ms,
-             tok/s, model TFLOP/s, peak memory); zamba2's full-width
-             training refusing hd 80 before any launch; ``train --arch <a>
-             --smoke --steps 4`` for each of the six.
+             tok/s, model TFLOP/s, peak memory) and zamba2-2.7b the same
+             way (54 layers, head dim 80: 9 shared-block applications a
+             step through the tensor-core kernel; its traced step records
+             the device alone); ``train --arch <a> --smoke --steps 4`` for
+             each of the six.
 5. profile — device time by kernel over two decode steps, the split and
              combine kernels of flash_decode wherever they rank.
 6. train   — llama3-8b at full width and 8 layers (random weights from a
@@ -76,6 +85,13 @@ lines:
              same gradients, holds one bf16 loss and layer 0's attention
              through the kernel against the plain (blockwise) branch, and
              an f32 loss and gradients at 2 layers through both branches.
+             Then the same training under remat="dots" (the products'
+             outputs kept): its first loss equal to "full"'s within the
+             bf16 bar, 2 x layers x steps launches (the kernel is
+             recomputed), step ms and peak memory beside "full"'s; and the
+             mesh: ``make_smoke_mesh()`` on the card (one rank, nccl) and
+             every parameter distributed under ``train_shardings``, each
+             rank's shape and values the global ones.
 6b. train smoke — ``python -m repro_torch.launch.train --smoke --steps 4``
              on the card (the smoke config: head dim 16, 4 x 128 tokens).
              Checks finite losses and that every flash_attention launch took
@@ -229,6 +245,11 @@ ARCH, BATCH, PROMPT, GEN = "llama3-8b", 4, 128, 32
 # 256 (train_4k), so that bf16 weights, f32 AdamW moments and the loss's
 # [B, S, V] temporaries fit one 80 GB card
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2, 4096, 4
+# the flash_attention head dims that are no power of two, and zamba2's
+# training call (its shared block: 32 heads of 80, no GQA, causal)
+NEW_HEAD_DIMS = (48, 80, 96, 112)
+ZAMBA2_ATTENTION = (TRAIN_BATCH, 32, 32, TRAIN_SEQ, TRAIN_SEQ, 80, True,
+                    "model")
 
 # the compile path: Table I's designs at benchmarks/cascade_tables.py's move
 # budget, and tests/test_predication.py's pins at place_moves=40: (design
@@ -280,7 +301,9 @@ FAMILY_ARCHS = ("granite-moe-1b-a400m", "llama4-maverick-400b-a17b",
                 "whisper-small")
 FULL_DEPTH = {"llama4-maverick-400b-a17b": 48}
 FAMILY_DEPTH = {"llama4-maverick-400b-a17b": 2}
-FAMILY_TRAIN = "granite-moe-1b-a400m"
+# trained at full width and depth: granite-moe, and zamba2 (head dim 80; its
+# 2.42 B parameters take ~29 GB at 12 bytes a parameter)
+FAMILY_TRAIN = ("granite-moe-1b-a400m", "zamba2-2.7b")
 
 
 def log(phase: str, msg: str) -> None:
@@ -549,11 +572,22 @@ def phase_flash_attention(dev) -> dict:
               for c in (True, False)]
     cases += [(2, 4, 2, 257, 257, d, True, "batch_slice")
               for d in (32, 64, 128)]
-    # head dim 16 (the smoke configs') at the bf16 tile's edges, GQA
-    cases += [(2, 4, 2, s, s, 16, c, "dense")
+    # head dim 16 (the smoke configs') and the dims that are no power of two
+    # (48, 80: zamba2's, 96, 112; the bf16 kernel cuts their rows into
+    # 16-column boxes) at the bf16 tile's edges, GQA; those four also in the
+    # model's layout, Sq != Skv and with a batch stride that is not dense
+    cases += [(2, 4, 2, s, s, d, c, "dense")
+              for d in (16,) + NEW_HEAD_DIMS
               for s in (1, 127, 128, 129) for c in (True, False)]
+    cases += [(2, 8, kv, 300, 300, d, c, "model")
+              for d in NEW_HEAD_DIMS for kv, c in ((8, True), (2, False))]
+    cases += [(1, 4, 2, sq, skv, d, True, "dense")
+              for d in NEW_HEAD_DIMS for sq, skv in ((127, 255), (255, 128))]
+    cases += [(2, 4, 2, 257, 257, d, True, "batch_slice")
+              for d in NEW_HEAD_DIMS]
     train = (TRAIN_BATCH, 32, 8, TRAIN_SEQ, TRAIN_SEQ, 128, True, "model")
     cases.append(train)
+    cases.append(ZAMBA2_ATTENTION)
     max_err = 0.0
     flash_attention.tensor_core_launches = 0
     flash_attention.cuda_core_launches = 0
@@ -606,6 +640,7 @@ def phase_flash_attention(dev) -> dict:
         f"S={s} d={d} causal: " + json.dumps(main) + f", roofline share "
         f"{main['bound_ms'] / main['ms']:.4f} (library: SDPA, which rounds "
         f"P to bf16; the kernel feeds P as two bf16 halves)")
+    time_zamba2_attention(inputs, sdpa)
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/flash_attention/csrc/"
                       "flash_attention_wgmma.cu",
@@ -614,15 +649,38 @@ def phase_flash_attention(dev) -> dict:
             "max_abs_err": max_err, **main}
 
 
+def time_zamba2_attention(inputs, sdpa) -> None:
+    """zamba2's training call (B 2, H = KV = 32, S 4096, d 80, causal, the
+    model's layout) on both routes: the kernel, the plain version and SDPA,
+    beside the bound (operations: 4 x 80 flops a kept pair)."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    b, h, kv, s, _, d = ZAMBA2_ATTENTION[:6]
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = inputs(b, h, kv, s, s, d, dtype, "model")
+        dense = [x.contiguous() for x in (q, k, v)]
+        bound_ms, bound_by = attention_bound(q, k, True)
+        r = {"ms": time_ms(lambda *a: flash_attention(*a), [(q, k, v)], 20),
+             "plain_ms": time_ms(flash_attention_plain, [(q, k, v)], 4),
+             "bound_ms": bound_ms, "bound_by": bound_by,
+             "library_ms": time_ms(sdpa, [tuple(dense)], 20)}
+        log("attention", f"flash_attention {str(dtype)[6:]} zamba2 train "
+            f"shape B={b} H={h} KV={kv} S={s} d={d} causal, model layout: "
+            + json.dumps(r) + f", roofline share "
+            f"{r['bound_ms'] / r['ms']:.4f} (library: SDPA)")
+        del q, k, v, dense
+        torch.cuda.empty_cache()
+
+
 def bf16_kernel_resources() -> str:
     """Registers and spills of each head dim's instantiation of the bf16
     kernel, from its ptxas -v build log, and its dynamic shared memory."""
     from repro_torch.kernels import _build
     lib = _build.lib_path("flash_attention")
     log_lines = lib.with_name(lib.name + ".log").read_text().splitlines()
-    smem = importlib.import_module(
-        "repro_torch.kernels.flash_attention.flash_attention"
-    )._kernel_lib().flash_attention_bf16_smem_bytes
+    fa = importlib.import_module(
+        "repro_torch.kernels.flash_attention.flash_attention")
+    smem = fa._kernel_lib().flash_attention_bf16_smem_bytes
     out, hd = [], None
     for line in log_lines:
         found = re.search(r"flash_attention_wgmma_kernelILi(\d+)E", line)
@@ -632,11 +690,14 @@ def bf16_kernel_resources() -> str:
             spills = re.findall(r"(\d+) bytes spill", line)
         elif hd is not None and "registers" in line:
             regs = re.search(r"Used (\d+) registers", line).group(1)
+            if any(int(n) for n in spills):
+                raise RuntimeError(f"flash_attention bf16 d={hd} spills "
+                                   f"registers: {line.strip()}")
             out.append(f"d={hd}: {regs} registers, spill stores/loads "
                        f"{'/'.join(spills)} bytes, {smem(hd)} bytes of "
                        f"dynamic shared memory")
             hd = None
-    if len(out) != len((16, 32, 64, 128)):
+    if len(out) != len(fa.HEAD_DIMS):
         raise RuntimeError(f"bf16 kernel entries not found in {lib}.log")
     # the library's machine code: tensor-core products and TMA loads, and
     # no bf16 instantiation of the CUDA-core kernel
@@ -775,37 +836,46 @@ def phase_profile(r) -> None:
 
 
 def device_profile(phase: str, what: str, step, reps: int,
-                   watch: str = "") -> int:
+                   watch: str = "", trace_cpu: bool = True) -> int:
     """Busy time of the device kernels of ``reps`` warm calls of ``step``,
     the device's idle share over the span from the first kernel's start to
     the last one's end, the kernels that take the most time, and those
-    whose name holds ``watch`` wherever they rank. Returns the number of
-    device kernels recorded."""
+    whose name holds ``watch`` wherever they rank (``trace_cpu=False``
+    traces the device alone, for steps of hundreds of thousands of
+    kernels). Returns the number of device kernels recorded."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(reps):
         step()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if trace_cpu
+                                      else [])
+    with profile(activities=acts) as prof:
         for _ in range(reps):
             step()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    t0 = time.perf_counter()
+    # the profiler's raw events (name, start, end in ns): building its
+    # FunctionEvent tree takes minutes at 10^5-10^6 kernels
+    kernels = [(e.name(), e.start_ns(), e.end_ns())
+               for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA
+               and not e.is_hidden_event()]
+    parse_s = time.perf_counter() - t0
     if not kernels:
         log(phase, "no device time recorded: not measured")
         return 0
-    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    span = (max(e.time_range.end for e in kernels)
-            - min(e.time_range.start for e in kernels)) / 1e3
+    busy = sum(end - start for _, start, end in kernels) / 1e6
+    span = (max(end for _, _, end in kernels)
+            - min(start for _, start, _ in kernels)) / 1e6
     by_name: dict = {}
-    for e in kernels:
-        ms, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    for name, start, end in kernels:
+        ms, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (ms + (end - start) / 1e6, n + 1)
     log(phase, f"{what}: {len(kernels)} device kernels, busy "
         f"{busy:.3f} ms over a {span:.3f} ms device span (idle share "
-        f"{1 - busy / span:.3f})")
+        f"{1 - busy / span:.3f}; the trace read in {parse_s:.1f} s)")
     ranked = sorted(by_name.items(), key=lambda x: -x[1][0])
     for rank, (name, (ms, n)) in enumerate(ranked, 1):
         if rank <= 8 or (watch and watch in name):
@@ -878,10 +948,109 @@ def phase_train(card: str) -> int:
     check_adamw_step(r.model, state["s"], data.batch(TRAIN_STEPS + 1),
                      opt_cfg)
     params = r.state["params"]
+    first_loss, full_peak = r.losses[0], peak
     del r, state
     torch.cuda.empty_cache()
     check_train_branches(cfg, params, data.batch(0))
-    return launches
+    del params
+    torch.cuda.empty_cache()
+    return launches + train_dots(card, cfg, shape, first_loss, step_s,
+                                 full_peak)
+
+
+def train_dots(card: str, cfg, shape, full_loss: float, full_step_s: float,
+               full_peak: float) -> int:
+    """Phase 6's training again under remat="dots" (the matrix products'
+    outputs kept, the rest and the kernel recomputed): the same weights and
+    batches, so the first step's loss equals "full"'s within the bf16 bar;
+    launches, step ms and peak memory beside "full"'s. Then the mesh phase
+    on its parameters."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import train
+
+    dots = cfg.replace(remat="dots")
+    torch.cuda.reset_peak_memory_stats()
+    for name in ("launches", "tensor_core_launches", "cuda_core_launches"):
+        setattr(flash_attention, name, 0)
+    r = train.train(dots, shape, steps=TRAIN_STEPS, device="cuda",
+                    log=lambda m: log("train", m))
+    want = TRAIN_STEPS * train_attention_launches(dots)
+    got = (flash_attention.launches, flash_attention.tensor_core_launches)
+    if want != 2 * dots.num_layers * TRAIN_STEPS or got != (want, want):
+        raise RuntimeError(f"remat='dots': flash_attention (calls, tensor "
+                           f"cores) {got}, want {(want, want)}")
+    if len(r.losses) != TRAIN_STEPS or not all(
+            math.isfinite(x) for x in r.losses):
+        raise RuntimeError(f"remat='dots' losses: {r.losses}")
+    tol = TOL[torch.bfloat16]
+    if not abs(r.losses[0] - full_loss) <= tol * max(1.0, abs(full_loss)):
+        raise RuntimeError(f"remat='dots' first loss {r.losses[0]} against "
+                           f"'full' {full_loss} (tol {tol})")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step_s = sum(r.step_times[1:]) / len(r.step_times[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n = dots.param_count()
+    log("train", f"remat='dots' ({dots.num_layers} layers): losses "
+        f"{[round(x, 4) for x in r.losses]} (first against 'full': "
+        f"{r.losses[0]:.6f} vs {full_loss:.6f}, diff "
+        f"{abs(r.losses[0] - full_loss):.3g}, tol {tol}); flash_attention "
+        f"launches {got[0]} = 2 x {dots.num_layers} layers x {TRAIN_STEPS} "
+        f"steps (the kernel is recomputed), all on the tensor cores")
+    log("train", f"remat='dots' step times (s) "
+        f"{[round(t, 4) for t in r.step_times]}; steps after the first "
+        f"{1e3 * step_s:.1f} ms ('full' {1e3 * full_step_s:.1f}), "
+        f"{tokens / step_s:.1f} tok/s, model "
+        f"{6 * n * tokens / step_s / 1e12:.1f} TFLOP/s, peak memory "
+        f"{peak:.2f} GiB ('full' {full_peak:.2f}, +{peak - full_peak:.2f}), "
+        f"on {card}")
+    phase_mesh(card, r.model, r.state["params"])
+    del r
+    torch.cuda.empty_cache()
+    return got[0]
+
+
+def phase_mesh(card: str, model, params) -> None:
+    """The distributed layer on the card: ``make_smoke_mesh()`` (one rank,
+    nccl, a (1, 1) mesh named ("data", "model")) and every parameter of
+    ``model`` distributed under ``train_shardings``: placements as the
+    shardings give them, each rank's shape the global one, values equal."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.optim.adamw import tree_leaves
+
+    t0 = time.perf_counter()
+    mesh = make_smoke_mesh()
+    try:
+        opt_cfg = S.make_optimizer_config(model.cfg)
+        shape = ShapeSpec("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train")
+        st_sh, b_sh = S.train_shardings(model, opt_cfg, mesh, shape)
+        sharded, nbytes = 0, 0
+        for (m, pl), x in zip(tree_leaves(st_sh["params"]),
+                              tree_leaves(params)):
+            d = distribute_tensor(x, m, pl)
+            local = d.to_local()
+            if (tuple(local.shape) != tuple(x.shape) or local.device !=
+                    x.device or not torch.equal(local, x)):
+                raise RuntimeError(f"mesh: a {tuple(x.shape)} leaf came back "
+                                   f"{tuple(local.shape)} on {local.device}")
+            sharded += any(p.is_shard() for p in pl)
+            nbytes += local.numel() * local.element_size()
+            del d, local
+        torch.cuda.synchronize()
+        n = len(tree_leaves(params))
+        log("mesh", f"make_smoke_mesh(): {mesh} on backend "
+            f"{dist.get_backend()}; {n} parameter leaves of "
+            f"{model.cfg.name} ({model.cfg.num_layers} layers, "
+            f"{nbytes / 2**30:.2f} GiB) distributed under train_shardings "
+            f"({sharded} with a Shard placement on a mesh dim of 1), each "
+            f"rank's shape and values the global ones; batch shardings "
+            f"{ {k: [str(p) for p in v[1]] for k, v in b_sh.items()} }; "
+            f"{time.perf_counter() - t0:.1f} s on {card}")
+    finally:
+        dist.destroy_process_group()
 
 
 def phase_train_smoke(card: str) -> None:
@@ -934,11 +1103,12 @@ def self_attention_layers(cfg) -> int:
 
 def train_attention_launches(cfg) -> int:
     """flash_attention launches one training step of ``cfg`` makes: one a
-    self-attention application, twice where remat="full" recomputes it in
-    backward (the layers the reference's remat wraps: not the hybrid's
-    shared block, the vlm's cross blocks or the MoE layers of an
-    interleave); cross-attention is the einsum."""
-    r = 2 if cfg.remat == "full" else 1
+    self-attention application, twice where remat="full" or "dots"
+    recomputes it in backward (the layers the reference's remat wraps: not
+    the hybrid's shared block, the vlm's cross blocks or the MoE layers of
+    an interleave; "dots" keeps only the products' outputs, and the kernel
+    is no product); cross-attention is the einsum."""
+    r = 2 if cfg.remat in ("full", "dots") else 1
     L = cfg.num_layers
     if cfg.family == "ssm":
         return 0
@@ -1249,9 +1419,11 @@ def family_kernel_shapes(dev) -> dict:
     return rows
 
 
-def train_family(card: str) -> int:
-    """granite-moe at full width and depth through ``train.train``: 4 steps
-    of 2 x 4096 tokens; the router aux in the loss checked on one batch."""
+def train_family(card: str, arch: str) -> int:
+    """``arch`` at full width and depth through ``train.train``: 4 steps of
+    2 x 4096 tokens, every flash_attention launch on the tensor cores, one
+    more step traced; for a MoE, the router aux in the loss checked on one
+    batch."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.data import SyntheticLMData
@@ -1260,7 +1432,7 @@ def train_family(card: str) -> int:
     from repro_torch.launch import train
     from repro_torch.models import LM
 
-    cfg = get_config(FAMILY_TRAIN)
+    cfg = get_config(arch)
     shape = ShapeSpec("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1271,75 +1443,57 @@ def train_family(card: str) -> int:
     got = (flash_attention.launches, flash_attention.tensor_core_launches)
     want = TRAIN_STEPS * train_attention_launches(r.model.cfg)
     if got != (want, want):
-        raise RuntimeError(f"{FAMILY_TRAIN} train: flash_attention (calls, "
-                           f"tensor cores) {got}, want {(want, want)}")
+        raise RuntimeError(f"{arch} train: flash_attention (calls, tensor "
+                           f"cores) {got}, want {(want, want)}")
     if len(r.losses) != TRAIN_STEPS or not all(
             math.isfinite(x) for x in r.losses):
-        raise RuntimeError(f"{FAMILY_TRAIN} train losses: {r.losses}")
+        raise RuntimeError(f"{arch} train losses: {r.losses}")
     peak = torch.cuda.max_memory_allocated() / 2**30
     step_s = sum(r.step_times[1:]) / len(r.step_times[1:])
     tokens = TRAIN_BATCH * TRAIN_SEQ
     n_act = cfg.active_param_count()
     data = SyntheticLMData(cfg, shape, device="cuda")
-    batch = data.batch(0)
     params = r.state["params"]
-    with torch.no_grad():
-        loss = r.model.loss(params, batch).item()
-        base = LM(r.model.cfg.replace(router_aux_coef=0.0)).loss(
-            params, batch).item()
-        _, aux = r.model.forward(params, batch)
-    term = cfg.router_aux_coef * aux.item()
-    if not (math.isfinite(term) and term > 0
-            and abs(loss - base - term) <= 1e-3 * abs(loss)):
-        raise RuntimeError(f"{FAMILY_TRAIN}: loss {loss} - {base} without "
-                           f"the aux != {term}")
-    log("families", f"{FAMILY_TRAIN} train (full width and depth, "
-        f"{cfg.num_layers} layers, {cfg.param_count() / 1e9:.3f} B params, "
-        f"{n_act / 1e9:.3f} B active) {TRAIN_BATCH} x {TRAIN_SEQ} tokens: "
-        f"losses {[round(x, 4) for x in r.losses]}; step times (s) "
+    log("families", f"{arch} train (full width and depth, "
+        f"{cfg.num_layers} layers, head dim {cfg.resolved_head_dim}, "
+        f"{cfg.param_count() / 1e9:.3f} B params, {n_act / 1e9:.3f} B "
+        f"active) {TRAIN_BATCH} x {TRAIN_SEQ} tokens: losses "
+        f"{[round(x, 4) for x in r.losses]}; step times (s) "
         f"{[round(x, 4) for x in r.step_times]}; steps after the first "
         f"{1e3 * step_s:.1f} ms, {tokens / step_s:.1f} tok/s, model "
         f"{6 * n_act * tokens / step_s / 1e12:.1f} TFLOP/s (6 x active "
         f"params x tokens), peak memory {peak:.2f} GiB, on {card}")
-    log("families", f"{FAMILY_TRAIN}: flash_attention {got[0]} calls = "
-        f"{TRAIN_STEPS} steps x {want // TRAIN_STEPS} (remat='full'), all on "
-        f"the tensor cores; the router aux term on step 0's batch "
-        f"{term:.6f} (loss {loss:.6f}, without it {base:.6f})")
+    log("families", f"{arch}: flash_attention {got[0]} calls = "
+        f"{TRAIN_STEPS} steps x {want // TRAIN_STEPS} (remat="
+        f"{cfg.remat!r}), all on the tensor cores")
+    if cfg.num_experts:
+        batch = data.batch(0)
+        with torch.no_grad():
+            loss = r.model.loss(params, batch).item()
+            base = LM(r.model.cfg.replace(router_aux_coef=0.0)).loss(
+                params, batch).item()
+            _, aux = r.model.forward(params, batch)
+        term = cfg.router_aux_coef * aux.item()
+        if not (math.isfinite(term) and term > 0
+                and abs(loss - base - term) <= 1e-3 * abs(loss)):
+            raise RuntimeError(f"{arch}: loss {loss} - {base} without the "
+                               f"aux != {term}")
+        log("families", f"{arch}: the router aux term on step 0's batch "
+            f"{term:.6f} (loss {loss:.6f}, without it {base:.6f})")
+        del batch
     opt_cfg = S.make_optimizer_config(cfg, total_steps=TRAIN_STEPS)
     step_fn = S.make_train_step(r.model, opt_cfg)
     state = {"s": r.state}
 
     def one_step():
         state["s"], _ = step_fn(state["s"], data.batch(TRAIN_STEPS))
-    device_profile("families", f"{FAMILY_TRAIN}: 1 train step", one_step,
-                   reps=1, watch="flash_attention")
-    del r, params, batch, state
+    # a step of the Mamba2 stack is ~10^5 kernels: trace the device alone
+    device_profile("families", f"{arch}: 1 train step", one_step, reps=1,
+                   watch="flash_attention",
+                   trace_cpu=cfg.family != "hybrid")
+    del r, params, state
     torch.cuda.empty_cache()
     return got[0]
-
-
-def zamba2_train_refusal() -> None:
-    """zamba2's head dim 80 is not one flash_attention takes: its training
-    forward raises before any launch, with no padding and no other route."""
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.models import LM
-
-    cfg = family_config("zamba2-2.7b").replace(num_layers=6, use_flash=True)
-    m = LM(cfg)
-    params = m.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
-    toks = torch.zeros((1, 128), dtype=torch.long, device="cuda")
-    before = flash_attention.launches
-    try:
-        m.loss(params, {"tokens": toks, "labels": toks})
-    except ValueError as e:
-        if "head dims" not in str(e) or flash_attention.launches != before:
-            raise
-        log("families", f"zamba2-2.7b full-width training refuses, before "
-            f"any launch: {e}")
-    else:
-        raise RuntimeError("zamba2 trained at head dim 80")
-    del params
-    torch.cuda.empty_cache()
 
 
 def train_smoke_families(card: str) -> int:
@@ -1385,8 +1539,8 @@ def phase_families(dev, card: str) -> tuple:
     for arch in FAMILY_ARCHS:
         family_branches(arch)
     rows = family_kernel_shapes(dev)
-    fa += train_family(card)
-    zamba2_train_refusal()
+    for arch in FAMILY_TRAIN:
+        fa += train_family(card, arch)
     fa += train_smoke_families(card)
     log("families", f"phase took {time.perf_counter() - t0:.1f} s on {card}")
     return fd, fa, rows
@@ -3452,9 +3606,9 @@ def print_ok() -> None:
 
 def main(argv) -> int:
     if argv not in ([], ["--phase", "sim"], ["--phase", "multi"],
-                    ["--phase", "families"]):
+                    ["--phase", "families"], ["--phase", "train"]):
         raise SystemExit("usage: python3 chip_smoke.py "
-                         "[--phase sim|multi|families]")
+                         "[--phase sim|multi|families|train]")
     card = phase_device()
     # f32 comparisons run in full f32: no TF32 in matmuls or convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3468,6 +3622,12 @@ def main(argv) -> int:
         return 0
     if argv == ["--phase", "families"]:     # phases 1, 2, 4b
         phase_families(dev, card)
+        print_ok()
+        return 0
+    if argv == ["--phase", "train"]:    # phases 1, 2, 3b, 6, 4b's zamba2
+        phase_flash_attention(dev)
+        phase_train(card)
+        train_family(card, "zamba2-2.7b")
         print_ok()
         return 0
     if argv:                    # phases 1, 2, Table I on the host, 7c

@@ -84,10 +84,17 @@ class ModelConfig:
     tie_embeddings: bool = False
     z_loss: float = 1e-4
 
-    # -- performance knobs ---------------------------------------------------
-    # The JAX package's sharding knobs are left out: the port runs on one
-    # device, so nothing would read them.
+    # -- sharding / performance knobs -----------------------------------------
+    # The sharding knobs choose the rules ``launch.steps.rules_for`` resolves
+    # on a DeviceMesh; the reference's ``attn_shard`` and ``scan_layers`` are
+    # left out (nothing reads the first, and the port loops over layers).
+    fsdp: bool = False               # shard params over the data axis too (ZeRO-3)
     remat: str = "full"              # "none" | "full" | "dots" — per-layer remat
+    sharding_profile: str = "tp"     # "tp" (Megatron TP over model) | "dp"
+                                     # (pure data parallel; model axis joins
+                                     # batch) | "zero3cp"
+    sequence_parallel: bool = False  # shard residual seq axis over "model"
+    decode_cache_shard: str = "head_dim"   # "head_dim" | "seq"
     use_flash: bool = False          # the flash_decode / flash_attention kernels
     attn_impl: str = "auto"          # "auto" | "einsum" | "blockwise" | "flash"
     optimizer: str = "adamw"         # "adamw" | "adamw_wsd"

@@ -16,4 +16,5 @@ CONFIG = ModelConfig(
     vocab_size=152064,
     qkv_bias=True,
     rope_theta=1_000_000.0,
+    sequence_parallel=True,  # shards the residual's seq axis over "model"
 )

@@ -1,3 +1,3 @@
-from .pipeline import SyntheticLMData
+from .pipeline import SyntheticLMData, batch_logical_axes, batch_specs
 
-__all__ = ["SyntheticLMData"]
+__all__ = ["SyntheticLMData", "batch_specs", "batch_logical_axes"]

@@ -9,8 +9,13 @@ D] or ``frames`` [B, 1500, D] drawn from the same generator and rounded to
 bf16), so for the same (seed, step) the port trains on exactly the
 reference's arrays; a restarted run replays the stream it would have seen.
 Batches come back on ``device``: tokens and labels as int64, the embeddings
-as bf16. The reference's ``batch_specs`` / ``batch_logical_axes`` serve
-its sharded dry run and are not ported.
+as bf16.
+
+``batch_specs`` gives every model input of a cell as a meta tensor (no
+allocation) and ``batch_logical_axes`` its logical axes, the reference's
+shapes and names, for the sharding trees of ``launch.steps``. Token leaves
+are int64 there too, where the reference's are int32: they describe the
+port's batches, and torch's embedding and gather take int64 indices.
 """
 
 from __future__ import annotations
@@ -23,6 +28,33 @@ import torch
 
 from repro_torch.configs.base import AUDIO_FRAMES, ModelConfig, ShapeSpec
 from repro_torch.device import resolve_device
+
+
+def batch_specs(cfg: ModelConfig, shape: ShapeSpec) -> Dict[str, torch.Tensor]:
+    """Meta-tensor stand-ins for every model input of this cell."""
+    b, s = shape.global_batch, shape.seq_len
+
+    def meta(shape_, dtype):
+        return torch.empty(shape_, dtype=dtype, device="meta")
+    if shape.kind == "decode":        # one new token against a seq_len cache
+        return {"tokens": meta((b, 1), torch.int64)}
+    out = {"tokens": meta((b, s), torch.int64)}
+    if shape.kind == "train":
+        out["labels"] = meta((b, s), torch.int64)
+    if cfg.family == "vlm":
+        out["image_embeds"] = meta((b, cfg.num_image_tokens, cfg.d_model),
+                                   torch.bfloat16)
+    if cfg.family == "audio":
+        out["frames"] = meta((b, AUDIO_FRAMES, cfg.d_model), torch.bfloat16)
+    return out
+
+
+def batch_logical_axes(cfg: ModelConfig, shape: ShapeSpec
+                       ) -> Dict[str, tuple]:
+    axes = {"tokens": ("batch", "seq"), "labels": ("batch", "seq"),
+            "image_embeds": ("batch", None, "embed"),
+            "frames": ("batch", None, "embed")}
+    return {k: axes[k] for k in batch_specs(cfg, shape)}
 
 
 @dataclasses.dataclass

@@ -38,6 +38,9 @@
 //     reduce its max and sum with 4 shuffles, and the probabilities go
 //     through shared memory only within that half-warp.
 //   * The products are f32 FMAs on CUDA cores, as the reference's f32 dots.
+//   * Head dims 16 to 128 in steps of 16: a thread's d/16 accumulator
+//     columns are read from V in 16-byte loads where d/16 is a multiple of
+//     4 (d = 64, 128), one float at a time otherwise.
 //
 // Plain C interface, loaded with ctypes (repro_torch/kernels/_build.py).
 
@@ -126,6 +129,7 @@ constexpr size_t smem_bytes(int hd, int bq, int bk) {
 template <int HD, int RQ, int CK>
 __global__ void __launch_bounds__(kThreads, 2)
     flash_attention_kernel(const Params prm) {
+  static_assert(HD % 16 == 0 && HD >= 16 && HD <= 128, "head dim");
   constexpr int BQ = 16 * RQ, BK = 16 * CK;
   constexpr int EPC = 4;  // floats per 16 bytes
   constexpr int LD = HD + EPC;
@@ -302,7 +306,7 @@ int launch(const Params& prm, int BH, cudaStream_t stream) {
 
 extern "C" {
 
-// f32 only; hd in {16, 32, 64, 128}.
+// f32 only; hd a multiple of 16 from 16 to 128.
 // Pointers are device pointers, 16-byte aligned, with the strides (in
 // elements) of the batch, head and sequence dims given in `strides` as
 // q, k, v, o triples; the last dim is contiguous and every stride a multiple
@@ -318,10 +322,16 @@ int flash_attention_f32_launch(const void* q, const void* k, const void* v,
              scale, strides[0], strides[1], strides[2], strides[3],
              strides[4], strides[5], strides[6], strides[7], strides[8],
              strides[9], strides[10], strides[11]};
-  if (hd == 16) return launch<16>(prm, B * H, stream);
-  if (hd == 32) return launch<32>(prm, B * H, stream);
-  if (hd == 64) return launch<64>(prm, B * H, stream);
-  if (hd == 128) return launch<128>(prm, B * H, stream);
+  switch (hd) {
+    case 16: return launch<16>(prm, B * H, stream);
+    case 32: return launch<32>(prm, B * H, stream);
+    case 48: return launch<48>(prm, B * H, stream);
+    case 64: return launch<64>(prm, B * H, stream);
+    case 80: return launch<80>(prm, B * H, stream);
+    case 96: return launch<96>(prm, B * H, stream);
+    case 112: return launch<112>(prm, B * H, stream);
+    case 128: return launch<128>(prm, B * H, stream);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

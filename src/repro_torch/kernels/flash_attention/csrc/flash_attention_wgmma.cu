@@ -18,7 +18,9 @@
 // causal): operations. 4*d flops a kept (query, key) pair, QK and PV, are
 // ~0.28 ms at 989 TFLOP/s, against ~168 MB of q, k, v and o (~0.05 ms at
 // 3.35 TB/s). This kernel does 6*d a pair, see P below: its own floor is
-// ~0.42 ms.
+// ~0.42 ms. At zamba2's training shape (B=2, H=KV=32, S=4096, d=80,
+// causal) the same counts give ~0.174 ms of operations against ~0.050 ms
+// of bytes, and a floor of ~0.26 ms for this kernel.
 //
 // Design:
 //   * One block of three warpgroups per (b*h, tile of 128 query rows). The
@@ -30,14 +32,17 @@
 //     stages, with a full and an empty mbarrier per stage. It gives up
 //     registers (setmaxnreg) to the two consumer warpgroups 0 and 1, each
 //     of which owns 64 query rows (wgmma's M).
-//   * Tensor maps are 4-D (d, S, heads, B) over the view's byte strides, so
-//     strided views need no copy. Rows past Sq or Skv load as zeros. A row
-//     of d bf16 values is swizzled at 128 bytes (d = 64, 128; two boxes a
-//     row at d = 128), 64 bytes (d = 32) or 32 bytes (d = 16); the wgmma
-//     descriptors name the same swizzle.
+//   * Head dims 16 to 128 in steps of 16, none padded. Tensor maps are 4-D
+//     (d, S, heads, B) over the view's byte strides, so strided views need
+//     no copy. Rows past Sq or Skv load as zeros. A tile is cut into boxes
+//     of 128 rows by one swizzle span of columns: 128 bytes where d is a
+//     multiple of 64 (one box a row at d = 64, two at d = 128), 64 bytes at
+//     d = 32, and 32 bytes (16 columns) at every other d, d / 16 boxes a
+//     row (d = 16, 48, 80, 96, 112); the wgmma descriptors name the same
+//     swizzle.
 //   * S = Q K^T: wgmma m64n128k16 with both operands K-major in shared
-//     memory, accumulated in 64 f32 registers a thread (one k16 step at
-//     d = 16).
+//     memory, accumulated in 64 f32 registers a thread, d / 16 k16 steps
+//     (at a 32-byte swizzle one box a step).
 //   * The online softmax runs on that fragment: the four threads sharing a
 //     row reduce its max with two shuffles; exp2f with scale*log2(e)
 //     folded in; masks only on tiles that cross the causal frontier or Skv;
@@ -48,7 +53,11 @@
 //     P rounded once to bf16 misses the port's bar against the plain
 //     version (rtol 1e-2, atol 1e-3) where a few large p*v terms cancel,
 //     hi + lo keeps p to ~16 bits. V is d-contiguous, so B is MN-major
-//     (the transpose bit).
+//     (the transpose bit). One m64n{d}k16 a 16-key step (N = d is a legal
+//     wgmma N at every d taken) whose descriptor steps one box between
+//     swizzle spans of columns (its leading byte offset): the accumulator
+//     stays one d / 2-register fragment, and the tensor cores see one
+//     product of the full width instead of d / 16 narrow ones.
 //   * Epilogue: the `l == 0` guard, divide by l, bf16 stores through the
 //     output's strides; rows at or past Sq are never written.
 //
@@ -76,7 +85,9 @@ constexpr float kNegInf = -1e30f;
 // Shared-memory geometry of a 128-row tile of d bf16 values.
 template <int HD>
 struct Geom {
-  static constexpr int kSwizzle = HD * 2 < 128 ? HD * 2 : 128;  // bytes
+  static_assert(HD % 16 == 0 && HD >= 16 && HD <= 128, "head dim");
+  static constexpr int kSwizzle =  // bytes
+      HD % 64 == 0 ? 128 : (HD == 32 ? 64 : 32);
   static constexpr int kBoxCols = kSwizzle / 2;   // elements a box row
   static constexpr int kBoxes = HD / kBoxCols;    // boxes a tile row
   static constexpr int kBoxBytes = 128 * kSwizzle;
@@ -183,7 +194,11 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[HD / 2],
                                          const uint32_t* a, uint64_t db) {
   if constexpr (HD == 16) wgmma_rs_n16(o, a, db, 1);
   if constexpr (HD == 32) wgmma_rs_n32(o, a, db, 1);
+  if constexpr (HD == 48) wgmma_rs_n48(o, a, db, 1);
   if constexpr (HD == 64) wgmma_rs_n64(o, a, db, 1);
+  if constexpr (HD == 80) wgmma_rs_n80(o, a, db, 1);
+  if constexpr (HD == 96) wgmma_rs_n96(o, a, db, 1);
+  if constexpr (HD == 112) wgmma_rs_n112(o, a, db, 1);
   if constexpr (HD == 128) wgmma_rs_n128(o, a, db, 1);
 }
 
@@ -264,7 +279,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 
     // K-major operands (Q, K): 8-row groups one swizzle span of rows apart.
-    // V (MN-major): 8-key groups the same, 64-column boxes a box apart.
+    // V (MN-major): 8-key groups the same, spans of columns a box apart.
     constexpr uint32_t kGroup = 8 * G::kSwizzle;
     const uint32_t q_wg = q_s + wg * 64 * G::kSwizzle;
 
@@ -462,7 +477,7 @@ int launch(const void* q, const void* k, const void* v, const Params& prm,
 
 extern "C" {
 
-// bf16 only; hd in {16, 32, 64, 128}. Pointers are device pointers, 16-byte
+// bf16 only; hd a multiple of 16 from 16 to 128. Pointers are device pointers, 16-byte
 // aligned, with the strides (in elements) of the batch, head and sequence
 // dims given in `strides` as q, k, v, o triples; the last dim is
 // contiguous and every stride a multiple of 16 bytes below 2^40 bytes.
@@ -480,20 +495,32 @@ int flash_attention_bf16_launch(const void* q, const void* k, const void* v,
   const Params prm{static_cast<__nv_bfloat16*>(o), strides[9], strides[10],
                    strides[11], H, H / KV, Sq, Skv, (Sq + kBQ - 1) / kBQ,
                    causal, scale * 1.4426950408889634f};
-  if (hd == 16) return launch<16>(q, k, v, prm, B, KV, strides, stream);
-  if (hd == 32) return launch<32>(q, k, v, prm, B, KV, strides, stream);
-  if (hd == 64) return launch<64>(q, k, v, prm, B, KV, strides, stream);
-  if (hd == 128) return launch<128>(q, k, v, prm, B, KV, strides, stream);
+  switch (hd) {
+    case 16: return launch<16>(q, k, v, prm, B, KV, strides, stream);
+    case 32: return launch<32>(q, k, v, prm, B, KV, strides, stream);
+    case 48: return launch<48>(q, k, v, prm, B, KV, strides, stream);
+    case 64: return launch<64>(q, k, v, prm, B, KV, strides, stream);
+    case 80: return launch<80>(q, k, v, prm, B, KV, strides, stream);
+    case 96: return launch<96>(q, k, v, prm, B, KV, strides, stream);
+    case 112: return launch<112>(q, k, v, prm, B, KV, strides, stream);
+    case 128: return launch<128>(q, k, v, prm, B, KV, strides, stream);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Dynamic shared memory a block of the kernel takes at head dim hd, in
 // bytes (0 for a head dim it does not take).
 int flash_attention_bf16_smem_bytes(int hd) {
-  if (hd == 16) return static_cast<int>(Geom<16>::kSmem);
-  if (hd == 32) return static_cast<int>(Geom<32>::kSmem);
-  if (hd == 64) return static_cast<int>(Geom<64>::kSmem);
-  if (hd == 128) return static_cast<int>(Geom<128>::kSmem);
+  switch (hd) {
+    case 16: return static_cast<int>(Geom<16>::kSmem);
+    case 32: return static_cast<int>(Geom<32>::kSmem);
+    case 48: return static_cast<int>(Geom<48>::kSmem);
+    case 64: return static_cast<int>(Geom<64>::kSmem);
+    case 80: return static_cast<int>(Geom<80>::kSmem);
+    case 96: return static_cast<int>(Geom<96>::kSmem);
+    case 112: return static_cast<int>(Geom<112>::kSmem);
+    case 128: return static_cast<int>(Geom<128>::kSmem);
+  }
   return 0;
 }
 

@@ -31,7 +31,7 @@ from .. import _build
 from .ref import flash_attention_plain
 
 _DTYPES = (torch.float32, torch.bfloat16)
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = tuple(range(16, 129, 16))   # 16, 32, ..., 128
 # Query rows a block of the bf16 kernel: its q tiles run on the grid's y
 # axis, B*H on x; the f32 kernel has B*H on y.
 BF16_BQ = 128
@@ -187,9 +187,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Inputs may be strided views (the model passes its [B, S, H, d]
     activations transposed); the output has q's layout.
 
-    Head dims 16, 32, 64 and 128 in f32 or bf16. The tiles are fixed (bf16: 128
-    query rows by 128 keys; f32: 64 by 64), so the reference's ``bq`` /
-    ``bk`` options are not taken.
+    Head dims 16 to 128 in steps of 16 (``HEAD_DIMS``: zamba2's 80
+    included), in f32 or bf16, with no padded copy. The tiles are fixed
+    (bf16: 128 query rows by 128 keys; f32: 64 by 64), so the reference's
+    ``bq`` / ``bk`` options are not taken.
 
     CPU tensors take the plain version, with ordinary autograd; CUDA tensors
     launch the kernel (backward through the plain version), and anything the

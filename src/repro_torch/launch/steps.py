@@ -1,22 +1,77 @@
-"""Step functions for training and serving.
+"""Step functions and sharding trees for training and serving.
 
-One device, so the reference's sharding trees (``rules_for``,
-``train_shardings``, ``serve_shardings``) and its jit are left out: the
-steps run eagerly.
+The steps run eagerly (the reference's jit has no counterpart here). The
+sharding trees are the reference's, over a ``DeviceMesh``: ``rules_for``
+picks a config's rules, and ``train_shardings`` / ``serve_shardings`` give
+``(mesh, placements)`` for every leaf of the state, the batch and the cache,
+what ``distribute_tensor`` takes.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeSpec
+from repro_torch.data.pipeline import batch_logical_axes, batch_specs
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import LM
 from repro_torch.models.params import Tree
-from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+from repro_torch.optim import (AdamWConfig, adamw_init, adamw_state_axes,
+                               adamw_state_shapes, adamw_update)
 from repro_torch.optim.adamw import tree_leaves, tree_map
+
+
+def rules_for(cfg: ModelConfig, *, params: bool = False) -> Dict[str, Any]:
+    """Sharding rules for this config (activation rules by default; the
+    param-only FSDP overlay with params=True).
+
+    Profiles (hillclimb levers):
+      "tp"      — Megatron TP over "model" (the baseline rules)
+      "dp"      — pure data parallelism: the model axis joins the batch axes
+                  and all weights replicate (layers too small to amortize TP
+                  collectives)
+      "zero3cp" — context parallelism plus output-dim ZeRO-3: activations
+                  shard (batch, seq) and never the feature dims; weights are
+                  stored sharded over (data x model) on their OUTPUT dim
+                  (the "__reverse__" resolution) and gathered at use
+    """
+    rules = dict(shd.BASE_RULES)
+    if cfg.sharding_profile == "dp":
+        rules.update(
+            batch=("pod", "data", "model"),
+            cache_batch=("pod", "data", "model"),
+            vocab=None, qkv=None, heads=None, mlp=None,
+            ssm_inner=None, ssm_heads=None,
+            embed_shard=None, cache_hd=None,
+            expert="model" if cfg.num_experts else None,
+        )
+    elif cfg.sharding_profile == "zero3cp":
+        rules.update(
+            batch=("pod", "data"), seq="model",
+            vocab=None, qkv=None, heads=None, mlp=None,
+            ssm_inner=None, ssm_heads=None, embed_shard=None,
+            expert="model" if cfg.num_experts else None,
+            __gather_weights__=True,       # explicit gather at use
+        )
+        if params:
+            two_d = ("data", "model")
+            rules.update(qkv=two_d, mlp=two_d, embed=two_d, vocab=two_d,
+                         vocab_rep=None, embed_shard=two_d,
+                         ssm_inner=two_d, ssm_heads=two_d, lora=two_d,
+                         __reverse__=True, __gather_weights__=False)
+    if cfg.sequence_parallel:
+        # residual/norm activations shard their seq axis over "model"
+        rules["seq"] = "model"
+    if cfg.decode_cache_shard == "seq":
+        rules.update(cache_seq="model", cache_hd=None)
+    if params and cfg.fsdp and cfg.sharding_profile == "tp":
+        # ZeRO-3 overlay: weights' embed-ish axes also shard over data
+        rules.update(embed="data", vocab_rep="data", mlp_fsdp="data")
+    return rules
 
 
 def make_optimizer_config(cfg: ModelConfig, total_steps: int = 10_000
@@ -61,6 +116,32 @@ def make_train_step(model: LM, opt_cfg: AdamWConfig):
     return train_step
 
 
+def train_state_shapes(model: LM, opt_cfg: AdamWConfig) -> Tree:
+    ps = model.shapes()
+    return {"params": ps, "opt": adamw_state_shapes(ps, opt_cfg)}
+
+
+def train_state_axes(model: LM, opt_cfg: AdamWConfig) -> Tree:
+    ax = model.logical_axes()
+    return {"params": ax, "opt": adamw_state_axes(ax, opt_cfg)}
+
+
+def train_shardings(model: LM, opt_cfg: AdamWConfig, mesh: DeviceMesh,
+                    shape: ShapeSpec) -> Tuple[Tree, Tree]:
+    """(state shardings, batch shardings) for this mesh: ``(mesh,
+    placements)`` a leaf."""
+    cfg = model.cfg
+    with shd.use_mesh(mesh):
+        st_specs = shd.specs_for_tree(train_state_axes(model, opt_cfg),
+                                      train_state_shapes(model, opt_cfg),
+                                      rules=rules_for(cfg, params=True))
+        b_specs = shd.specs_for_tree(batch_logical_axes(cfg, shape),
+                                     batch_specs(cfg, shape),
+                                     rules=rules_for(cfg))
+    return (shd.named_shardings(mesh, st_specs),
+            shd.named_shardings(mesh, b_specs))
+
+
 def init_train_state(model: LM, opt_cfg: AdamWConfig,
                      generator: torch.Generator,
                      device: Optional[torch.device] = None) -> Tree:
@@ -88,3 +169,21 @@ def make_decode_step(model: LM):
                     pos: int) -> Tuple[torch.Tensor, Tree]:
         return model.decode_step(params, batch, cache, pos)
     return decode_step
+
+
+def serve_shardings(model: LM, mesh: DeviceMesh, shape: ShapeSpec
+                    ) -> Tuple[Tree, Tree, Tree]:
+    """(param, batch, cache) shardings for a serve cell."""
+    cfg = model.cfg
+    rules = rules_for(cfg)
+    b, s = shape.global_batch, shape.seq_len
+    with shd.use_mesh(mesh):
+        p_specs = shd.specs_for_tree(model.logical_axes(), model.shapes(),
+                                     rules=rules_for(cfg, params=True))
+        b_specs = shd.specs_for_tree(batch_logical_axes(cfg, shape),
+                                     batch_specs(cfg, shape), rules=rules)
+        c_specs = shd.specs_for_tree(model.cache_logical_axes(b, s),
+                                     model.cache_shapes(b, s), rules=rules)
+    return (shd.named_shardings(mesh, p_specs),
+            shd.named_shardings(mesh, b_specs),
+            shd.named_shardings(mesh, c_specs))

@@ -11,7 +11,7 @@ Attention runs one of five ways:
   ``flash_decode`` CUDA kernel;
 * with a KV cache otherwise: an einsum directly in cache layout;
 * without a cache, by ``impl``: the ``flash_attention`` CUDA kernel
-  (``"flash"``, the training path), online softmax over 512-row blocks in
+  through ``gqa_attention`` (``"flash"``, the training path), online softmax over 512-row blocks in
   plain torch (``"blockwise"``) or the full-score einsum (``"einsum"``).
 
 Cross-attention (``memory=``) takes keys and values from the memory and
@@ -20,6 +20,10 @@ an f32 router, top-k with renormalised gates, a stable sort of the
 (token, choice) pairs by expert into a dense [B, E, capacity, D] block
 (pairs past an expert's capacity are dropped), the experts' SwiGLU as
 batched products, and a token-side gather to combine.
+
+The reference's activation constraints (``shard`` and the weight gather
+``GW``) are not applied: the model runs on plain tensors, and
+``repro_torch.distributed.sharding`` carries both for a model on DTensors.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import gqa_attention
 from repro_torch.kernels.flash_decode import flash_decode
 from .params import ParamDef
 
@@ -59,9 +63,10 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 def norm_defs(d: int, with_bias: bool = False,
               prefix: Tuple[int, ...] = ()) -> Tree:
-    out = {"scale": ParamDef(prefix + (d,), init="ones")}
+    ax = ("layers",) * len(prefix)
+    out = {"scale": ParamDef(prefix + (d,), ax + ("embed",), init="ones")}
     if with_bias:
-        out["bias"] = ParamDef(prefix + (d,), init="zeros")
+        out["bias"] = ParamDef(prefix + (d,), ax + ("embed",), init="zeros")
     return out
 
 
@@ -101,16 +106,17 @@ def attention_defs(cfg, layers: int = 0) -> Tree:
     hd = cfg.resolved_head_dim
     hq, hkv = cfg.num_heads, cfg.num_kv_heads
     pre = (layers,) if layers else ()
+    ax = ("layers",) if layers else ()
     out = {
-        "wq": ParamDef(pre + (d, hq * hd)),
-        "wk": ParamDef(pre + (d, hkv * hd)),
-        "wv": ParamDef(pre + (d, hkv * hd)),
-        "wo": ParamDef(pre + (hq * hd, d),
+        "wq": ParamDef(pre + (d, hq * hd), ax + ("embed", "qkv")),
+        "wk": ParamDef(pre + (d, hkv * hd), ax + ("embed", "qkv")),
+        "wv": ParamDef(pre + (d, hkv * hd), ax + ("embed", "qkv")),
+        "wo": ParamDef(pre + (hq * hd, d), ax + ("qkv", "embed"),
                        scale=1.0 / max(1, 2 * cfg.num_layers) ** 0.5),
     }
     if cfg.qkv_bias:
         for n, w in (("bq", hq), ("bk", hkv), ("bv", hkv)):
-            out[n] = ParamDef(pre + (w * hd,), init="zeros")
+            out[n] = ParamDef(pre + (w * hd,), ax + ("qkv",), init="zeros")
     return out
 
 
@@ -248,9 +254,9 @@ def attention(p: Tree, x: torch.Tensor, cfg, *, positions: torch.Tensor,
         # [B, S, H, hd] seen as [B, H, S, hd] through strides: the kernel
         # reads and writes the model's layout, and its output transposed
         # back is a view. It reads kv head h // G itself, where the
-        # reference's ops.gqa_attention repeats K and V first.
-        o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                            v.transpose(1, 2), causal=causal)
+        # reference's gqa_attention repeats K and V first.
+        o = gqa_attention(q.transpose(1, 2), k.transpose(1, 2),
+                          v.transpose(1, 2), causal=causal)
         out = o.transpose(1, 2).reshape(b, s, hkv, g, hd)
     elif impl == "blockwise":
         out = _blockwise_attention(qg, k, v, causal=causal)
@@ -270,13 +276,14 @@ def attention(p: Tree, x: torch.Tensor, cfg, *, positions: torch.Tensor,
 def mlp_defs(cfg, gated: bool = True, layers: int = 0) -> Tree:
     d, f = cfg.d_model, cfg.d_ff
     pre = (layers,) if layers else ()
+    ax = ("layers",) if layers else ()
     out = {
-        "w_up": ParamDef(pre + (d, f)),
-        "w_down": ParamDef(pre + (f, d),
+        "w_up": ParamDef(pre + (d, f), ax + ("embed", "mlp")),
+        "w_down": ParamDef(pre + (f, d), ax + ("mlp", "embed"),
                            scale=1.0 / max(1, 2 * cfg.num_layers) ** 0.5),
     }
     if gated:
-        out["w_gate"] = ParamDef(pre + (d, f))
+        out["w_gate"] = ParamDef(pre + (d, f), ax + ("embed", "mlp"))
     return out
 
 
@@ -299,11 +306,13 @@ def mlp(p: Tree, x: torch.Tensor) -> torch.Tensor:
 def moe_defs(cfg, layers: int = 0) -> Tree:
     d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
     pre = (layers,) if layers else ()
+    ax = ("layers",) if layers else ()
     return {
-        "router": ParamDef(pre + (d, e), dtype=torch.float32),
-        "w_gate": ParamDef(pre + (e, d, f)),
-        "w_up": ParamDef(pre + (e, d, f)),
-        "w_down": ParamDef(pre + (e, f, d),
+        "router": ParamDef(pre + (d, e), ax + ("embed", None),
+                           dtype=torch.float32),
+        "w_gate": ParamDef(pre + (e, d, f), ax + ("expert", "embed", "mlp")),
+        "w_up": ParamDef(pre + (e, d, f), ax + ("expert", "embed", "mlp")),
+        "w_down": ParamDef(pre + (e, f, d), ax + ("expert", "mlp", "embed"),
                            scale=1.0 / max(1, 2 * cfg.num_layers) ** 0.5),
     }
 
@@ -395,8 +404,11 @@ def moe_ffn(p: Tree, x: torch.Tensor, cfg
 def embed_defs(cfg) -> Tree:
     d = cfg.d_model
     return {
-        "tok": ParamDef((cfg.padded_vocab, d), scale=1.0, fan_in=d),
-        "out": ParamDef((d, cfg.padded_vocab)),
+        # input table D-sharded (tiny per-device slice, gather stays local)
+        "tok": ParamDef((cfg.padded_vocab, d), ("vocab_rep", "embed_shard"),
+                        scale=1.0, fan_in=d),
+        # unembed vocab-sharded: logits come out vocab-sharded
+        "out": ParamDef((d, cfg.padded_vocab), ("embed", "vocab")),
     }
 
 

@@ -27,7 +27,14 @@ Entry points, as in the reference:
 
 ``cfg.remat`` wraps the layers the reference's remat policy wraps:
 ``"full"`` recomputes a layer in backward (``torch.utils.checkpoint``),
-``"none"`` keeps its activations.
+``"dots"`` keeps the outputs of its matrix products and recomputes the rest
+(selective checkpointing, the reference's ``checkpoint_dots``), ``"none"``
+keeps its activations.
+
+``shapes`` / ``logical_axes`` and ``cache_shapes`` / ``cache_logical_axes``
+give the parameter and cache trees as meta tensors and logical-axis tuples
+(nothing allocated), which ``launch.steps`` resolves to placements on a
+``DeviceMesh``.
 
 Caches are preallocated (``init_cache``) and written in place: KV caches at
 the step's position, recurrent states (RWKV's ``wkv`` and token shifts,
@@ -38,16 +45,19 @@ every step.
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Dict, List, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import AUDIO_FRAMES, ModelConfig
 from repro_torch.device import resolve_device
 from . import layers as Lyr
 from . import ssm as Ssm
-from .params import ParamDef, Tree, init_params
+from .params import (ParamDef, Tree, init_params, param_logical_axes,
+                     param_shapes)
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
@@ -78,21 +88,34 @@ def _write(dst: Tree, src: Tree) -> None:
             v.copy_(src[k])
 
 
+# What the port's ``@`` and ``einsum`` lower to: the matrix products whose
+# outputs ``remat="dots"`` keeps.
+DOT_OPS = frozenset((torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                     torch.ops.aten.addmm.default,
+                     torch.ops.aten.baddbmm.default))
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """``jax.checkpoint_policies.checkpoint_dots``: save the products'
+    outputs, recompute everything else. The flash_attention Function is no
+    product (as a ``pallas_call`` is no dot to jax): it is recomputed."""
+    return (CheckpointPolicy.MUST_SAVE if op in DOT_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
 def _remat(fn, policy: str):
     """The reference's ``_maybe_remat`` for one layer."""
     if policy == "none":
         return fn
-    if policy == "dots":
-        raise NotImplementedError(
-            'remat="dots" (save matmul outputs) is not ported yet (ROADMAP: '
-            'queue 0, "dots" remat)')
-    if policy != "full":
+    if policy not in ("full", "dots"):
         raise ValueError(f"unknown remat policy {policy!r}")
+    kw = {} if policy == "full" else {"context_fn": partial(
+        create_selective_checkpoint_contexts, _save_dots)}
 
     def run(*args):
         if not torch.is_grad_enabled():      # nothing to save: same compute
             return fn(*args)
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
     return run
 
 
@@ -169,6 +192,12 @@ class LM:
         """Random weights from ``generator``, which must live on ``device``."""
         return init_params(self.param_defs(), generator,
                            resolve_device(device))
+
+    def shapes(self) -> Tree:
+        return param_shapes(self.param_defs())
+
+    def logical_axes(self) -> Tree:
+        return param_logical_axes(self.param_defs())
 
     # ------------------------------------------------------------------
     # block appliers (p = one layer's param slice)
@@ -377,8 +406,10 @@ class LM:
         def kv(layers, seq):
             shape = (layers, batch, cfg.num_kv_heads, seq,
                      cfg.resolved_head_dim)
-            return {"k": ParamDef(shape, init="zeros"),
-                    "v": ParamDef(shape, init="zeros")}
+            ax = ("layers", "cache_batch", "cache_heads", "cache_seq",
+                  "cache_hd")
+            return {"k": ParamDef(shape, ax, init="zeros"),
+                    "v": ParamDef(shape, ax, init="zeros")}
 
         if fam == "ssm":
             return Ssm.rwkv_state_defs(cfg, batch, L)
@@ -399,6 +430,12 @@ class LM:
                    device: Optional[torch.device] = None) -> Tree:
         return init_params(self.cache_defs(batch, max_seq), None,
                            resolve_device(device))
+
+    def cache_shapes(self, batch: int, max_seq: int) -> Tree:
+        return param_shapes(self.cache_defs(batch, max_seq))
+
+    def cache_logical_axes(self, batch: int, max_seq: int) -> Tree:
+        return param_logical_axes(self.cache_defs(batch, max_seq))
 
     def prefill(self, params: Tree, batch: Dict[str, torch.Tensor],
                 cache: Tree) -> Tuple[torch.Tensor, Tree]:

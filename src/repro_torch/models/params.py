@@ -1,12 +1,16 @@
 """Parameter definitions and initialisation.
 
 Models declare their weights as a nested dict of ``ParamDef`` leaves (shape,
-dtype, initializer); ``init_params`` materialises the same nested dict as
-tensors. Per-layer weights are stacked along a leading layer axis, as in the
-JAX package, and the model indexes one layer at a time.
+*logical* sharding axes, dtype, initializer). From one definition tree come:
 
-The port runs on one device, so the reference's logical sharding axes are
-dropped.
+* ``init_params``        — the tensors, drawn on a device;
+* ``param_shapes``       — meta tensors of the same shapes and dtypes (no
+                           allocation; the reference's ShapeDtypeStructs);
+* ``param_logical_axes`` — the logical-axis tuples, resolved to placements
+                           on a ``DeviceMesh`` by ``repro_torch.distributed``.
+
+Per-layer weights are stacked along a leading layer axis, as in the JAX
+package, and the model indexes one layer at a time.
 """
 
 from __future__ import annotations
@@ -22,10 +26,15 @@ Tree = Dict[str, Any]
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
     shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]          # logical axis names
     dtype: torch.dtype = torch.bfloat16
     init: str = "normal"                      # normal | zeros | ones | const
     scale: float = 1.0                        # stddev multiplier / const value
     fan_in: Optional[int] = None              # None -> last-but-one dim
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"axes {self.axes} do not match shape {self.shape}")
 
 
 def _init_leaf(d: ParamDef, generator: Optional[torch.Generator],
@@ -59,6 +68,16 @@ def init_params(defs: Tree, generator: Optional[torch.Generator],
     definition dict, so a seed gives the same weights on every run.
     """
     return map_defs(lambda d: _init_leaf(d, generator, device), defs)
+
+
+def param_shapes(defs: Tree) -> Tree:
+    """Meta tensors of every leaf's shape and dtype; nothing is allocated."""
+    return map_defs(lambda d: torch.empty(d.shape, dtype=d.dtype,
+                                          device="meta"), defs)
+
+
+def param_logical_axes(defs: Tree) -> Tree:
+    return map_defs(lambda d: d.axes, defs)
 
 
 def param_count(defs: Tree) -> int:

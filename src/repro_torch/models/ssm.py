@@ -54,35 +54,36 @@ def rwkv_defs(cfg, layers: int) -> Tree:
     f = cfg.d_ff
     out_scale = 1.0 / max(1, 2 * cfg.num_layers) ** 0.5
 
-    def w(shape, **kw):
-        return ParamDef((layers,) + shape, **kw)
+    def w(shape, axes, **kw):
+        return ParamDef((layers,) + shape, ("layers",) + axes, **kw)
 
     return {
-        "ln1": {"scale": w((d,), init="ones")},
-        "ln2": {"scale": w((d,), init="ones")},
+        "ln1": {"scale": w((d,), ("embed",), init="ones")},
+        "ln2": {"scale": w((d,), ("embed",), init="ones")},
         # token-shift ddlerp
-        "maa_x": w((d,), init="zeros"),
-        "maa_rkvwg": w((5, d), init="zeros"),
-        "maa_w1": w((d, 5 * LORA_MAA)),
-        "maa_w2": w((5, LORA_MAA, d), fan_in=LORA_MAA),
+        "maa_x": w((d,), ("embed",), init="zeros"),
+        "maa_rkvwg": w((5, d), (None, "embed"), init="zeros"),
+        "maa_w1": w((d, 5 * LORA_MAA), ("embed", "lora")),
+        "maa_w2": w((5, LORA_MAA, d), (None, "lora", "embed"),
+                    fan_in=LORA_MAA),
         # data-dependent decay
-        "decay": w((d,), init="const", scale=-6.0),
-        "td_w1": w((d, LORA_DECAY)),
-        "td_w2": w((LORA_DECAY, d), fan_in=LORA_DECAY),
-        "bonus": w((nh, hd)),                          # time_faaaa / u
+        "decay": w((d,), ("embed",), init="const", scale=-6.0),
+        "td_w1": w((d, LORA_DECAY), ("embed", "lora")),
+        "td_w2": w((LORA_DECAY, d), ("lora", "embed"), fan_in=LORA_DECAY),
+        "bonus": w((nh, hd), ("ssm_heads", None)),     # time_faaaa / u
         # projections
-        "wr": w((d, d)),
-        "wk": w((d, d)),
-        "wv": w((d, d)),
-        "wg": w((d, d)),
-        "wo": w((d, d), scale=out_scale),
-        "ln_x": {"scale": w((d,), init="ones")},
+        "wr": w((d, d), ("embed", "ssm_inner")),
+        "wk": w((d, d), ("embed", "ssm_inner")),
+        "wv": w((d, d), ("embed", "ssm_inner")),
+        "wg": w((d, d), ("embed", "ssm_inner")),
+        "wo": w((d, d), ("ssm_inner", "embed"), scale=out_scale),
+        "ln_x": {"scale": w((d,), ("embed",), init="ones")},
         # channel mix
-        "cm_maa_k": w((d,), init="zeros"),
-        "cm_maa_r": w((d,), init="zeros"),
-        "cm_wk": w((d, f)),
-        "cm_wv": w((f, d), scale=out_scale),
-        "cm_wr": w((d, d)),
+        "cm_maa_k": w((d,), ("embed",), init="zeros"),
+        "cm_maa_r": w((d,), ("embed",), init="zeros"),
+        "cm_wk": w((d, f), ("embed", "mlp")),
+        "cm_wv": w((f, d), ("mlp", "embed"), scale=out_scale),
+        "cm_wr": w((d, d), ("embed", "ssm_inner")),
     }
 
 
@@ -189,10 +190,13 @@ def rwkv_state_defs(cfg, batch: int, layers: int) -> Tree:
     d = cfg.d_model
     nh, hd = d // cfg.ssm_head_dim, cfg.ssm_head_dim
     return {
-        "wkv": ParamDef((layers, batch, nh, hd, hd), dtype=torch.float32,
-                        init="zeros"),
-        "shift_tm": ParamDef((layers, batch, d), init="zeros"),
-        "shift_cm": ParamDef((layers, batch, d), init="zeros"),
+        "wkv": ParamDef((layers, batch, nh, hd, hd),
+                        ("layers", "cache_batch", "ssm_heads", None, None),
+                        dtype=torch.float32, init="zeros"),
+        "shift_tm": ParamDef((layers, batch, d),
+                             ("layers", "cache_batch", "embed"), init="zeros"),
+        "shift_cm": ParamDef((layers, batch, d),
+                             ("layers", "cache_batch", "embed"), init="zeros"),
     }
 
 
@@ -206,20 +210,22 @@ def mamba_defs(cfg, layers: int) -> Tree:
     nh = cfg.ssm_heads
     wconv = cfg.ssm_conv_width
 
-    def w(shape, **kw):
-        return ParamDef((layers,) + shape, **kw)
+    def w(shape, axes, **kw):
+        return ParamDef((layers,) + shape, ("layers",) + axes, **kw)
 
     return {
-        "ln": {"scale": w((d,), init="ones")},
+        "ln": {"scale": w((d,), ("embed",), init="ones")},
         # in_proj -> [z (di), x (di), B (st), C (st), dt (nh)]
-        "w_in": w((d, 2 * di + 2 * st + nh)),
-        "conv_w": w((wconv, di + 2 * st), fan_in=wconv),
-        "conv_b": w((di + 2 * st,), init="zeros"),
-        "a_log": w((nh,), init="const", scale=0.5),
-        "dt_bias": w((nh,), init="zeros"),
-        "d_skip": w((nh,), init="ones"),
-        "norm": {"scale": w((di,), init="ones")},
-        "w_out": w((di, d), scale=1.0 / max(1, 2 * cfg.num_layers) ** 0.5),
+        "w_in": w((d, 2 * di + 2 * st + nh), ("embed", "ssm_inner")),
+        "conv_w": w((wconv, di + 2 * st), ("conv", "ssm_inner"),
+                    fan_in=wconv),
+        "conv_b": w((di + 2 * st,), ("ssm_inner",), init="zeros"),
+        "a_log": w((nh,), ("ssm_heads",), init="const", scale=0.5),
+        "dt_bias": w((nh,), ("ssm_heads",), init="zeros"),
+        "d_skip": w((nh,), ("ssm_heads",), init="ones"),
+        "norm": {"scale": w((di,), ("ssm_inner",), init="ones")},
+        "w_out": w((di, d), ("ssm_inner", "embed"),
+                   scale=1.0 / max(1, 2 * cfg.num_layers) ** 0.5),
     }
 
 
@@ -315,8 +321,10 @@ def mamba_state_defs(cfg, batch: int, layers: int) -> Tree:
     hd = cfg.ssm_head_dim
     wconv = cfg.ssm_conv_width
     return {
-        "ssm": ParamDef((layers, batch, nh, hd, stt), dtype=torch.float32,
-                        init="zeros"),
+        "ssm": ParamDef((layers, batch, nh, hd, stt),
+                        ("layers", "cache_batch", "ssm_heads", None, None),
+                        dtype=torch.float32, init="zeros"),
         "conv": ParamDef((layers, batch, wconv - 1, di + 2 * stt),
+                         ("layers", "cache_batch", None, "ssm_inner"),
                          init="zeros"),
     }

@@ -1,9 +1,10 @@
 """AdamW with global-norm clipping and optional int8 gradient compression
 (error feedback).
 
-Moments are f32 whatever the parameters' dtype, as in the reference. The
-port runs on one device, so the reference's sharding helpers for the state
-(``adamw_state_shapes``, ``adamw_state_axes``) are left out.
+Moments are f32 whatever the parameters' dtype, as in the reference, and
+their logical axes are the parameters' (``adamw_state_axes``), so ZeRO-style
+sharding falls out of the same rules that shard the weights;
+``adamw_state_shapes`` gives the state as meta tensors.
 
 ``adamw_update`` updates the parameters, the moments and the error feedback
 in place, leaf by leaf, where the reference returns new trees: at llama3-8b
@@ -61,6 +62,23 @@ def adamw_init(params: Tree, cfg: AdamWConfig) -> AdamWState:
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=device),
                       mu=tree_map(zeros32, params),
                       nu=tree_map(zeros32, params), error=err)
+
+
+def adamw_state_shapes(param_shapes: Tree, cfg: AdamWConfig) -> AdamWState:
+    """The state's leaves as meta tensors, from the parameters' (meta)."""
+    f32 = lambda p: torch.empty(p.shape, dtype=torch.float32, device="meta")
+    err = tree_map(f32, param_shapes) if cfg.grad_compress else None
+    return AdamWState(step=torch.empty((), dtype=torch.int32, device="meta"),
+                      mu=tree_map(f32, param_shapes),
+                      nu=tree_map(f32, param_shapes), error=err)
+
+
+def adamw_state_axes(param_axes: Tree, cfg: AdamWConfig) -> AdamWState:
+    """Logical axes for the state tree: moments mirror the params."""
+    ident = lambda t: tree_map(lambda a: a, t)
+    err = ident(param_axes) if cfg.grad_compress else None
+    return AdamWState(step=(), mu=ident(param_axes), nu=ident(param_axes),
+                      error=err)
 
 
 def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:

@@ -98,6 +98,41 @@ def test_flash_attention_head_dim_16_matches_plain_version(card, dtype):
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("d", [48, 80, 96, 112])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_attention_new_head_dims_match_plain_version(card, dtype, d):
+    """On the card: the head dims that are no power of two (zamba2's 80
+    among them) through the tensor-core kernel (bf16: d / 16 boxes of 16
+    columns a row) or the CUDA-core one (f32), at the bf16 tile's edges,
+    Sq != Skv, GQA and the model's [B, S, H, d] layout, against the plain
+    version within the kernel bar."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    route = ("tensor_core_launches" if dt == torch.bfloat16
+             else "cuda_core_launches")
+    cases = [(2, 4, 2, s, s, c, False) for s in (1, 127, 128, 129, 257)
+             for c in (True, False)]
+    cases += [(1, 4, 4, 127, 255, True, False), (1, 4, 1, 255, 128, True,
+                                                 False),
+              (2, 8, 8, 300, 300, True, True), (2, 8, 2, 300, 300, False,
+                                                True)]
+    for b, h, kv, sq, skv, causal, model_layout in cases:
+        def one(heads, s):
+            if model_layout:
+                return torch.randn(b, s, heads, d, generator=gen,
+                                   device="cuda").to(dt).transpose(1, 2)
+            return torch.randn(b, heads, s, d, generator=gen,
+                               device="cuda").to(dt)
+        q, k, v = one(h, sq), one(kv, skv), one(kv, skv)
+        before = getattr(flash_attention, route)
+        got = flash_attention(q, k, v, causal=causal)
+        assert getattr(flash_attention, route) == before + 1
+        want = flash_attention_plain(q, k, v, causal=causal)
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **KERNEL_TOL[dt])
+
+
+@pytest.mark.requires_cuda
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_flash_decode_at_several_splits_matches_plain_version(card, dtype):
     """On the card: the kernel at one, the plan's and many splits, with

@@ -98,6 +98,48 @@ def test_loss_and_every_gradient_f32(arch):
             rtol=1e-4, atol=1e-7)
 
 
+def test_zamba2_trains_at_head_dim_80_through_the_kernel(monkeypatch):
+    """zamba2's full width has head dim 80. Its smoke config at d = 80 with
+    ``use_flash``: every shared-block application in training reaches the
+    flash_attention Function once (the hybrid's shared block is not
+    remat'd), each call passes both CUDA kernels' launch checks at d = 80
+    (here the launch is the plain version, counted), and the loss and every
+    gradient match the reference's einsum branch at f32 1e-4 (Sq == Skv, so
+    the kernel's top-left mask is the reference's)."""
+    import importlib
+    fa_mod = importlib.import_module(
+        "repro_torch.kernels.flash_attention.flash_attention")
+    ops = importlib.import_module("repro_torch.kernels.flash_attention.ops")
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+
+    def launch(q, k, v, causal):
+        fa_mod._check_launch(q, k, v)
+        fa_mod._check_launch(*(x.bfloat16() for x in (q, k, v)))
+        flash_attention.launches += 1
+        return flash_attention_plain(q, k, v, causal=causal)
+    monkeypatch.setattr(fa_mod, "_launch", launch)
+    monkeypatch.setattr(ops, "flash_attention",
+                        lambda q, k, v, causal=True:
+                        fa_mod._FlashAttention.apply(q, k, v, causal))
+    monkeypatch.setattr(flash_attention, "launches", 0)
+    ref, port, rparams, params = pair("zamba2-2.7b", "f32", head_dim=80)
+    port = LM(port.cfg.replace(use_flash=True))
+    assert port._impl(S) == "flash" and ref._impl(S) == "einsum"
+    nb = np_batch(port.cfg, B, S, seed=9)
+    want_loss, want_grads = jax.jit(jax.value_and_grad(ref.loss))(
+        rparams, ref_batch(nb, "f32"))
+    names = [n for n, _ in flat(params)]
+    leaves = [p.requires_grad_() for _, p in flat(params)]
+    loss = port.loss(params, port_batch(nb, "f32"))
+    grads = dict(zip(names, torch.autograd.grad(loss, leaves)))
+    assert flash_attention.launches == port.cfg.num_layers // \
+        port.cfg.shared_attn_every
+    close(loss, want_loss, 1e-4)
+    for n, g in flat(want_grads):
+        close(grads[n], g, 1e-4, msg=n)
+
+
 @pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
 @pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "whisper-small"])
 def test_synthetic_data_with_stub_embeddings_is_byte_identical(arch, kind):

@@ -116,6 +116,31 @@ def test_head_dim_16_matches_pallas_kernel(b, h, hkv, sq, skv, causal):
     FA_MOD._check_launch(*_t(q, k, v, dtype=torch.bfloat16))
 
 
+# head dims that are no power of two (zamba2's 80 among them): the kernels
+# take every multiple of 16 up to 128, the plain version any d
+@pytest.mark.parametrize("d", [48, 80, 112])
+@pytest.mark.parametrize("hkv,causal", [(4, True), (4, False), (2, True)])
+def test_new_head_dims_match_pallas_kernel(d, hkv, causal):
+    rng = np.random.default_rng(d + hkv)
+    q, k, v = _qkv(rng, 2, 4, 130, d, hkv=hkv)
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    want = (ref_flash(jq, jk, jv, causal=causal) if hkv == 4
+            else ref_gqa(jq, jk, jv, causal=causal))
+    tq, tk, tv = _t(q, k, v)
+    _close(flash_attention_plain(tq, tk, tv, causal=causal), want, 2e-3)
+    _close(flash_attention(tq, tk, tv, causal=causal), want, 2e-3)
+    FA_MOD._check_launch(tq, tk, tv)
+    FA_MOD._check_launch(*_t(q, k, v, dtype=torch.bfloat16))
+
+
+def test_head_dims_are_the_multiples_of_16_up_to_128():
+    assert FA_MOD.HEAD_DIMS == (16, 32, 48, 64, 80, 96, 112, 128)
+    for d in (8, 24, 40, 144, 256):
+        q = torch.zeros(1, 2, 8, d)
+        with pytest.raises(ValueError, match="head dims"):
+            FA_MOD._check_launch(q, q, q)
+
+
 @pytest.mark.parametrize("sq,skv,causal", [(40, 40, True), (8, 20, True),
                                            (20, 8, False)])
 def test_attention_ref_matches_reference(sq, skv, causal):
@@ -241,7 +266,7 @@ def test_kernel_launch_checks_raise_before_building(bad):
     """What only the CUDA kernels refuse is checked before the library is
     built or a pointer is passed (these raise here, with no nvcc)."""
     rng = np.random.default_rng(5)
-    d = 80 if bad == "hd" else 32      # 80: zamba2's head dim
+    d = 144 if bad == "hd" else 32     # 144: past the kernels' 128
     q, k, v = _t(*_qkv(rng, 1, 2, 8, d))
     if bad == "grid":                 # f32: B*H past the grid's y of 65535
         q = torch.zeros(1, 65536, 1, d)
@@ -298,7 +323,7 @@ def test_kernel_on_the_card_matches_plain_version():
 
 
 
-@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("hd", FA_MOD.HEAD_DIMS)
 def test_bf16_route_takes_head_counts_past_the_f32_grid(hd):
     """The bf16 kernel puts B*H on the grid's x axis (2^31 - 1), so a head
     count the f32 kernel's y axis refuses passes its checks."""
@@ -352,6 +377,21 @@ def test_dispatch_bf16_to_tensor_cores_and_f32_to_cuda_cores(fake_lib):
     assert fake_lib.calls[1] == ("f32", (2, 4, 2, 16, 16, 64, 0))
     assert (flash_attention.launches, flash_attention.tensor_core_launches,
             flash_attention.cuda_core_launches) == (2, 1, 1)
+
+
+@pytest.mark.parametrize("d", [48, 80, 96, 112])
+@pytest.mark.parametrize("dtype,entry", [("bfloat16", "bf16"),
+                                         ("float32", "f32")])
+def test_new_head_dims_reach_their_kernel_unpadded(fake_lib, dtype, entry,
+                                                   d):
+    """The model's [B, S, H, d] views go to the kernel as they are: no
+    padded copy, the head dim passed through."""
+    x = torch.zeros(2, 300, 8, d, dtype=getattr(torch, dtype))
+    q, k, v = (x.transpose(1, 2), x[:, :, :2].transpose(1, 2),
+               x[:, :, 2:4].transpose(1, 2))
+    out = FA_MOD._launch(q, k, v, causal=True)
+    assert fake_lib.calls == [(entry, (2, 8, 2, 300, 300, d, 1))]
+    assert out.shape == q.shape and out.stride() == q.stride()
 
 
 @pytest.mark.parametrize("dtype,entry", [("bfloat16", "bf16"),
@@ -460,6 +500,21 @@ def test_bf16_kernel_emulation_at_head_dim_16(s, causal):
     kernel bar of the plain version at the 128-row tile's edges."""
     rng = np.random.default_rng(s + 16)
     q, k, v = _t(*_qkv(rng, 2, 4, s, 16, hkv=2), dtype=torch.bfloat16)
+    got = _emulate_bf16_kernel(q, k, v, causal=causal, split_p=True)
+    torch.testing.assert_close(
+        got.float(), flash_attention_plain(q, k, v, causal=causal).float(),
+        **BF16_KERNEL_TOL)
+
+
+@pytest.mark.parametrize("d", [48, 80, 112])
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_kernel_emulation_at_the_new_head_dims(d, causal):
+    """At d = 48, 80, 112 the bf16 kernel runs d / 16 k16 steps of Q K^T
+    and one n = d product of P V a 16-key step; its tile-by-tile arithmetic
+    (P as hi + lo) stays within the kernel bar of the plain version past
+    one 128-row tile, GQA included."""
+    rng = np.random.default_rng(d)
+    q, k, v = _t(*_qkv(rng, 1, 4, 257, d, hkv=2), dtype=torch.bfloat16)
     got = _emulate_bf16_kernel(q, k, v, causal=causal, split_p=True)
     torch.testing.assert_close(
         got.float(), flash_attention_plain(q, k, v, causal=causal).float(),

@@ -123,18 +123,18 @@ def test_init_follows_the_reference_std_rule():
 @pytest.mark.parametrize("arch", sorted(ARCHS))
 def test_config_copies_agree_with_reference(arch):
     """Every field the port keeps has the reference's value (the training
-    knobs remat, optimizer and grad_compress included); the fields it leaves
-    out are only the reference's sharding knobs."""
+    knobs remat, optimizer and grad_compress and the sharding knobs
+    included); the fields it leaves out are ``attn_shard`` (read by no
+    code) and ``scan_layers`` (the port loops over layers)."""
     cfg, rcfg = get_config(arch), ref_get_config(arch)
     kept = {f.name for f in dataclasses.fields(cfg)}
     assert {n: getattr(cfg, n) for n in kept} == {
         n: getattr(rcfg, n) for n in kept}
     assert cfg.param_count() == rcfg.param_count()
     left_out = {f.name for f in dataclasses.fields(rcfg)} - kept
-    assert left_out == {"attn_shard", "fsdp", "scan_layers",
-                        "sharding_profile", "sequence_parallel",
-                        "decode_cache_shard"}
-    assert {"remat", "optimizer", "grad_compress"} <= kept
+    assert left_out == {"attn_shard", "scan_layers"}
+    assert {"remat", "optimizer", "grad_compress", "fsdp", "sharding_profile",
+            "sequence_parallel", "decode_cache_shard"} <= kept
 
 
 @pytest.mark.parametrize("arch", sorted(ARCHS))

@@ -141,15 +141,16 @@ def test_remat_policies():
     params = params_from_reference(_ref_params(_cfgs()[0], np.float32), "cpu")
     batch = _tbatch(_batch(cfg))
     out = {}
-    for remat in ("full", "none"):
+    for remat in ("full", "dots", "none"):
         leaves = [p.requires_grad_() for _, p in _flat(params)]
         loss = LM(cfg.replace(remat=remat)).loss(params, batch)
         out[remat] = (loss, torch.autograd.grad(loss, leaves))
-    torch.testing.assert_close(out["full"][0], out["none"][0])
-    for a, b in zip(out["full"][1], out["none"][1]):
-        torch.testing.assert_close(a, b)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LM(cfg.replace(remat="dots")).loss(params, batch)
+    for remat in ("dots", "none"):
+        torch.testing.assert_close(out["full"][0], out[remat][0])
+        for a, b in zip(out["full"][1], out[remat][1]):
+            torch.testing.assert_close(a, b)
+    with pytest.raises(ValueError, match="remat"):
+        LM(cfg.replace(remat="some")).loss(params, batch)
 
 
 @pytest.fixture
@@ -160,18 +161,21 @@ def fake_kernel(monkeypatch):
         flash_attention.launches += 1
         return flash_attention_plain(q, k, v, causal=causal)
     monkeypatch.setattr(FA_MOD, "_launch", launch)
-    layers = importlib.import_module("repro_torch.models.layers")
-    monkeypatch.setattr(layers, "flash_attention",
+    # the model reaches the kernel through ops.gqa_attention
+    ops = importlib.import_module("repro_torch.kernels.flash_attention.ops")
+    monkeypatch.setattr(ops, "flash_attention",
                         lambda q, k, v, causal=True:
                         FA_MOD._FlashAttention.apply(q, k, v, causal))
     monkeypatch.setattr(flash_attention, "launches", 0)
 
 
-@pytest.mark.parametrize("remat,per_layer", [("full", 2), ("none", 1)])
+@pytest.mark.parametrize("remat,per_layer", [("full", 2), ("dots", 2),
+                                             ("none", 1)])
 def test_train_step_launch_count_under_remat(fake_kernel, remat, per_layer):
     """Under remat="full" each layer's forward runs twice a step (the
     forward, then its recompute in backward), so the kernel launches
-    2 x layers a step; without remat, once."""
+    2 x layers a step; under "dots" too (the kernel is no product, so it is
+    recomputed); without remat, once."""
     rcfg, cfg = _cfgs(remat=remat)
     model = LM(cfg.replace(use_flash=True))
     opt_cfg = S.make_optimizer_config(cfg, total_steps=4)
