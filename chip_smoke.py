@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phase train # phases 1, 2, 3b, 6 (with the
                                         # "dots" leg and the mesh), and
                                         # 4b's zamba2 training
+    python3 chip_smoke.py --phase dryrun    # phases 1, 2, 10
 
 Drives the port (``src/repro_torch``) only. Phases, each printing its own
 lines:
@@ -199,6 +200,21 @@ lines:
 9. stencil — the 3x3 stencil kernel against its plain version at the
              reference test's shapes and the three frames, four weight
              sets; times kernel, plain version and conv2d at each frame.
+10. dryrun — the multi-pod dry run's counters (``launch/dryrun.py``). On the
+             card: ``make_smoke_mesh()`` (one rank, nccl), llama3-8b at full
+             width at 1 and 2 layers (the dry run's probe configs, einsum
+             attention), a train step of 2 x 4096 tokens on real DTensors
+             under ``Tally``: its FLOPs equal to the count of the same
+             one-rank cell on meta DTensors, its collective bytes 0, its
+             counted peak within 10 % of ``max_memory_allocated`` (beyond
+             the arguments), and the measured step ms beside
+             ``roofline_terms``' bound on one card. Then on the host (the
+             fake world of 256 / 512 ranks, no card): ``run_cell`` for
+             llama3-8b x decode_32k (full and probes), ``hillclimb``'s
+             whisper plan (four variants, printed as the reference prints
+             them) and one multi-pod cell, full only, as ``--all`` runs it;
+             each cell's bound, terms, peak GB and seconds. The host leg's
+             numbers are modelled for 256 or 512 H100s, not measured.
 
 Then one JSON line of kernel results and, last, ``{"ok": true, ...}``. Any
 failure raises and exits non-zero before the last line.
@@ -3598,6 +3614,126 @@ def phase_multi(dev, card: str) -> dict:
     return launches
 
 
+# phase 10: the calibration cell on the card (llama3-8b's probe configs at
+# the train cell of phase 6), and the host leg's cells
+DRYRUN_ARCH = "llama3-8b"
+DRYRUN_CELL = ("llama3-8b", "decode_32k")
+DRYRUN_MULTI_POD_CELL = ("qwen2.5-14b", "decode_32k")
+DRYRUN_OUT = ROOT / "build" / "chip_smoke_dryrun"
+
+
+def phase_dryrun(dev, card: str) -> None:
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import hillclimb as H
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import LM
+
+    t_phase = time.perf_counter()
+    shape = ShapeSpec("train_2x4k", TRAIN_SEQ, TRAIN_BATCH, "train")
+    base = get_config(DRYRUN_ARCH)
+    torch.cuda.empty_cache()
+    mesh = make_smoke_mesh()
+    try:
+        for units in (1, 2):
+            cfg = D.make_probe_cfg(base, units)
+            _, fn, args, donated = D.build_cell(cfg, shape, False, mesh=mesh)
+            meta, meta_mem, _ = D.run_step(fn, args, donated)
+            del fn, args
+            model = LM(cfg)
+            state = S.init_train_state(
+                model, S.make_optimizer_config(cfg),
+                torch.Generator(dev).manual_seed(units), dev)
+            batch = SyntheticLMData(cfg, shape, seed=units,
+                                    device=dev).batch(0)
+            _, fn, args, donated = D.build_cell(cfg, shape, False, mesh=mesh,
+                                                arrays=(state, batch))
+            del state, batch
+            fn(*args)                                  # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(*args)
+            torch.cuda.synchronize()
+            step_ms = 1e3 * (time.perf_counter() - t0)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            tally, mem, out = D.run_step(fn, args, donated)
+            torch.cuda.synchronize()
+            # the allocator's peak beyond what was allocated before the step
+            # that is not an argument
+            measured = torch.cuda.max_memory_allocated() - (
+                before - mem["argument_size_in_bytes"])
+            loss = float(out[1].full_tensor())
+            coll = tally.collectives()["bytes_per_device"]
+            r = D.roofline_terms(tally.flops, tally.bytes, coll)
+            bound_ms = 1e3 * r["step_time_lower_bound_s"]
+            counted = mem["peak_memory_in_bytes"]
+            log("dryrun", f"{cfg.name} at {units} unit(s) ({cfg.num_layers} "
+                f"layer(s), einsum attention), train {TRAIN_BATCH} x "
+                f"{TRAIN_SEQ} on {mesh} ({dist.get_backend()}): FLOPs "
+                f"{tally.flops} on the card, {meta.flops} on meta; "
+                f"bytes accessed {tally.bytes} (meta {meta.bytes}); "
+                f"collective bytes {coll}; counted peak {counted / 2**30:.3f}"
+                f" GiB (arguments {mem['argument_size_in_bytes'] / 2**30:.3f}"
+                f", temp {mem['temp_size_in_bytes'] / 2**30:.3f}; meta "
+                f"{meta_mem['peak_memory_in_bytes'] / 2**30:.3f}), "
+                f"max_memory_allocated {measured / 2**30:.3f} GiB beyond "
+                f"{(before - mem['argument_size_in_bytes']) / 2**30:.3f} "
+                f"GiB of non-arguments (ratio {counted / measured:.4f}); "
+                f"step {step_ms:.2f} ms, roofline bound {bound_ms:.2f} ms "
+                f"({r['bound']}: compute {1e3 * r['compute_s']:.2f} ms, "
+                f"memory {1e3 * r['memory_s']:.2f} ms), realised "
+                f"{bound_ms / step_ms:.4f}; loss {loss:.4f}; on {card}")
+            if tally.flops != meta.flops or coll != 0 or not (
+                    abs(counted - measured) <= 0.10 * measured) or not \
+                    math.isfinite(loss):
+                raise RuntimeError(f"dryrun calibration at {units} unit(s): "
+                                   f"FLOPs {tally.flops} vs {meta.flops}, "
+                                   f"collective bytes {coll}, peak "
+                                   f"{counted} vs {measured}, loss {loss}")
+            del fn, args, out, tally
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    def show(cell, secs):
+        r = cell.get("roofline", {})
+        mem = cell["memory"]
+        log("dryrun", f"{cell['arch']} x {cell['shape']} x {cell['mesh']}"
+            f"{' (' + cell['tag'] + ')' if cell.get('tag') else ''}: "
+            f"bound {r.get('bound', '-')}, compute "
+            f"{r.get('compute_s', float('nan')):.4g} s, memory "
+            f"{r.get('memory_s', float('nan')):.4g} s, collective "
+            f"{r.get('collective_s', float('nan')):.4g} s, peak "
+            f"{mem['peak_memory_in_bytes'] / 1e9:.2f} GB a rank, "
+            f"full-depth step {cell.get('compile_s')} s, probes "
+            f"{cell.get('probe', {}).get('probe_compile_s', '-')} s, "
+            f"{secs:.1f} s in all (modelled for "
+            f"{cell['devices']} H100s, not measured)")
+
+    t0 = time.perf_counter()
+    cell = D.run_cell(*DRYRUN_CELL, out_dir=str(DRYRUN_OUT))
+    show(cell, time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    plan = H.run_plan("whisper", out_dir=str(DRYRUN_OUT / "hillclimb"))
+    for c in plan:
+        if not c.get("roofline"):
+            raise RuntimeError(f"hillclimb whisper {c['tag']}: no roofline")
+    log("dryrun", f"hillclimb whisper: {len(plan)} variants in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cell = D.run_cell(*DRYRUN_MULTI_POD_CELL, multi_pod=True,
+                      out_dir=str(DRYRUN_OUT), full=True, probes=False)
+    show(cell, time.perf_counter() - t0)
+    log("dryrun", f"phase took {time.perf_counter() - t_phase:.1f} s on "
+        f"{card}")
+
+
 def print_ok() -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3606,9 +3742,10 @@ def print_ok() -> None:
 
 def main(argv) -> int:
     if argv not in ([], ["--phase", "sim"], ["--phase", "multi"],
-                    ["--phase", "families"], ["--phase", "train"]):
+                    ["--phase", "families"], ["--phase", "train"],
+                    ["--phase", "dryrun"]):
         raise SystemExit("usage: python3 chip_smoke.py "
-                         "[--phase sim|multi|families|train]")
+                         "[--phase sim|multi|families|train|dryrun]")
     card = phase_device()
     # f32 comparisons run in full f32: no TF32 in matmuls or convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3618,6 +3755,10 @@ def main(argv) -> int:
     phase_build()
     if argv == ["--phase", "multi"]:    # phases 1, 2, 7e
         phase_multi(dev, card)
+        print_ok()
+        return 0
+    if argv == ["--phase", "dryrun"]:   # phases 1, 2, 10
+        phase_dryrun(dev, card)
         print_ok()
         return 0
     if argv == ["--phase", "families"]:     # phases 1, 2, 4b
@@ -3661,6 +3802,7 @@ def main(argv) -> int:
     maxplus = phase_maxplus(dev, path)
     stencil = phase_stencil(dev)
     maxplus["launches"], stencil["launches"] = mp_launches, st_launches
+    phase_dryrun(dev, card)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [

@@ -25,12 +25,14 @@ Resolution is defensive by construction, as in the reference:
 from __future__ import annotations
 
 import contextlib
+import math
 import threading
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 Axes = Tuple[Optional[str], ...]
 PhysAxes = Union[None, str, Tuple[str, ...]]
@@ -185,16 +187,206 @@ def placements(spec: Spec, mesh: Optional[DeviceMesh] = None) -> list:
     return out
 
 
+class _Constrain(torch.autograd.Function):
+    """Redistribute to ``placements``, the gradient too: the transpose of
+    jax's ``with_sharding_constraint`` is the same constraint, where a
+    DTensor's own ``redistribute`` hands a partial-sum gradient back as it
+    is (and the product before it may then gather its weight whole rather
+    than reduce the gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, pl):
+        ctx.sharding = (mesh, pl)
+        return x.redistribute(mesh, pl)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(*ctx.sharding), None, None
+
+
+class _Pin(torch.autograd.Function):
+    """The identity, its gradient redistributed to the input's placements
+    (a partial sum's gradient whole)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.sharding = (x.device_mesh, [Replicate() if p.is_partial() else p
+                                        for p in x.placements])
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(*ctx.sharding)
+
+
 def shard(x: torch.Tensor, *axes: Optional[str]) -> torch.Tensor:
     """Redistribute a DTensor to its logical axes' placements on its own
-    mesh; any other tensor comes back unchanged (the reference's
-    ``with_sharding_constraint`` is a no-op outside a mesh)."""
+    mesh, and its gradient to the same (``_Constrain``); any other tensor
+    comes back unchanged (the reference's ``with_sharding_constraint`` is a
+    no-op outside a mesh)."""
     if not isinstance(x, DTensor):
         return x
     mesh = x.device_mesh
     with use_mesh(mesh):
         spec = resolve_spec(tuple(axes), dims=x.shape)
-    return x.redistribute(mesh, placements(spec, mesh))
+    return _Constrain.apply(x, mesh, tuple(placements(spec, mesh)))
+
+
+def replicate_like(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A tensor the model makes itself (positions, rope tables, masks,
+    iotas, zero states) placed beside ``like``: replicated on ``like``'s
+    mesh when ``like`` is a DTensor, else ``t`` unchanged. Each rank then
+    holds the whole of ``t``, which is what it costs in memory."""
+    if not isinstance(like, DTensor) or isinstance(t, DTensor):
+        return t
+    mesh = like.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def _moved(x: DTensor, dims: Sequence[int], spill: Optional[int]
+           ) -> DTensor:
+    """``x`` with the shards of ``dims`` moved to dim ``spill`` where it
+    splits evenly there (an all-to-all), else gathered (an all-gather)."""
+    mesh, pl = x.device_mesh, list(x.placements)
+    on = [i for i, p in enumerate(pl) if any(p.is_shard(d) for d in dims)]
+    if not on:
+        return x
+    n = math.prod(mesh.size(i) for i in on)
+    k = math.prod(mesh.size(i) for i, p in enumerate(pl)
+                  if spill is not None and p.is_shard(spill))
+    to = Shard(spill) if spill is not None and spill not in dims and \
+        x.shape[spill] % (k * n) == 0 else Replicate()
+    for i in on:
+        pl[i] = to
+    return x.redistribute(mesh, pl)
+
+
+def _even(x: DTensor) -> DTensor:
+    """``x`` with every shard that does not split its dim evenly gathered:
+    some versions of DTensor refuse to reshape around one (5 token-shift
+    mixes over 4 ranks, in a gradient DTensor sharded so)."""
+    mesh, pl = x.device_mesh, list(x.placements)
+    odd = [i for i, p in enumerate(pl) if p.is_shard()
+           and x.shape[p.dim] % mesh.size(i)]
+    if not odd:
+        return x
+    for i in odd:
+        pl[i] = Replicate()
+    return x.redistribute(mesh, pl)
+
+
+class _Unflatten(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, sizes, spill):
+        ctx.args = (dim, len(sizes), spill)
+        # a reshape: DTensor hands ``unflatten``'s global sizes to the
+        # local shard as they are
+        return x.reshape(x.shape[:dim] + tuple(sizes) + x.shape[dim + 1:])
+
+    @staticmethod
+    def backward(ctx, g):
+        return flatten(g, *ctx.args), None, None, None
+
+
+class _Flatten(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, n, spill):
+        ctx.args = (dim, tuple(x.shape[dim:dim + n]), spill)
+        return x.reshape(x.shape[:dim] + (-1,) + x.shape[dim + n:])
+
+    @staticmethod
+    def backward(ctx, g):
+        return unflatten(g, *ctx.args), None, None, None
+
+
+def unflatten(x: torch.Tensor, dim: int, sizes: Sequence[int],
+              spill: Optional[int] = None) -> torch.Tensor:
+    """``x.unflatten(dim, sizes)``. A DTensor keeps a shard of ``dim`` on
+    the first new dim, which needs ``sizes[0]`` to split evenly over the
+    mesh dims sharding it (8 kv heads do not over a 16-way "model" axis).
+    Where it does not, those mesh dims move their shard to dim ``spill``
+    first (an all-to-all) if it splits evenly there, else gather (an
+    all-gather); the gradient takes the same way back (``flatten``). Plain
+    tensors: ``unflatten`` alone."""
+    if not isinstance(x, DTensor):
+        return x.unflatten(dim, sizes)
+    x = _even(x)
+    dim = dim % x.ndim
+    n = math.prod(x.device_mesh.size(i) for i, p in enumerate(x.placements)
+                  if p.is_shard(dim))
+    if sizes[0] % n:
+        x = _moved(x, [dim], spill)
+    return _Unflatten.apply(x, dim, tuple(sizes), spill)
+
+
+def flatten(x: torch.Tensor, dim: int, n: int,
+            spill: Optional[int] = None) -> torch.Tensor:
+    """``x.flatten(dim, dim + n - 1)``. A DTensor can keep a shard of the
+    first merged dim only: shards of the others move to ``spill`` or are
+    gathered first, as in ``unflatten``, which is the gradient's way back.
+    Plain tensors: ``flatten`` alone."""
+    if not isinstance(x, DTensor):
+        return x.flatten(dim, dim + n - 1)
+    dim = dim % x.ndim
+    x = _moved(_even(x), range(dim + 1, dim + n), spill)
+    return _Flatten.apply(x, dim, n, spill)
+
+
+def pinned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as it is, its gradient redistributed to x's placements (as
+    ``shard``'s): the op before it then takes its gradient as it gave its
+    output. Plain tensors come back as they are."""
+    if not isinstance(x, DTensor):
+        return x
+    return _Pin.apply(x)
+
+
+def unsharded(x: torch.Tensor, *dims: int) -> torch.Tensor:
+    """``x`` with every shard of ``dims`` gathered (an all-gather): what an
+    op needs that walks those dims (a chunked recurrence over time, an
+    ``unbind``). Plain tensors come back as they are."""
+    if not isinstance(x, DTensor):
+        return x
+    return _moved(x, [d % x.ndim for d in dims], None)
+
+
+def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w``: x [..., K], w [K, N]. On DTensors the product runs on
+    each rank's shards (``local_map``), its placements a mesh dim by x's:
+
+    * a shard of x's leading dims (the batch, the sequence) stays, w is
+      gathered, and w's gradient is a partial sum;
+    * a shard of x's K meets w's K: the product is a partial sum;
+    * a partial x gives a partial product;
+    * a whole x keeps a shard of w's N (the product's last dim; x's
+      gradient a partial sum) or of w's K (x is cut to meet it).
+
+    DTensor's own product flattens x's leading dims into one first, which
+    some of its versions refuse when a dim past the first is sharded, in
+    the forward or in the gradient."""
+    if not isinstance(x, DTensor):
+        return x @ w
+    last = x.ndim - 1
+    spec = []          # (x, w, the product, x's gradient, w's gradient)
+    for i, p in enumerate(x.placements):
+        q = w.placements[i] if isinstance(w, DTensor) else Replicate()
+        if p.is_shard() and p.dim < last:
+            spec.append((p, Replicate(), p, p, Partial()))
+        elif p.is_shard():
+            spec.append((p, Shard(0), Partial(), p, Shard(0)))
+        elif p.is_partial():
+            spec.append((p, Replicate(), p, Replicate(), Partial()))
+        elif q.is_shard(1):
+            spec.append((p, q, Shard(last), Partial(), q))
+        elif q.is_shard(0):
+            spec.append((Shard(last), q, Partial(), Shard(last), q))
+        else:
+            spec.append((p, p, p, p, p))
+    px, pw, po, gx, gw = (list(t) for t in zip(*spec))
+    return local_map(torch.matmul, out_placements=po, in_placements=(px, pw),
+                     in_grad_placements=(gx, gw), device_mesh=x.device_mesh,
+                     redistribute_inputs=True)(x, w)
 
 
 def gather_weight(w: torch.Tensor) -> torch.Tensor:

@@ -13,6 +13,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.data.pipeline import batch_logical_axes, batch_specs
@@ -102,18 +103,35 @@ def loss_and_grads(model: LM, params: Tree, batch: Dict[str, torch.Tensor]
     return loss.detach(), tree_map(lambda _: next(it), params)
 
 
-def make_train_step(model: LM, opt_cfg: AdamWConfig):
+def make_train_step(model: LM, opt_cfg: AdamWConfig,
+                    grad_specs: Optional[Tree] = None):
     """``train_step(state, batch) -> (state, loss)``: the loss and its
     gradients, then one AdamW update. The state's tensors are updated in
     place (see ``optim.adamw``); the returned state holds the same tensors
-    and the new step count."""
+    and the new step count.
+
+    ``grad_specs``: a tree of ``(mesh, placements)`` matching the params
+    (the ``params`` subtree of ``train_shardings``' state). Each DTensor
+    gradient is redistributed to its parameter's placements as autograd
+    hands it over, so a gradient that comes out as a partial sum is synced
+    by a reduce-scatter to the parameter's shard, not an all-reduce (the
+    reference's constraint at the autodiff boundary)."""
     def train_step(state: Tree, batch: Dict[str, torch.Tensor]
                    ) -> Tuple[Tree, torch.Tensor]:
         loss, grads = loss_and_grads(model, state["params"], batch)
+        if grad_specs is not None:
+            grads = tree_map(_constrain, grads, grad_specs)
         params2, opt2 = adamw_update(state["params"], grads, state["opt"],
                                      opt_cfg)
         return {"params": params2, "opt": opt2}, loss
     return train_step
+
+
+def _constrain(g: torch.Tensor, sharding: Tuple[DeviceMesh, Any]
+               ) -> torch.Tensor:
+    if not isinstance(g, DTensor):
+        return g
+    return g.redistribute(*sharding)
 
 
 def train_state_shapes(model: LM, opt_cfg: AdamWConfig) -> Tree:

@@ -21,19 +21,28 @@ an f32 router, top-k with renormalised gates, a stable sort of the
 (pairs past an expert's capacity are dropped), the experts' SwiGLU as
 batched products, and a token-side gather to combine.
 
-The reference's activation constraints (``shard`` and the weight gather
-``GW``) are not applied: the model runs on plain tensors, and
-``repro_torch.distributed.sharding`` carries both for a model on DTensors.
+Activations carry the reference's logical sharding constraints (``shard``)
+and weights its ZeRO-3 gather at use (``GW``), at the reference's sites with
+its logical axes. Both are the identity on plain tensors; on DTensors they
+redistribute to the placements the active rules give. Tensors the model makes
+itself (positions, masks, iotas, zero states) go beside a DTensor through
+``replicate_like``, replicated on its mesh.
 """
 
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
+from repro_torch.distributed.sharding import (flatten, gather_weight as GW,
+                                              linear, replicate_like, shard,
+                                              unflatten)
 from repro_torch.kernels.flash_attention import gqa_attention
 from repro_torch.kernels.flash_decode import flash_decode
 from .params import ParamDef
@@ -86,9 +95,9 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     Half-split rotation: the first half of hd pairs with the second half."""
     hd = x.shape[-1]
     half = hd // 2
-    freqs = torch.exp(-math.log(theta) *
-                      torch.arange(0, half, dtype=torch.float32,
-                                   device=x.device) / half)
+    freqs = replicate_like(torch.exp(
+        -math.log(theta) * torch.arange(0, half, dtype=torch.float32,
+                                        device=x.device) / half), x)
     ang = positions[..., None].float() * freqs                  # [B, S, half]
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
@@ -120,12 +129,53 @@ def attention_defs(cfg, layers: int = 0) -> Tree:
     return out
 
 
-def _einsum_attention(q, k, v, *, causal: bool) -> torch.Tensor:
-    """q [B,S,KV,G,hd] x k, v [B,S,KV,hd] -> [B,S,KV,G,hd] in q's dtype."""
+def _local_attention(fn, q, k, v, *, causal: bool) -> torch.Tensor:
+    """``fn(q, k, v, causal=, q_off=)`` (an attention without a cache: q
+    [B,S,KV,G,hd], k and v [B,T,KV,hd]) on each rank's shards of DTensors,
+    through ``local_map``; plain tensors go to ``fn`` as they are.
+
+    Each mesh dim keeps q's shard where the attention splits along it
+    without talking: the batch (k and v sharded alike), the kv heads (when
+    k and v hold them evenly), or q's rows (k and v gathered whole on it;
+    ``q_off`` is the rank's first row, for the causal mask). Anything else
+    is gathered. DTensor would run the products itself, but some of its
+    versions cannot reshape a tensor whose batch and head dims are both
+    sharded, as the products' bmm asks."""
+    if not isinstance(q, DTensor):
+        return fn(q, k, v, causal=causal)
+    mesh = q.device_mesh
+    pq, pk, gk = [], [], []          # gk: k's and v's gradients
+    for i, p in enumerate(q.placements):
+        n = mesh.size(i)
+        if p.is_shard(0) or (p.is_shard(2) and k.shape[2] % n == 0):
+            pq.append(p), pk.append(p), gk.append(p)
+        elif p.is_shard(1):          # each rank's rows see every key
+            pq.append(p), pk.append(Replicate()), gk.append(Partial())
+        else:
+            pq.append(Replicate()), pk.append(Replicate())
+            gk.append(Replicate())
+    row, rows = 0, 1
+    for i, p in enumerate(pq):
+        if p.is_shard(1):
+            row = row * mesh.size(i) + mesh.get_local_rank(i)
+            rows *= mesh.size(i)
+    q_off = row * (q.shape[1] // rows)
+
+    def local(q, k, v):
+        return fn(q, k, v, causal=causal, q_off=q_off)
+    return local_map(local, out_placements=pq, in_placements=(pq, pk, pk),
+                     in_grad_placements=(pq, gk, gk), device_mesh=mesh,
+                     redistribute_inputs=True)(q, k, v)
+
+
+def _einsum_attention(q, k, v, *, causal: bool, q_off: int = 0
+                      ) -> torch.Tensor:
+    """q [B,S,KV,G,hd] x k, v [B,S,KV,hd] -> [B,S,KV,G,hd] in q's dtype;
+    q's rows are the keys' rows from ``q_off`` on."""
     hd, sq = q.shape[-1], q.shape[1]
     s = torch.einsum("bskgd,btkd->bkgst", q.float(), k.float()) / math.sqrt(hd)
     if causal:
-        rows = torch.arange(sq, device=q.device)[:, None]
+        rows = q_off + torch.arange(sq, device=q.device)[:, None]
         cols = torch.arange(k.shape[1], device=q.device)[None, :]
         s = s.masked_fill(rows < cols, _NEG_INF)
     p = torch.softmax(s, dim=-1)
@@ -133,12 +183,13 @@ def _einsum_attention(q, k, v, *, causal: bool) -> torch.Tensor:
 
 
 def _blockwise_attention(q, k, v, *, causal: bool, bq: int = 512,
-                         bk: int = 512) -> torch.Tensor:
+                         bk: int = 512, q_off: int = 0) -> torch.Tensor:
     """Online-softmax attention over [bq, bk] blocks (plain torch).
 
     The reference's ``lax.map`` over query blocks and ``lax.scan`` over KV
     blocks become two Python loops; padding, the -1e30 mask and the
-    ``l == 0 -> 1`` guard are the reference's.
+    ``l == 0 -> 1`` guard are the reference's. q's rows are the keys' rows
+    from ``q_off`` on.
     """
     b, sq, kvh, g, hd = q.shape
     skv = k.shape[1]
@@ -153,7 +204,7 @@ def _blockwise_attention(q, k, v, *, causal: bool, bq: int = 512,
         m = torch.full((b, kvh, g, bq), _NEG_INF, device=q.device)
         l = torch.zeros((b, kvh, g, bq), device=q.device)
         acc = torch.zeros((b, kvh, g, bq, hd), device=q.device)
-        rows = qi * bq + torch.arange(bq, device=q.device)[:, None]
+        rows = q_off + qi * bq + torch.arange(bq, device=q.device)[:, None]
         for ki in range(skp // bk):
             kt = kp[:, ki * bk:(ki + 1) * bk].float()
             s = torch.einsum("bskgd,btkd->bkgst", qt, kt) * scale
@@ -184,7 +235,7 @@ def cache_attention(qg: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
     sc = torch.einsum("bskgd,bktd->bkgst", qg.float(),
                       ck.float()) / math.sqrt(qg.shape[-1])
     if mask is not None:
-        sc = sc.masked_fill(~mask, _NEG_INF)
+        sc = sc.masked_fill(replicate_like(~mask, sc), _NEG_INF)
     pr = torch.softmax(sc, dim=-1)
     return torch.einsum("bkgst,bktd->bskgd", pr, cv.float()).to(qg.dtype)
 
@@ -211,24 +262,27 @@ def attention(p: Tree, x: torch.Tensor, cfg, *, positions: torch.Tensor,
     g = hq // hkv
 
     src = x if memory is None else memory
-    q = x @ p["wq"]
-    k = src @ p["wk"]
-    v = src @ p["wv"]
+    q = linear(x, GW(p["wq"]))
+    k = linear(src, GW(p["wk"]))
+    v = linear(src, GW(p["wv"]))
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, hq, hd)
-    k = k.reshape(b, src.shape[1], hkv, hd)
-    v = v.reshape(b, src.shape[1], hkv, hd)
+    q = shard(q, "batch", "seq", "qkv")
+    # a head split that cannot keep a DTensor's shard moves it to seq
+    q = unflatten(q, 2, (hq, hd), spill=1)
+    k = unflatten(k, 2, (hkv, hd), spill=1)
+    v = unflatten(v, 2, (hkv, hd), spill=1)
 
     if memory is None:
         q = rope(q, positions, cfg.rope_theta)
         if cache is None:
             kpos = positions
         else:
-            kpos = (cache_pos + torch.arange(s, device=x.device))[None, :]
+            kpos = replicate_like(
+                (cache_pos + torch.arange(s, device=x.device))[None, :], x)
         k = rope(k, kpos, cfg.rope_theta)
 
-    qg = q.reshape(b, s, hkv, g, hd)
+    qg = unflatten(q, 2, (hkv, g), spill=1)
     if cache is not None:
         ck, cv = cache["k"], cache["v"]
         t = ck.shape[2]
@@ -259,14 +313,15 @@ def attention(p: Tree, x: torch.Tensor, cfg, *, positions: torch.Tensor,
                           v.transpose(1, 2), causal=causal)
         out = o.transpose(1, 2).reshape(b, s, hkv, g, hd)
     elif impl == "blockwise":
-        out = _blockwise_attention(qg, k, v, causal=causal)
+        out = _local_attention(_blockwise_attention, qg, k, v, causal=causal)
     elif impl == "einsum":
-        out = _einsum_attention(qg, k, v, causal=causal)
+        out = _local_attention(_einsum_attention, qg, k, v, causal=causal)
     else:
         raise ValueError(f"unknown attention impl {impl!r}")
 
-    y = out.reshape(b, s, hq * hd) @ p["wo"]
-    return y, cache
+    out = shard(flatten(out, 2, 3, spill=1), "batch", "seq", "qkv")
+    y = linear(out, GW(p["wo"]))
+    return shard(y, "batch", "seq", "embed"), cache
 
 
 # ---------------------------------------------------------------------------
@@ -291,12 +346,13 @@ def mlp(p: Tree, x: torch.Tensor) -> torch.Tensor:
     """In the activation dtype: SwiGLU, silu(x @ w_gate) * (x @ w_up), or
     without ``w_gate`` gelu(x @ w_up) in the tanh approximation (the
     default of the reference's ``jax.nn.gelu``)."""
-    up = x @ p["w_up"]
+    up = linear(x, GW(p["w_up"]))
     if "w_gate" in p:
-        h = F.silu(x @ p["w_gate"]) * up
+        h = F.silu(linear(x, GW(p["w_gate"]))) * up
     else:
         h = F.gelu(up, approximate="tanh")
-    return h @ p["w_down"]
+    h = shard(h, "batch", "seq", "mlp")
+    return shard(linear(h, GW(p["w_down"])), "batch", "seq", "embed")
 
 
 # ---------------------------------------------------------------------------
@@ -330,10 +386,14 @@ def moe_route(p: Tree, x: torch.Tensor, cfg
     (e * sum_e f_e * p_e). Returns (gates [B,S,k] f32, choice [B,S,k],
     aux)."""
     e, k = cfg.num_experts, cfg.experts_per_token
-    probs = torch.softmax(x.float() @ p["router"], dim=-1)      # [B,S,E]
-    gates, choice = torch.topk(probs, k, dim=-1)
+    probs = torch.softmax(linear(x.float(), p["router"]), dim=-1)  # [B,S,E]
+    # the top k's values taken by a gather: the gradient of topk builds a
+    # plain zero tensor, which a DTensor probs cannot take in some versions
+    choice = torch.topk(probs, k, dim=-1)[1]
+    gates = probs.gather(-1, choice)
     gates = gates / gates.sum(-1, keepdim=True).clamp(min=1e-9)
-    density = F.one_hot(choice[..., 0], e).float().mean(dim=(0, 1))
+    experts = replicate_like(torch.arange(e, device=x.device), choice)
+    density = (choice[..., :1] == experts).float().mean(dim=(0, 1))
     aux = e * (density * probs.mean(dim=(0, 1))).sum()
     return gates, choice, aux
 
@@ -348,13 +408,54 @@ def moe_dispatch(ids: torch.Tensor, e: int
     pseudo-token's place within its expert's group."""
     b, t = ids.shape
     order = torch.argsort(ids, dim=1, stable=True)
-    counts = torch.zeros((b, e), dtype=ids.dtype, device=ids.device)
-    counts.scatter_add_(1, ids, torch.ones_like(ids))
+    # out of place: DTensor cannot scatter in place into a tensor whose
+    # placements the scatter changes
+    counts = replicate_like(
+        torch.zeros((b, e), dtype=ids.dtype, device=ids.device), ids
+    ).scatter_add(1, ids, torch.ones_like(ids))
     starts = counts.cumsum(1) - counts
-    rank_sorted = (torch.arange(t, device=ids.device)[None, :]
-                   - starts.gather(1, ids.gather(1, order)))
-    rank = torch.empty_like(ids).scatter_(1, order, rank_sorted)
+    rank_sorted = (replicate_like(torch.arange(t, device=ids.device), ids)
+                   [None, :] - starts.gather(1, ids.gather(1, order)))
+    # order is a permutation of each row: the scatter writes every slot
+    rank = rank_sorted.scatter(1, order, rank_sorted)
     return order, counts, starts, rank
+
+
+def _expert_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Each expert's product, x [B, E, C, K] by w [E, K, N] (the einsum
+    "becd,edf->becf"). On DTensors it runs on each rank's shards through
+    ``local_map`` (some versions of DTensor leave a local tensor its own
+    product cannot view), its placements a mesh dim by x's as in
+    ``linear``: a shard of the experts meets w's; one of the batch or the
+    capacity stays and gathers w (w's gradient a partial sum); one of K
+    meets w's K (a partial product); a whole x keeps w's shard of N, or is
+    cut to meet w's experts or K."""
+    if not isinstance(x, DTensor):
+        return torch.einsum("becd,edf->becf", x, w)
+    spec = []          # (x, w, the product, x's gradient, w's gradient)
+    for i, p in enumerate(x.placements):
+        q = w.placements[i] if isinstance(w, DTensor) else Replicate()
+        if p.is_shard(1):
+            spec.append((p, Shard(0), p, p, Shard(0)))
+        elif p.is_shard(3):
+            spec.append((p, Shard(1), Partial(), p, Shard(1)))
+        elif p.is_shard():
+            spec.append((p, Replicate(), p, p, Partial()))
+        elif p.is_partial():
+            spec.append((p, Replicate(), p, Replicate(), Partial()))
+        elif q.is_shard(2):
+            spec.append((p, q, Shard(3), Partial(), q))
+        elif q.is_shard(0) or q.is_shard(1):
+            d = 1 if q.is_shard(0) else 3
+            spec.append((Shard(d), q, Shard(1) if d == 1 else Partial(),
+                         Shard(d), q))
+        else:
+            spec.append((p, p, p, p, p))
+    px, pw, po, gx, gw = (list(t) for t in zip(*spec))
+    return local_map(partial(torch.einsum, "becd,edf->becf"),
+                     out_placements=po, in_placements=(px, pw),
+                     in_grad_placements=(gx, gw), device_mesh=x.device_mesh,
+                     redistribute_inputs=True)(x, w)
 
 
 def moe_ffn(p: Tree, x: torch.Tensor, cfg
@@ -375,18 +476,21 @@ def moe_ffn(p: Tree, x: torch.Tensor, cfg
     order, counts, starts, rank = moe_dispatch(ids, e)
 
     # ---- gather tokens into [B, E, cap, D] -------------------------------
-    slots = torch.arange(cap, device=x.device)
+    slots = replicate_like(torch.arange(cap, device=x.device), x)
     slot_i = (starts[:, :, None] + slots).clamp(0, t - 1)      # [B,E,cap]
     valid = slots[None, None, :] < counts[:, :, None]
     slot_tok = order.gather(1, slot_i.reshape(b, e * cap))
     src_tok = (slot_tok // k).clamp(0, s - 1)                  # [B,E*cap]
     xe = x.gather(1, src_tok[..., None].expand(b, e * cap, d))
     xe = xe.reshape(b, e, cap, d).masked_fill(~valid[..., None], 0)
+    xe = shard(xe, "batch", "expert", "capacity", "embed")
 
     # ---- expert FFN ------------------------------------------------------
-    h = torch.einsum("becd,edf->becf", xe, p["w_gate"])
-    h = F.silu(h) * torch.einsum("becd,edf->becf", xe, p["w_up"])
-    ye = torch.einsum("becf,efd->becd", h, p["w_down"])
+    h = _expert_product(xe, p["w_gate"])
+    h = F.silu(h) * _expert_product(xe, p["w_up"])
+    h = shard(h, "batch", "expert", "capacity", "mlp")
+    ye = _expert_product(h, p["w_down"])
+    ye = shard(ye, "batch", "expert", "capacity", "embed")
 
     # ---- combine: token-side gather from [B, E*cap, D] --------------------
     tok_slot = (ids * cap + rank).clamp(0, e * cap - 1)        # [B,T]
@@ -394,7 +498,7 @@ def moe_ffn(p: Tree, x: torch.Tensor, cfg
         1, tok_slot[..., None].expand(b, t, d))
     yp = yp.masked_fill(~(rank < cap)[..., None], 0).reshape(b, s, k, d)
     y = (yp * gates[..., None].to(yp.dtype)).sum(dim=2)
-    return y.to(x.dtype), aux
+    return shard(y.to(x.dtype), "batch", "seq", "embed"), aux
 
 
 # ---------------------------------------------------------------------------
@@ -413,8 +517,8 @@ def embed_defs(cfg) -> Tree:
 
 
 def embed(p: Tree, tokens: torch.Tensor) -> torch.Tensor:
-    return F.embedding(tokens, p["tok"])
+    return shard(F.embedding(tokens, p["tok"]), "batch", "seq", "embed")
 
 
 def unembed(p: Tree, x: torch.Tensor) -> torch.Tensor:
-    return x @ p["out"]
+    return shard(linear(x, GW(p["out"])), "batch", "seq", "vocab")

@@ -54,6 +54,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import AUDIO_FRAMES, ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import (flatten, get_rules, linear,
+                                              replicate_like, unflatten,
+                                              use_rules)
 from . import layers as Lyr
 from . import ssm as Ssm
 from .params import (ParamDef, Tree, init_params, param_logical_axes,
@@ -115,7 +118,14 @@ def _remat(fn, policy: str):
     def run(*args):
         if not torch.is_grad_enabled():      # nothing to save: same compute
             return fn(*args)
-        return checkpoint(fn, *args, use_reentrant=False, **kw)
+        rules = get_rules()
+
+        def body(*a):
+            # the recompute may run on the backward's thread, where the
+            # sharding rules (thread-local) are not the forward's
+            with use_rules(rules):
+                return fn(*a)
+        return checkpoint(body, *args, use_reentrant=False, **kw)
     return run
 
 
@@ -238,24 +248,25 @@ class LM:
         b, s, _ = x.shape
         hd = cfg.resolved_head_dim
         hq, hkv = cfg.num_heads, cfg.num_kv_heads
-        q = x @ p["wq"]
+        q = linear(x, p["wq"])
         if "bq" in p:
             q = q + p["bq"]
-        out = Lyr.cache_attention(q.reshape(b, s, hkv, hq // hkv, hd),
+        out = Lyr.cache_attention(unflatten(q, 2, (hkv, hq // hkv, hd),
+                                            spill=1),
                                   kv["k"], kv["v"])
-        return out.reshape(b, s, hq * hd) @ p["wo"]
+        return linear(flatten(out, 2, 3, spill=1), p["wo"])
 
     def _cross_kv(self, p: Tree, memory: torch.Tensor) -> Tree:
         """Cross K/V of ``memory`` for decode, [B, KV, T, hd] each."""
         cfg = self.cfg
         b, t, _ = memory.shape
         hd, hkv = cfg.resolved_head_dim, cfg.num_kv_heads
-        k = memory @ p["wk"]
-        v = memory @ p["wv"]
+        k = linear(memory, p["wk"])
+        v = linear(memory, p["wv"])
         if "bk" in p:
             k, v = k + p["bk"], v + p["bv"]
-        return {"k": k.reshape(b, t, hkv, hd).transpose(1, 2),
-                "v": v.reshape(b, t, hkv, hd).transpose(1, 2)}
+        return {"k": unflatten(k, 2, (hkv, hd), spill=1).transpose(1, 2),
+                "v": unflatten(v, 2, (hkv, hd), spill=1).transpose(1, 2)}
 
     def _attn_layers(self, params: Tree) -> List[Tree]:
         """The attention + FFN layers of a dense or moe stack in depth
@@ -281,7 +292,8 @@ class LM:
         cfg = self.cfg
         tokens = batch["tokens"]
         b, s = tokens.shape
-        positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
+        positions = replicate_like(
+            torch.arange(s, device=tokens.device)[None].expand(b, s), tokens)
         x = Lyr.embed(params["embed"], tokens)
         impl = self._impl(s)
         fam = cfg.family
@@ -302,7 +314,8 @@ class LM:
         x = Lyr.apply_norm(params["final_norm"], x, cfg.norm_eps)
         logits = Lyr.unembed(params["embed"], x)
         if aux is None:
-            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            aux = replicate_like(
+                torch.zeros((), dtype=torch.float32, device=x.device), x)
         return logits, aux
 
     def _block_fn(self, positions, impl, remat: bool, **kw):
@@ -369,7 +382,8 @@ class LM:
         bidirectional self-attention blocks, then a biased layer norm."""
         cfg = self.cfg
         b, t, _ = frames.shape
-        pos = torch.arange(t, device=frames.device)[None].expand(b, t)
+        pos = replicate_like(
+            torch.arange(t, device=frames.device)[None].expand(b, t), frames)
         body = self._block_fn(pos, self._impl(t), remat=True, causal=False)
         x = frames
         for p in layer_list(params["encoder"],
@@ -389,8 +403,11 @@ class LM:
         logits, aux = self.forward(params, batch)
         logits = logits.float()
         lse = torch.logsumexp(logits, dim=-1)
-        true_logit = logits.gather(-1, batch["labels"][..., None].long())[..., 0]
-        nll = lse - true_logit
+        # subtracted before the trailing dim is dropped: on vocab-sharded
+        # DTensor logits the gather is a masked partial sum, which DTensor
+        # reduces only at the gather's own shape
+        true_logit = logits.gather(-1, batch["labels"][..., None].long())
+        nll = (lse[..., None] - true_logit)[..., 0]
         loss = nll.mean() + cfg.z_loss * (lse * lse).mean()
         if cfg.num_experts:
             loss = loss + cfg.router_aux_coef * aux
@@ -445,7 +462,8 @@ class LM:
         cfg = self.cfg
         tokens = batch["tokens"]
         b, s = tokens.shape
-        positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
+        positions = replicate_like(
+            torch.arange(s, device=tokens.device)[None].expand(b, s), tokens)
         x = Lyr.embed(params["embed"], tokens)
         x = self._stack_with_cache(params, batch, x, positions, cache,
                                    cache_pos=0, impl=self._impl(s))
@@ -459,8 +477,9 @@ class LM:
         cfg = self.cfg
         tokens = batch["tokens"]
         b = tokens.shape[0]
-        positions = torch.full((b, 1), pos, dtype=torch.int32,
-                               device=tokens.device)
+        positions = replicate_like(
+            torch.full((b, 1), pos, dtype=torch.int32, device=tokens.device),
+            tokens)
         x = Lyr.embed(params["embed"], tokens)
         x = self._stack_with_cache(params, batch, x, positions, cache,
                                    cache_pos=pos, impl="einsum")

@@ -27,6 +27,12 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
+
+from repro_torch.distributed.sharding import (flatten, linear, pinned,
+                                              replicate_like, shard,
+                                              unflatten, unsharded)
 from .layers import rms_norm
 from .params import ParamDef
 
@@ -34,6 +40,45 @@ Tree = Dict[str, Any]
 
 LORA_MAA = 32        # rwkv6 token-shift lora rank
 LORA_DECAY = 64      # rwkv6 data-dependent decay lora rank
+
+
+# (batch dim, heads dim) of each argument and result of the chunked scans
+_RWKV_DIMS = (((0, 2),) * 4 + ((None, 0), (0, 1)), ((0, 2), (0, 1)))
+_MAMBA_DIMS = (((0, 2), (0, None), (0, None), (0, 2), (0, 1)),
+               ((0, 2), (0, 1)))
+
+
+def _local_scan(fn, args, dims, chunk: int):
+    """``fn(*args, chunk)`` (a chunked scan) on each rank's shards of
+    DTensors, through ``local_map``; plain tensors go to ``fn`` as they
+    are. ``dims`` gives each argument's and result's (batch, heads) dims.
+    Each mesh dim keeps the first argument's shard of the batch or of the
+    heads (where they split evenly), the others following it, and gathers
+    anything else: the recurrence runs along the whole time axis. On
+    DTensors the loop would take each chunk's products through DTensor,
+    whose bmm some of its versions refuse with the batch and heads both
+    sharded."""
+    x = args[0]
+    if not isinstance(x, DTensor):
+        return fn(*args, chunk)
+    mesh = x.device_mesh
+    (batch, heads), nh = dims[0][0], x.shape[dims[0][0][1]]
+    modes = [0 if p.is_shard(batch) else
+             1 if p.is_shard(heads) and nh % mesh.size(i) == 0 else None
+             for i, p in enumerate(x.placements)]
+
+    def placements(d, grad=False):
+        # an argument whole on a mesh dim that splits the others gets a
+        # partial sum of gradients there
+        return tuple(Shard(d[m]) if m is not None and d[m] is not None
+                     else Partial() if grad and m is not None
+                     else Replicate() for m in modes)
+    return local_map(lambda *a: fn(*a, chunk),
+                     out_placements=tuple(placements(d) for d in dims[1]),
+                     in_placements=tuple(placements(d) for d in dims[0]),
+                     in_grad_placements=tuple(placements(d, True)
+                                              for d in dims[0]),
+                     device_mesh=mesh, redistribute_inputs=True)(*args)
 
 
 def _pad_time(a: torch.Tensor, tp: int) -> torch.Tensor:
@@ -150,26 +195,36 @@ def rwkv_block(p: Tree, x: torch.Tensor, cfg, state: Optional[Tree] = None
     xprev = _token_shift(xn, prev_tm.to(xn.dtype))
     dx = xprev - xn
     xxx = xn + dx * p["maa_x"]
-    ddd = torch.tanh(xxx @ p["maa_w1"]).reshape(b, t, 5, LORA_MAA)
-    ddd = torch.einsum("btfl,fld->btfd", ddd, p["maa_w2"])
+    ddd = unflatten(torch.tanh(linear(xxx, p["maa_w1"])), 2, (5, LORA_MAA),
+                    spill=1)
+    # the einsum merges batch and time, which some versions of DTensor
+    # cannot do with both sharded (the sequence-parallel rules): time is
+    # gathered, and the gradient comes back so
+    ddd = pinned(torch.einsum("btfl,fld->btfd", unsharded(ddd, 1),
+                              p["maa_w2"]))
     mixed = xn[:, :, None, :] + dx[:, :, None, :] * \
         (p["maa_rkvwg"][None, None] + ddd)
-    xr, xk, xv, xw, xg = mixed.unbind(2)
+    xr, xk, xv, xw, xg = unsharded(mixed, 2).unbind(2)
 
-    r = (xr @ p["wr"]).reshape(b, t, nh, hd)
-    k = (xk @ p["wk"]).reshape(b, t, nh, hd)
-    v = (xv @ p["wv"]).reshape(b, t, nh, hd)
-    g = F.silu(xg @ p["wg"])
+    r = unflatten(linear(xr, p["wr"]), 2, (nh, hd), spill=1)
+    k = unflatten(linear(xk, p["wk"]), 2, (nh, hd), spill=1)
+    v = unflatten(linear(xv, p["wv"]), 2, (nh, hd), spill=1)
+    g = F.silu(linear(xg, p["wg"]))
+    r = shard(r, "batch", "seq", "ssm_heads", None)
+    k = shard(k, "batch", "seq", "ssm_heads", None)
+    v = shard(v, "batch", "seq", "ssm_heads", None)
 
-    dd = p["decay"] + torch.tanh(xw @ p["td_w1"]) @ p["td_w2"]
-    w_log = -torch.exp(dd.float()).reshape(b, t, nh, hd)   # log decay, < 0
+    dd = p["decay"] + linear(torch.tanh(linear(xw, p["td_w1"])), p["td_w2"])
+    w_log = unflatten(-torch.exp(dd.float()), 2, (nh, hd),
+                      spill=1)                         # log decay, < 0
 
-    wkv0 = state["wkv"] if decode else \
-        torch.zeros((b, nh, hd, hd), dtype=torch.float32, device=x.device)
-    out, wkv = rwkv_wkv_chunked(r, k, v, w_log, p["bonus"], wkv0,
-                                min(cfg.chunk_size, t))
-    out = rms_norm(out.reshape(b, t, d), p["ln_x"]["scale"], eps) * g
-    x = x + out @ p["wo"]
+    wkv0 = state["wkv"] if decode else replicate_like(
+        torch.zeros((b, nh, hd, hd), dtype=torch.float32, device=x.device), x)
+    out, wkv = _local_scan(rwkv_wkv_chunked,
+                           (r, k, v, w_log, p["bonus"], wkv0),
+                           _RWKV_DIMS, min(cfg.chunk_size, t))
+    out = rms_norm(flatten(out, 2, 2, spill=1), p["ln_x"]["scale"], eps) * g
+    x = shard(x + linear(out, p["wo"]), "batch", "seq", "embed")
 
     # ---- channel mix ----------------------------------------------------
     xn2 = rms_norm(x, p["ln2"]["scale"], eps)
@@ -177,8 +232,10 @@ def rwkv_block(p: Tree, x: torch.Tensor, cfg, state: Optional[Tree] = None
     dx2 = _token_shift(xn2, prev_cm.to(xn2.dtype)) - xn2
     xk2 = xn2 + dx2 * p["cm_maa_k"]
     xr2 = xn2 + dx2 * p["cm_maa_r"]
-    kk = torch.square(torch.relu(xk2 @ p["cm_wk"]))
-    x = x + torch.sigmoid(xr2 @ p["cm_wr"]) * (kk @ p["cm_wv"])
+    kk = shard(torch.square(torch.relu(linear(xk2, p["cm_wk"]))),
+               "batch", "seq", "mlp")
+    x = x + torch.sigmoid(linear(xr2, p["cm_wr"])) * linear(kk, p["cm_wv"])
+    x = shard(x, "batch", "seq", "embed")
 
     new_state = None
     if decode:
@@ -287,8 +344,8 @@ def mamba_block(p: Tree, x: torch.Tensor, cfg,
     decode = state is not None
 
     xn = rms_norm(x, p["ln"]["scale"], cfg.norm_eps)
-    z, xin, Bc, Cc, dt = torch.split(xn @ p["w_in"], [di, di, stt, stt, nh],
-                                     dim=-1)
+    proj = shard(linear(xn, p["w_in"]), "batch", "seq", "ssm_inner")
+    z, xin, Bc, Cc, dt = torch.split(proj, [di, di, stt, stt, nh], dim=-1)
     conv_out, conv_buf = _causal_conv(
         torch.cat([xin, Bc, Cc], dim=-1), p["conv_w"], p["conv_b"],
         state["conv"] if decode else None)
@@ -298,17 +355,18 @@ def mamba_block(p: Tree, x: torch.Tensor, cfg,
     dt = dt.float() + p["dt_bias"]
     dt = torch.logaddexp(dt, torch.zeros_like(dt))              # [B,T,nh]
     log_a = -torch.exp(p["a_log"].float())[None, None] * dt
-    xh = xin.reshape(b, t, nh, hd)
+    xh = unflatten(xin, 2, (nh, hd), spill=1)
     xh_dt = xh.float() * dt[..., None]
 
-    ssm0 = state["ssm"] if decode else \
-        torch.zeros((b, nh, hd, stt), dtype=torch.float32, device=x.device)
-    y, ssm = mamba_ssd_chunked(xh_dt, Bc, Cc, log_a, ssm0,
-                               min(cfg.chunk_size, t))
+    ssm0 = state["ssm"] if decode else replicate_like(
+        torch.zeros((b, nh, hd, stt), dtype=torch.float32, device=x.device), x)
+    y, ssm = _local_scan(mamba_ssd_chunked, (xh_dt, Bc, Cc, log_a, ssm0),
+                         _MAMBA_DIMS, min(cfg.chunk_size, t))
     y = y + p["d_skip"].float()[None, None, :, None] * xh.float()
-    y = y.reshape(b, t, di).to(x.dtype)
+    y = flatten(y, 2, 2, spill=1).to(x.dtype)
     y = rms_norm(y, p["norm"]["scale"], cfg.norm_eps) * F.silu(z)
-    out = x + y @ p["w_out"]
+    y = shard(y, "batch", "seq", "ssm_inner")
+    out = shard(x + linear(y, p["w_out"]), "batch", "seq", "embed")
 
     new_state = None
     if decode:
