@@ -7,7 +7,7 @@
     python3 chip_smoke.py --phase train # phases 1, 2, 3b, 6 (with the
                                         # "dots" leg and the mesh), and
                                         # 4b's zamba2 training
-    python3 chip_smoke.py --phase dryrun    # phases 1, 2, 10
+    python3 chip_smoke.py --phase dryrun    # phases 1, 2, 10 (with 10b)
 
 Drives the port (``src/repro_torch``) only. Phases, each printing its own
 lines:
@@ -142,9 +142,14 @@ lines:
              the kernels' global route: the smallest seeded wide DAG past
              the limit (width 1018) and one about 4x past it (width 4096),
              256 cycles each, and the smallest seeded wide sparse program
-             past it (width 176, 64 tokens), on the main path; held bit for
-             bit to numpy, the interpreter and the plain versions, each
-             route's launches counted, and timed beside their bounds.
+             past it under compact descriptors (width 960, 64 tokens), on
+             the main path; held bit for bit to numpy, the interpreter and
+             the plain versions, each route's launches counted, and timed
+             beside their bounds and beside the same programs in the
+             all-global layout; the sparse program that was past it while
+             descriptors were padded to the widest fan-out (width 176) is
+             timed on the shared route, with each one's shared-memory
+             bytes by part in both descriptor layouts.
 7d. batch  — the compile driver: Table I (the same seeds and settings as
              phase 7) through compile_batch on the process backend, cold,
              warm from the memory cache and warm from a disk cache under
@@ -215,6 +220,14 @@ lines:
              them) and one multi-pod cell, full only, as ``--all`` runs it;
              each cell's bound, terms, peak GB and seconds. The host leg's
              numbers are modelled for 256 or 512 H100s, not measured.
+10b. multirank — first in phase 10: the cheapest cases of
+             ``tests/test_torch_multirank.py`` (``tests/_torch_multirank.py``
+             ``CHEAPEST``: a bare DTensor cache written across two ranks'
+             uneven shards, and llama3's smoke config serving 8 + 4 tokens
+             under ``decode_cache_shard="seq"``) in a world of 4 gloo ranks
+             on the host's CPU, a (2, 2) mesh, held to plain tensors under
+             this machine's torch and its DTensor; printed with the torch
+             version, failing the script on any difference.
 
 Then one JSON line of kernel results and, last, ``{"ok": true, ...}``. Any
 failure raises and exits non-zero before the last line.
@@ -2232,8 +2245,10 @@ SPARSE_ROUND_STEPS = 3
 # opt-in shared memory (232 448 bytes on an H100) and one about 4x past it,
 # as dense programs at 256 cycles, and the smallest seeded wide DAG past it
 # as a sparse program at SIM_TOKENS tokens (tests/test_torch_card.py _wide)
+# under the compact out-lists; SIM_OLD_SPARSE_WIDTH was that program while
+# every descriptor was padded to the widest fan-out, and is timed beside it
 SIM_GLOBAL_WIDTHS, SIM_GLOBAL_CYCLES = (1018, 4096), 256
-SIM_GLOBAL_SPARSE_WIDTH = 176
+SIM_GLOBAL_SPARSE_WIDTH, SIM_OLD_SPARSE_WIDTH = 960, 176
 
 
 def sim_inputs(g, length: int, rng) -> dict:
@@ -2292,6 +2307,33 @@ def sparse_program_bytes(prog) -> int:
     return (16 * len(prog.ev_names) + 4 * edges + 4 * prog.n_buf
             + 8 * len(prog.const_buf) + 4 * len(prog.out_buf)
             + 4 * int(prog.tab_len.sum()))
+
+
+def sparse_layout_bytes(prog, feed_shape, max_cycles: int) -> dict:
+    """Shared-memory bytes of a sparse program on the shared route by part:
+    in the layout that padded every descriptor to the program's widest
+    fan-out (5 head words, ``fan`` output words, padding to 4) and in the
+    compact one (12-word descriptors, the further outputs in the
+    out-list). Both share binfo, the ROM rows, the tables and the state."""
+    from repro_torch.kernels.sim.sim import LANES, pack_sparse
+    h, blob = pack_sparse(prog, feed_shape, max_cycles)
+    items = h["n_rounds"] * LANES
+    real = int(prog.ev_out_mask[prog.ev_in_mask.any(axis=1)].sum()) + int(
+        prog.in_out_mask.sum()) + len(prog.const_buf)
+    fan = h["fan"]
+    padded = 5 + fan + (-(5 + fan) % 4)
+    tables = 4 * (h["blob_words"] - h["o_binfo"] - (h["o_rom"] - h["o_outs"]))
+    state = 4 * (h["s_words"] - h["blob_words"])
+    old = {"heads": 4 * 5 * items, "outputs": 4 * real,
+           "output padding": 4 * (items * fan - real),
+           "word padding": 4 * items * (padded - 5 - fan),
+           "tables": tables, "state": state}
+    new = {"descriptors": 4 * items * h["desc_words"],
+           "out-list": 4 * (h["o_rom"] - h["o_outs"]), "tables": tables,
+           "state": state}
+    return {"fan": fan, "items": items, "old": old,
+            "old_total": sum(old.values()), "new": new,
+            "new_total": sum(new.values())}
 
 
 def stream_err(got: dict, want: dict) -> int:
@@ -2511,7 +2553,8 @@ def check_global_route(dev, runs: dict, max_mhz: float, err: dict) -> dict:
                                           lower_dense, lower_sparse)
     from repro_torch.kernels.sim import (dense_plan, sim_dense_plain,
                                          sim_sparse_plain, sparse_plan)
-    from repro_torch.kernels.sim.sim import (_smem_limit, dense_launcher,
+    from repro_torch.kernels.sim.sim import (LAYOUTS, _smem_limit,
+                                             dense_launcher, pack_dense,
                                              pack_sparse, sparse_launcher)
 
     limit, out = _smem_limit(dev), {}
@@ -2523,6 +2566,7 @@ def check_global_route(dev, runs: dict, max_mhz: float, err: dict) -> dict:
                                                backend="numpy"), 1)
         prog = lower_dense(g)
         h = dense_plan(prog, cycles, limit)[0]
+        shared_words = pack_dense(prog, cycles)[0]["s_words"]
         in_t = torch.from_numpy(_input_matrix(prog, ins, cycles)).to(dev)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2533,7 +2577,7 @@ def check_global_route(dev, runs: dict, max_mhz: float, err: dict) -> dict:
                      for i, o in enumerate(prog.output_names)}
         err["dense_global"] = max(err["dense_global"],
                                   stream_err(got, plain_out))
-        if not h["global_route"] or 4 * h["s_words"] <= limit:
+        if not h["global_route"] or 4 * shared_words <= limit:
             raise RuntimeError(f"sim {label}: not a global-route program")
         if not (got == want == np_out == plain_out):
             raise RuntimeError(f"sim {label}: kernel, plain version, numpy "
@@ -2542,6 +2586,12 @@ def check_global_route(dev, runs: dict, max_mhz: float, err: dict) -> dict:
         ms = launcher_ms(launch, 5)
         if not torch.equal(k_out, plain):
             raise RuntimeError(f"sim {label}: the launcher's run differs")
+        # the all-global layout (every program past shared memory took it
+        # before the stream layout), in the same call
+        g_out, g_launch = dense_launcher(prog, in_t, cycles, "global")
+        ms_global = launcher_ms(g_launch, 5)
+        if not torch.equal(g_out, plain):
+            raise RuntimeError(f"sim {label}: the global layout differs")
         n_rd = h["n_light"] + h["n_heavy"]
         bound_ms, bound_by = sim_bound(
             dense_function_bytes(prog, cycles),
@@ -2549,8 +2599,11 @@ def check_global_route(dev, runs: dict, max_mhz: float, err: dict) -> dict:
                       - len(prog.const_pos)))
         floor_ms = 1e3 * cycles * n_rd * STEP_CLOCKS / (1e6 * max_mhz)
         log("sim", f"global route, dense {label} ({prog.n_nodes} nodes, "
-            f"{4 * h['s_words']} bytes of program and state, "
-            f"{4 * h['s_words'] / limit:.2f}x a block's {limit}) x {cycles} "
+            f"{4 * shared_words} bytes of program and state, "
+            f"{4 * shared_words / limit:.2f}x a block's {limit}; the "
+            f"{LAYOUTS[h['layout']]} layout, {4 * h['s_words']} bytes of "
+            f"shared memory, outputs staged {h['out_chunk']} cycles a bank) "
+            f"x {cycles} "
             f"cycles: kernel == plain == numpy == interpreter on "
             f"{len(got)} output streams; s interpreter {t_int:.3f}, numpy "
             f"{t_np:.3f}, torch {first:.3f} (one call, packing included), "
@@ -2560,7 +2613,10 @@ def check_global_route(dev, runs: dict, max_mhz: float, err: dict) -> dict:
             f"{bound_ms:.3g} ms ({bound_by}; roofline share "
             f"{bound_ms / ms:.2g}); the shared route's latency floor "
             f"{floor_ms:.4f} ms ({STEP_CLOCKS} SM clocks a round at "
-            f"{max_mhz:.0f} MHz, an assumption; share {floor_ms / ms:.3f})")
+            f"{max_mhz:.0f} MHz, an assumption; share {floor_ms / ms:.3f}); "
+            f"the global layout {ms_global:.4f} ms "
+            f"({1e6 * ms_global / cycles / n_rd:.1f} ns a round), "
+            f"{ms_global / ms:.2f}x the {LAYOUTS[h['layout']]} layout's")
         if label == f"wide x{SIM_GLOBAL_WIDTHS[0]}":
             out["sim_dense_global"] = {
                 "ms": ms, "plain_ms": 1e3 * plain_s, "bound_ms": bound_ms,
@@ -2595,6 +2651,11 @@ def check_global_route(dev, runs: dict, max_mhz: float, err: dict) -> dict:
     if not (same and got == want == np_out == plain_out):
         raise RuntimeError("sim wide sparse: kernel, plain version, numpy "
                            "and interpreter differ")
+    g_res, g_launch = sparse_launcher(prog, feed_t, frem_t, mc, "global")
+    ms_global = launcher_ms(g_launch, 5)
+    if not all(torch.equal(a, b) for i, (a, b) in enumerate(
+            zip(g_res, k_res)) if i != 2):
+        raise RuntimeError("sim wide sparse: the global layout differs")
     rounds = int(plain.rounds)
     nbytes = 8 * (int(frem.sum()) + int(plain.ocnt.sum())) \
         + sparse_program_bytes(prog)
@@ -2607,19 +2668,50 @@ def check_global_route(dev, runs: dict, max_mhz: float, err: dict) -> dict:
         f"({prog.n_buf} buffers, {len(prog.ev_names)} nodes, fan-out "
         f"{h['fan']}, {h['n_rounds']} item rounds a round; "
         f"{4 * shared_words} bytes of program and state in the shared "
-        f"route's layout, {4 * shared_words / limit:.2f}x a block's; "
-        f"{4 * h['s_words']} in the global route's wide layout) x "
-        f"{SIM_TOKENS} tokens: "
+        f"route's layout, {4 * shared_words / limit:.2f}x a block's; the "
+        f"{LAYOUTS[h['layout']]} layout, {4 * h['s_words']} bytes of shared "
+        f"memory; bytes by part {sparse_layout_bytes(prog, feed.shape, mc)}"
+        f") x {SIM_TOKENS} tokens: "
         f"kernel == plain (end state and streams) == numpy == interpreter; "
         f"{rounds} rounds; s interpreter {t_int:.3f}, numpy {t_np:.3f}, "
         f"torch {first:.3f}, plain on the card {plain_s:.3f}; kernel "
         f"{ms:.4f} ms a call on the device ({1e3 * ms / rounds:.3f} us a "
         f"round), bound {bound_ms:.3g} ms ({bound_by}; roofline share "
         f"{bound_ms / ms:.2g}); the shared route's latency floor "
-        f"{floor_ms:.4f} ms (share {floor_ms / ms:.3f})")
+        f"{floor_ms:.4f} ms (share {floor_ms / ms:.3f}); the global layout "
+        f"{ms_global:.4f} ms ({1e3 * ms_global / rounds:.3f} us a round)")
     out["sim_sparse_global"] = {
         "ms": ms, "plain_ms": 1e3 * plain_s, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None}
+
+    # the program that was the global route's case while descriptors were
+    # padded to the widest fan-out: now on the shared route, timed beside
+    g = wide_graph(SIM_OLD_SPARSE_WIDTH, sparse=True)
+    ins = sim_inputs(g, SIM_TOKENS, np.random.default_rng(SIM_SEED))
+    prog = lower_sparse(g)
+    feed, frem = _feed_matrix(prog, ins)
+    h = sparse_plan(prog, feed.shape, mc, limit)[0]
+    feed_t, frem_t = (torch.from_numpy(x).to(dev) for x in (feed, frem))
+    plain = sim_sparse_plain(prog, feed_t, frem_t, mc)
+    k_res, launch = sparse_launcher(prog, feed_t, frem_t, mc)
+    ms = launcher_ms(launch, 5)
+    same = all(torch.equal(a, b) for i, (a, b) in enumerate(
+        zip(k_res, plain)) if i != 2) and all(
+        torch.equal(k_res.outm[o, :int(plain[3][o])],
+                    plain[2][o, :int(plain[3][o])])
+        for o in range(len(prog.output_names)))
+    if not same or simulate_sparse(g, ins, mc) != simulate_sparse(
+            g, ins, mc, backend="torch"):
+        raise RuntimeError(f"sim wide sparse x{SIM_OLD_SPARSE_WIDTH}: "
+                           f"kernel, plain version and interpreter differ")
+    rounds = int(plain.rounds)
+    log("sim", f"sparse wide x{SIM_OLD_SPARSE_WIDTH} (fan-out {h['fan']}; "
+        f"the {LAYOUTS[h['layout']]} layout, {4 * h['s_words']} bytes of "
+        f"shared memory; bytes by part "
+        f"{sparse_layout_bytes(prog, feed.shape, mc)}) x {SIM_TOKENS} "
+        f"tokens: kernel == plain == interpreter; {rounds} rounds; kernel "
+        f"{ms:.4f} ms a call on the device ({1e3 * ms / rounds:.3f} us a "
+        f"round)")
     return out
 
 
@@ -3622,6 +3714,28 @@ DRYRUN_MULTI_POD_CELL = ("qwen2.5-14b", "decode_32k")
 DRYRUN_OUT = ROOT / "build" / "chip_smoke_dryrun"
 
 
+def phase_multirank(card: str) -> None:
+    sys.path.insert(0, str(ROOT / "tests"))
+    from _torch_multirank import CHEAPEST, MESH, WORLD, run_world
+    out = ROOT / "build" / "chip_smoke_multirank"
+    if out.exists():
+        for f in out.iterdir():
+            f.unlink()
+    out.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    verdicts = run_world(CHEAPEST, str(out / "verdicts.json"),
+                         str(out / "store"))
+    bad = {c: verdicts.get(c, "did not run") for c in CHEAPEST
+           if verdicts.get(c, "did not run") is not None}
+    log("multirank", f"{', '.join(CHEAPEST)} in a world of {WORLD} gloo "
+        f"ranks on the host's CPU (a {MESH} mesh), torch "
+        f"{verdicts['torch']}: "
+        f"{'equal to plain tensors' if not bad else bad} in "
+        f"{time.perf_counter() - t0:.1f} s, on {card}'s host")
+    if bad:
+        raise RuntimeError(f"multirank on torch {verdicts['torch']}: {bad}")
+
+
 def phase_dryrun(dev, card: str) -> None:
     import torch.distributed as dist
     from repro_torch.configs import get_config
@@ -3634,6 +3748,7 @@ def phase_dryrun(dev, card: str) -> None:
     from repro_torch.models import LM
 
     t_phase = time.perf_counter()
+    phase_multirank(card)
     shape = ShapeSpec("train_2x4k", TRAIN_SEQ, TRAIN_BATCH, "train")
     base = get_config(DRYRUN_ARCH)
     torch.cuda.empty_cache()

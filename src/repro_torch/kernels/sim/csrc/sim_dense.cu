@@ -42,16 +42,27 @@
 //     and outputs go to shared memory and out to device memory a chunk at a
 //     time, coalesced: no cycle touches device memory.
 //
-// A program whose blob and state pass a block's shared memory (or whose
-// slots pass the 18-bit destination field) takes the global route, the
-// same kernel instantiated with kGlobal: the blob and state live in a
-// workspace in device memory that the wrapper allocates (blob first, state
-// after it, the same word offsets; H100's 50 MB L2 holds it at the sizes
-// that need it), the inputs are staged by plain loads and stores, and the
-// descriptor moves its flags and micro-op to word 7, leaving word 3 a full
-// 32-bit destination offset. The rounds, the stage rule, the micro-ops and
-// the __syncwarp()s are the shared route's; __syncwarp() orders the warp's
-// device-memory accesses as it orders its shared-memory ones.
+// A program whose blob and state pass a block's shared memory takes the
+// global route, in one of two layouts (the kernel's kLayout):
+//   * kStreamLayout, where the state fits: the value banks, rings, pointers
+//     and input staging stay in shared memory with the constants, ROM rows
+//     and tables, and only the descriptors stay in device memory. Each lane
+//     streams its own (DescStream, sim_ops.cuh): chunks of 16 rounds
+//     double-buffered by cp.async, one wait a chunk, each round's
+//     descriptor loaded from shared memory a round ahead. Its output
+//     staging holds out_chunk cycles a bank (the host takes the largest of
+//     32, 16, ..., 1 that fits: 2 x 32 cycles of a few thousand outputs
+//     would pass shared memory), flushed as the shared route flushes.
+//   * kGlobalLayout, where the state passes shared memory too or the slots pass
+//     the 18-bit destination field: the blob and state live in a workspace
+//     in device memory that the wrapper allocates (blob first, state after
+//     it, the same word offsets; H100's 50 MB L2 holds it at the sizes that
+//     need it), the inputs are staged by plain loads and stores, and the
+//     descriptor moves its flags and micro-op to word 7, leaving word 3 a
+//     full 32-bit destination offset.
+// The rounds, the stage rule, the micro-ops and the __syncwarp()s are the
+// shared route's; __syncwarp() orders the warp's device-memory accesses as
+// it orders its shared-memory ones.
 //
 // Plain C interface, loaded with ctypes (repro_torch/kernels/_build.py).
 
@@ -68,15 +79,19 @@ namespace {
 // wrapper's DENSE_FIELDS (repro_torch/kernels/sim/sim.py).
 struct DenseHeader {
   int n_nodes, n_in, n_out, n_const, n_light, n_heavy, n_rom, cycles;
-  int stride, blob_words, global_route;
-  // sections of the program blob (copied to shared memory as it is)
-  int o_desc, o_const, o_rom, o_table;
-  // state sections in shared memory, after the blob
-  int s_val, s_ring, s_ptr, s_in, s_out, s_words;
+  int stride, out_chunk, layout;
+  // sections of the program blob: o_desc in the blob, the others where
+  // shared memory holds them (blob words [o_copy, o_copy + copy_words)
+  // copied to word 0; the whole blob but on the stream layout)
+  int o_desc, o_const, o_rom, o_table, o_copy, copy_words;
+  // state sections in shared memory, after the copy (s_pre: the streamed
+  // descriptors' ring, stream layout only; s_out: none there)
+  int s_val, s_ring, s_ptr, s_in, s_out, s_pre, s_words;
 };
 
 constexpr int kLanes = 32;
 constexpr int kChunk = 32;                // sim.py CHUNK
+constexpr int kStreamChunk = 16;          // sim.py STREAM_CHUNKS["dense"]
 
 // Descriptor flags, bits 18-23 of word 3 (sim.py DENSE_FLAGS); the
 // destination's byte offset sits below them, the micro-op above. On the
@@ -95,7 +110,7 @@ __device__ __forceinline__ uint32_t lds(const char* base, uint32_t off) {
 
 // Copies of input chunk c (cycles [32c, 32c + 32)) into staging bank c % 2:
 // inbuf[bank][row][cycle % 32]; by cp.async into shared memory, or by plain
-// loads and stores on the global route.
+// loads and stores on the global layout.
 template <bool kGlobal>
 __device__ __forceinline__ void stage_inputs(const DenseHeader& h, int c,
                                              uint32_t* inbuf,
@@ -115,29 +130,33 @@ __device__ __forceinline__ void stage_inputs(const DenseHeader& h, int c,
   if (!kGlobal) cp_async_commit();
 }
 
-// The outputs of chunk c, from staging bank c % 2 to out[n_out, cycles].
+// The outputs of output chunk c (cycles [c oc, c oc + oc), oc =
+// h.out_chunk), from staging bank c % 2 to out[n_out, cycles].
 __device__ __forceinline__ void flush_outputs(const DenseHeader& h, int c,
                                               const uint32_t* outbuf,
                                               long long* out, int lane) {
-  const int t0 = c * kChunk;
-  const int width = min(kChunk, h.cycles - t0);
-  const uint32_t* src = outbuf + (c & 1) * h.n_out * kChunk;
+  const int oc = h.out_chunk;
+  const int t0 = c * oc;
+  const int width = min(oc, h.cycles - t0);
+  const uint32_t* src = outbuf + (c & 1) * h.n_out * oc;
   for (int i = lane; i < h.n_out * width; i += kLanes) {
     const int o = i / width, k = i % width;
-    out[static_cast<size_t>(o) * h.cycles + t0 + k] = src[o * kChunk + k];
+    out[static_cast<size_t>(o) * h.cycles + t0 + k] = src[o * oc + k];
   }
 }
 
-// blob: the program (shared route), or the workspace that holds the
-// program and the state (global route).
-template <bool kGlobal>
+// blob: the program (shared and stream layouts), or the workspace that
+// holds the program and the state (global layout).
+template <int kLayout>
 __global__ void __launch_bounds__(kLanes, 1)
 sim_dense_kernel(DenseHeader h, int* blob, const long long* __restrict__ in,
                  long long* __restrict__ out) {
+  constexpr bool kGlobal = kLayout == kGlobalLayout;
+  constexpr bool kStreamed = kLayout == kStreamLayout;
   extern __shared__ __align__(16) int smem[];
   int* sm = kGlobal ? blob : smem;
   const int lane = threadIdx.x;
-  if (!kGlobal) copy_blob(sm, blob, h.blob_words, lane);
+  if (!kGlobal) copy_blob(sm, blob + h.o_copy, h.copy_words, lane);
   for (int i = h.s_val + lane; i < h.s_words; i += kLanes) sm[i] = 0;
   cp_async_wait_all();
   __syncwarp();
@@ -148,7 +167,8 @@ sim_dense_kernel(DenseHeader h, int* blob, const long long* __restrict__ in,
   uint32_t* outbuf = reinterpret_cast<uint32_t*>(sm + h.s_out);
   // descriptors: two uint4 a lane and round, the light rounds' list ending
   // with a copy of its first round, then the heavy rounds
-  const uint4* desc = reinterpret_cast<const uint4*>(sm + h.o_desc);
+  const uint4* desc = reinterpret_cast<const uint4*>(
+      (kStreamed ? blob : sm) + h.o_desc);
   const uint4* heavy = desc + 2 * kLanes * (h.n_light + (h.n_light > 0));
   const int4* roms = reinterpret_cast<const int4*>(sm + h.o_rom);
   const int* table = sm + h.o_table;
@@ -169,22 +189,33 @@ sim_dense_kernel(DenseHeader h, int* blob, const long long* __restrict__ in,
   __syncwarp();
 
   const uint4 zero4 = make_uint4(0, 0, 0, 0);
-  uint4 d = h.n_light > 0 ? desc[2 * lane] : zero4;
-  // the global route's control word (word 7): flags and micro-op
+  // the stream layout's descriptors: the light rounds, then the heavy
+  // ones (the light list's closing copy is not streamed)
+  const int per_cycle = h.n_light + h.n_heavy;
+  DescStream<2, kStreamChunk> stream;
+  if (kStreamed && per_cycle > 0)
+    stream.start(desc, reinterpret_cast<uint4*>(sm + h.s_pre), per_cycle,
+                 h.n_light > 0 ? h.n_light : per_cycle, lane);
+  uint4 d = !kStreamed && h.n_light > 0 ? desc[2 * lane] : zero4;
+  // the global layout's control word (word 7): flags and micro-op
   uint32_t dc = kGlobal && h.n_light > 0 ? desc[2 * lane + 1].w : 0u;
   // one heavy round (every app): its descriptor stays in registers
-  const uint4 ha = h.n_heavy > 0 ? heavy[2 * lane] : zero4;
-  const uint4 hb = h.n_heavy > 0 ? heavy[2 * lane + 1] : zero4;
+  const uint4 ha = !kStreamed && h.n_heavy > 0 ? heavy[2 * lane] : zero4;
+  const uint4 hb = !kStreamed && h.n_heavy > 0 ? heavy[2 * lane + 1] : zero4;
+  // the output staging: out_chunk cycles a bank, a power of two, so a
+  // cycle takes its bank and column by a shift and a mask (no division by a
+  // run-time value on the cycle's path)
+  const int oc = h.out_chunk, oshift = __ffs(oc) - 1;
+  const int obank = h.n_out * oc;
   for (int t = 0; t < h.cycles; ++t) {
-    if ((t & (kChunk - 1)) == kChunk - 1) {
-      const int c = t / kChunk;
-      if (t + 1 < h.cycles) {             // chunk c + 1 has landed
-        cp_async_wait_all();
-        __syncwarp();
-        stage_inputs<kGlobal>(h, c + 2, inbuf, in, lane);
-      }
-      if (c > 0) flush_outputs(h, c - 1, outbuf, out, lane);
+    if ((t & (kChunk - 1)) == kChunk - 1 && t + 1 < h.cycles) {
+      // input chunk t / 32 + 1 has landed
+      cp_async_wait_all();
+      __syncwarp();
+      stage_inputs<kGlobal>(h, t / kChunk + 2, inbuf, in, lane);
     }
+    if ((t & (oc - 1)) == oc - 1 && t >= oc)
+      flush_outputs(h, (t >> oshift) - 1, outbuf, out, lane);
     const char* V = reinterpret_cast<const char*>(val + (t & 1) * h.stride);
     char* Vw = reinterpret_cast<char*>(val + (t & 1) * h.stride);
     char* Vn = reinterpret_cast<char*>(val + ((t + 1) & 1) * h.stride);
@@ -192,25 +223,45 @@ sim_dense_kernel(DenseHeader h, int* blob, const long long* __restrict__ in,
     const char* inb = reinterpret_cast<const char*>(
         inbuf + ((u / kChunk) & 1) * h.n_in * kChunk + u % kChunk);
     char* outb = reinterpret_cast<char*>(
-        outbuf + ((t / kChunk) & 1) * h.n_out * kChunk + t % kChunk);
+        outbuf + ((t >> oshift) & 1) * obank + (t & (oc - 1)));
+    auto put = [&](uint32_t ctl, uint32_t dest, uint32_t v) {
+      char* db = (ctl & kDNext) ? Vn : ((ctl & kDOut) ? outb : Vw);
+      *reinterpret_cast<uint32_t*>(db + dest) = v;
+    };
     for (int k = 0; k < h.n_light; ++k) {
-      // the next round's descriptor first, off this round's chain
-      const uint4 dn = desc[2 * ((k + 1) * kLanes + lane)];
-      const uint32_t dcn =
-          kGlobal ? desc[2 * ((k + 1) * kLanes + lane) + 1].w : 0u;
+      uint4 dn = zero4;
+      uint32_t dcn = 0u;
+      if (kStreamed) {
+        uint4 sd[2];
+        stream.advance(sd);
+        d = sd[0];
+      } else {
+        // the next round's descriptor first, off this round's chain
+        dn = desc[2 * ((k + 1) * kLanes + lane)];
+        dcn = kGlobal ? desc[2 * ((k + 1) * kLanes + lane) + 1].w : 0u;
+      }
       const uint32_t ctl = kGlobal ? dc : d.w;
       const uint32_t dest = kGlobal ? d.w : (d.w & kDestMask);
       const uint32_t x = lds((ctl & kXIn) ? inb : V, d.x);
       const uint32_t v = alu16(ctl >> 24, x, lds(V, d.y), lds(V, d.z));
-      char* db = (ctl & kDNext) ? Vn : ((ctl & kDOut) ? outb : Vw);
-      *reinterpret_cast<uint32_t*>(db + dest) = v;
+      put(ctl, dest, v);
       __syncwarp();
-      d = dn;
-      dc = dcn;
+      if (!kStreamed) {
+        d = dn;
+        dc = dcn;
+      }
     }
     for (int k = 0; k < h.n_heavy; ++k) {
-      const uint4 a = k == 0 ? ha : heavy[2 * (k * kLanes + lane)];
-      const uint4 b = k == 0 ? hb : heavy[2 * (k * kLanes + lane) + 1];
+      uint4 a, b;
+      if (kStreamed) {
+        uint4 sd[2];
+        stream.advance(sd);
+        a = sd[0];
+        b = sd[1];
+      } else {
+        a = k == 0 ? ha : heavy[2 * (k * kLanes + lane)];
+        b = k == 0 ? hb : heavy[2 * (k * kLanes + lane) + 1];
+      }
       const uint32_t ctl = kGlobal ? b.w : a.w;
       const uint32_t dest = kGlobal ? a.w : (a.w & kDestMask);
       const uint32_t x = lds((ctl & kXIn) ? inb : V, a.x);
@@ -225,18 +276,32 @@ sim_dense_kernel(DenseHeader h, int* blob, const long long* __restrict__ in,
       }
       ring[b.y + p] = v;
       ptr[item] = pn;
-      char* db = (ctl & kDNext) ? Vn : ((ctl & kDOut) ? outb : Vw);
-      *reinterpret_cast<uint32_t*>(db + dest) = (ctl & kRing) ? head : v;
+      put(ctl, dest, (ctl & kRing) ? head : v);
     }
     __syncwarp();
   }
-  // the outputs not flushed yet: the last chunk, and the one before it
-  // unless the last chunk is whole
-  const int last = (h.cycles - 1) / kChunk;
-  if (h.cycles % kChunk != 0 && last > 0)
+  // the outputs not flushed yet: the last output chunk, and the one before
+  // it unless the last is whole
+  const int last = (h.cycles - 1) >> oshift;
+  if ((h.cycles & (oc - 1)) != 0 && last > 0)
     flush_outputs(h, last - 1, outbuf, out, lane);
   if (h.cycles > 0) flush_outputs(h, last, outbuf, out, lane);
   cp_async_wait_all();
+}
+
+template <int kLayout>
+cudaError_t launch_dense(const DenseHeader& h, int* blob, const long long* in,
+                         long long* out, cudaStream_t stream) {
+  const size_t smem = kLayout == kGlobalLayout
+                          ? 0 : static_cast<size_t>(h.s_words) * sizeof(int);
+  if (smem > 48 * 1024) {                 // past the default, opt in
+    const cudaError_t err = cudaFuncSetAttribute(
+        sim_dense_kernel<kLayout>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  sim_dense_kernel<kLayout><<<1, kLanes, smem, stream>>>(h, blob, in, out);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -245,27 +310,20 @@ extern "C" {
 
 int sim_dense_header_ints() { return sizeof(DenseHeader) / sizeof(int); }
 
-// hdr: DenseHeader's fields, host memory. blob: the program (shared route)
-// or the workspace of s_words words that starts with it (global route),
-// device memory. in: int64 [n_in, cycles], out: int64 [n_out, cycles],
+// hdr: DenseHeader's fields, host memory. blob: the program (shared and
+// stream layouts) or the workspace of s_words words that starts with it
+// (global layout), device memory. in: int64 [n_in, cycles], out: int64 [n_out, cycles],
 // device memory. Returns the launch's cudaError_t.
 int sim_dense_launch(const int* hdr, int* blob, const long long* in,
                      long long* out, cudaStream_t stream) {
   DenseHeader h;
   memcpy(&h, hdr, sizeof(h));
-  if (h.global_route) {
-    sim_dense_kernel<true><<<1, kLanes, 0, stream>>>(h, blob, in, out);
-    return cudaGetLastError();
+  switch (h.layout) {
+    case kSharedLayout: return launch_dense<kSharedLayout>(h, blob, in, out, stream);
+    case kStreamLayout: return launch_dense<kStreamLayout>(h, blob, in, out, stream);
+    case kGlobalLayout: return launch_dense<kGlobalLayout>(h, blob, in, out, stream);
   }
-  const size_t smem = static_cast<size_t>(h.s_words) * sizeof(int);
-  if (smem > 48 * 1024) {                 // past the default, opt in
-    const cudaError_t err = cudaFuncSetAttribute(
-        sim_dense_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  sim_dense_kernel<false><<<1, kLanes, smem, stream>>>(h, blob, in, out);
-  return cudaGetLastError();
+  return cudaErrorInvalidValue;
 }
 
 }  // extern "C"

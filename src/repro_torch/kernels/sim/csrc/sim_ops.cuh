@@ -104,4 +104,90 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// Wait until at most N of this thread's copy groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Where the program and the state live (sim.py LAYOUTS): both in shared
+// memory; the state (and the program's tables) in shared memory with the
+// descriptors streamed from device memory; both in device memory.
+enum Layout { kSharedLayout = 0, kStreamLayout = 1, kGlobalLayout = 2 };
+
+// One lane's descriptors streamed from device memory on the stream layout:
+// W uint4 a round, the rounds of a list of n taken in a cycle (round r at
+// src[(r' * 32 + lane) * W], r' = r + 1 from round `skip` on: a list may
+// hold a round that is not streamed). The stream's positions (position q
+// is round q % n) go in chunks of C, double-buffered in shared memory:
+// chunk j + 1 is cp.async'ed, as one copy group, while chunk j runs, and
+// the lane waits once a chunk, at its first position, for a copy issued a
+// whole chunk earlier. Within a chunk a round's descriptor is one
+// shared-memory load, made a round ahead into registers, as on the shared
+// route. A chunk's buffer is refilled only after its last position was
+// loaded. The ring's words are the lane's own, so no other lane needs to see
+// them. Tested lane by lane in tests/test_torch_sim_vec.py (_Stream).
+template <int W, int C>
+struct DescStream {
+  const uint4* src;
+  uint4* ring;                            // [2][C][32][W], shared memory
+  int n, skip, lane, next_r;
+  int q;                                  // the held position mod 2C
+  uint4 held[W];
+
+  // The next C positions into buffer `buf`, one copy group.
+  __device__ __forceinline__ void fetch(int buf) {
+    for (int i = 0; i < C; ++i) {
+      const int r = next_r + (next_r >= skip);
+      const uint4* s = src + static_cast<size_t>(r * 32 + lane) * W;
+      uint4* d = ring + ((buf * C + i) * 32 + lane) * W;
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        const unsigned dst = static_cast<unsigned>(
+            __cvta_generic_to_shared(d + w));
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                     ::"r"(dst), "l"(s + w));
+      }
+      next_r = next_r + 1 == n ? 0 : next_r + 1;
+    }
+    cp_async_commit();
+  }
+
+  __device__ __forceinline__ void load() {
+    const uint4* d = ring + (q * 32 + lane) * W;
+#pragma unroll
+    for (int w = 0; w < W; ++w) held[w] = d[w];
+  }
+
+  // Chunks 0 and 1 in flight, position 0 held. n > 0.
+  __device__ __forceinline__ void start(const uint4* src_, uint4* ring_,
+                                        int n_, int skip_, int lane_) {
+    src = src_;
+    ring = ring_;
+    n = n_;
+    skip = skip_;
+    lane = lane_;
+    next_r = 0;
+    q = 0;
+    fetch(0);
+    fetch(1);
+    cp_async_wait_group<1>();
+    load();
+  }
+
+  // The held position's descriptor into `out`, and the next one held; at a
+  // chunk's first position, wait for it and send for the chunk after it
+  // into the buffer just used up.
+  __device__ __forceinline__ void advance(uint4 (&out)[W]) {
+#pragma unroll
+    for (int w = 0; w < W; ++w) out[w] = held[w];
+    q = q + 1 == 2 * C ? 0 : q + 1;
+    if (q % C == 0) {
+      cp_async_wait_group<0>();   // wait_all would commit an empty group
+      fetch(q == 0);
+    }
+    load();
+  }
+};
+
 }  // namespace

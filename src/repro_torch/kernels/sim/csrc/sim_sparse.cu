@@ -44,15 +44,29 @@
 //   * Operands come from the heads by one byte permute each (selectors set
 //     on the host), and the micro-op is sim_ops.cuh's branch-free alu16.
 //
-// A program whose blob and state pass a block's shared memory, or whose
-// buffers pass the descriptor's 16-bit fields, takes the global route, the
-// same kernel instantiated with kGlobal: blob and state live in a workspace
-// in device memory that the wrapper allocates (blob first, the state after
-// it, the same word offsets), the feed is staged by plain loads and stores,
-// and the descriptor is wide: every buffer index, the sink and each output
-// limit a 32-bit word of its own (sim.py pack_sparse). The rounds, the
-// phase and the micro-ops are the shared route's; __syncwarp() orders the
-// warp's device-memory accesses as it orders its shared-memory ones.
+//   * An item's descriptor holds its first four outputs (in registers);
+//     the rest sit in one packed out-list, the descriptor giving their
+//     count and first entry. Those of the round's wide items are the
+//     warp's: every lane tests a stride of an item's entries (__all_sync of
+//     the parts) before the items fire, and pushes the same stride after,
+//     item after item, so a round of narrow items runs no loop at all.
+//
+// A program whose blob and state pass a block's shared memory takes the
+// global route, in one of two layouts (the kernel's kLayout):
+//   * kStreamLayout, where the state fits: the state, binfo, the out-list,
+//     ROM rows and tables stay in shared memory, and only the descriptors
+//     stay in device memory; each lane streams its own (DescStream,
+//     sim_ops.cuh: chunks of 4 item rounds double-buffered by cp.async).
+//   * kGlobalLayout, where the state passes shared memory too or the buffers
+//     pass the descriptor's 16-bit fields: blob and state live in a
+//     workspace in device memory that the wrapper allocates (blob first,
+//     the state after it, the same word offsets), the feed is staged by
+//     plain loads and stores, and the descriptor is wide: every buffer
+//     index, the sink and each output limit a 32-bit word of its own
+//     (sim.py pack_sparse).
+// The rounds, the phase and the micro-ops are the shared route's;
+// __syncwarp() orders the warp's device-memory accesses as it orders its
+// shared-memory ones.
 //
 // Plain C interface, loaded with ctypes (repro_torch/kernels/_build.py).
 
@@ -71,16 +85,23 @@ namespace {
 // n_in is the dummy an absent input reads (never empty, head 0) and n_tot +
 // 1 the one an absent output checks (never full); nothing writes either.
 struct SparseHeader {
-  int n_buf, n_in, n_out, n_rows, n_rounds, desc_words, fan, max_feed;
-  int window, refill, max_cycles, blob_words, global_route;
-  // sections of the program blob (copied to shared memory as it is)
-  int o_desc, o_binfo, o_rom, o_table;
-  // state sections in shared memory, after the blob
-  int s_p, s_q, s_rpa, s_wpa, s_data, s_accv, s_ocnt, s_trash, s_words;
+  int n_buf, n_in, n_out, n_rows, n_rounds, desc_words, max_feed;
+  int window, refill, max_cycles, layout;
+  // sections of the program blob: o_desc in the blob, the others where
+  // shared memory holds them (blob words [o_copy, o_copy + copy_words)
+  // copied to word 0; the whole blob but on the stream layout)
+  int o_desc, o_binfo, o_outs, o_rom, o_table, o_copy, copy_words;
+  // state sections in shared memory, after the copy (s_pre: the streamed
+  // descriptors' ring, stream layout only)
+  int s_p, s_q, s_rpa, s_wpa, s_data, s_accv, s_ocnt, s_trash, s_pre;
+  int s_words;
 };
 
 constexpr int kLanes = 32;
-constexpr int kFan = 4;                   // output words kept in registers
+constexpr int kFan = 4;                   // outputs a descriptor holds
+constexpr int kMoreShift = 12;            // sim.py MORE_SHIFT
+constexpr int kStreamChunk = 4;           // sim.py STREAM_CHUNKS["sparse"]
+constexpr uint32_t kFull = 0xFFFFFFFFu;
 
 // Descriptor flags, bits 4-11 of word 0 (sim.py SPARSE_FLAGS); the ROM row
 // sits in bits 12-31, the micro-op in bits 0-3.
@@ -126,37 +147,42 @@ __device__ __forceinline__ void stage_feed(const SparseHeader& h,
   if (!kGlobal) cp_async_commit();
 }
 
-// An item's descriptor, decoded. outs points at its output entries: on the
-// shared route word 5 on, a word each (buffer | limit << 16); on the
-// global route word 8 on, fan buffers then fan limits.
+// An item's descriptor, decoded: its first kFan outputs' buffers and
+// limits, and the count and first out-list entry of the rest.
 struct Item {
   uint32_t w;        // uop | flags << 4 | rom << 12
   int in[3];
   int sink;          // the OUTPUT's index, n_out for none
   uint32_t selxy;    // x's selector | y's << 16
   uint32_t selzk;    // z's selector | the constant << 16
-  int ob[kFan];      // the first kFan outputs' buffers and limits
+  int ob[kFan];
   int lim[kFan];
-  const int* outs;
+  int n_more, more_at;
 };
 
+// Out-list entry e: a word (buffer | limit << 16), or on the global layout
+// a pair of words.
 template <bool kGlobal>
-__device__ __forceinline__ void out_entry(const int* outs, int fan, int f,
-                                          int& b, int& lim) {
+__device__ __forceinline__ void out_entry(const int* outs, int e, int& b,
+                                          int& lim) {
   if (kGlobal) {
-    b = outs[f];
-    lim = outs[fan + f];
+    b = outs[2 * e];
+    lim = outs[2 * e + 1];
   } else {
-    const uint32_t o = static_cast<uint32_t>(outs[f]);
+    const uint32_t o = static_cast<uint32_t>(outs[e]);
     b = o & 0xFFFFu;
     lim = o >> 16;
   }
 }
 
-// The shared route's descriptor from its first nine words in registers
-// (d0, d1: words 0-7, w8: word 8) and the pointer to it.
+__device__ __forceinline__ void set_more(Item& it, uint32_t more) {
+  it.n_more = more & ((1u << kMoreShift) - 1);
+  it.more_at = more >> kMoreShift;
+}
+
+// The shared and stream layouts' descriptor: words 0-11 in three uint4.
 __device__ __forceinline__ Item item16(const uint4 d0, const uint4 d1,
-                                       uint32_t w8, const int* d) {
+                                       const uint4 d2) {
   Item it;
   it.w = d0.x;
   it.in[0] = d0.y & 0xFFFFu;
@@ -165,22 +191,24 @@ __device__ __forceinline__ Item item16(const uint4 d0, const uint4 d1,
   it.sink = d0.z >> 16;
   it.selxy = d0.w;
   it.selzk = d1.x;
-  const uint32_t o[kFan] = {d1.y, d1.z, d1.w, w8};
+  const uint32_t o[kFan] = {d1.y, d1.z, d1.w, d2.x};
 #pragma unroll
   for (int f = 0; f < kFan; ++f) {
     it.ob[f] = o[f] & 0xFFFFu;
     it.lim[f] = o[f] >> 16;
   }
-  it.outs = d + 5;
+  set_more(it, d2.y);
   return it;
 }
 
-// The global route's wide descriptor: uop | flags << 4 | rom << 12, in0,
+// The global layout's wide descriptor: uop | flags << 4 | rom << 12, in0,
 // in1, in2, sink, selectors of x and y, z's selector | the constant << 16,
-// 0, then fan buffers and fan limits.
-__device__ __forceinline__ Item item32(const int* d, int fan) {
+// more, then kFan buffers and kFan limits.
+__device__ __forceinline__ Item item32(const int* d) {
   const uint4 d0 = reinterpret_cast<const uint4*>(d)[0];
   const uint4 d1 = reinterpret_cast<const uint4*>(d)[1];
+  const int4 ob = reinterpret_cast<const int4*>(d)[2];
+  const int4 lim = reinterpret_cast<const int4*>(d)[3];
   Item it;
   it.w = d0.x;
   it.in[0] = d0.y;
@@ -189,10 +217,9 @@ __device__ __forceinline__ Item item32(const int* d, int fan) {
   it.sink = d1.x;
   it.selxy = d1.y;
   it.selzk = d1.z;
-#pragma unroll
-  for (int f = 0; f < kFan; ++f) out_entry<true>(d + 8, fan, f, it.ob[f],
-                                                 it.lim[f]);
-  it.outs = d + 8;
+  it.ob[0] = ob.x, it.ob[1] = ob.y, it.ob[2] = ob.z, it.ob[3] = ob.w;
+  it.lim[0] = lim.x, it.lim[1] = lim.y, it.lim[2] = lim.z, it.lim[3] = lim.w;
+  set_more(it, d1.w);
   return it;
 }
 
@@ -200,18 +227,21 @@ __device__ __forceinline__ int wrap(int a, int2 bi) {
   return a == bi.x + bi.y ? bi.x : a;
 }
 
-// One item's round: decide against bank cur, evaluate, pop and push into
-// bank cur ^ 1. Every load comes first and is unconditional (absent
-// entries read the dummies), every test is a bitwise and, and every store
-// is unconditional too, into its word or, where the item must not write,
-// into the lane's trash word: a round is one basic block (the output
-// entries past kFan, of wide fan-outs only, loop). Returns whether it
-// fired.
+// One item round: every lane's item decides against bank cur, evaluates,
+// pops and pushes into bank cur ^ 1. Every load comes first and is
+// unconditional (absent entries read the dummies), every test is a
+// bitwise and, and every store is unconditional too, into its word or,
+// where the item must not write, into the lane's trash word: for narrow
+// items the round is one basic block. The outputs past kFan of the round's
+// wide items are tested, then pushed, by the whole warp, a stride of an
+// item's entries a lane (an item's output buffers are distinct, and each
+// has one producer). Returns whether the lane's item fired.
 template <bool kGlobal>
 __device__ __forceinline__ bool step(const SparseHeader& h, const State& s,
                                      const int* table, const int4* roms,
-                                     const Item& it, int item, int cur,
-                                     long long* outm, int* trash) {
+                                     const int* outs, const Item& it,
+                                     int item, int cur, long long* outm,
+                                     int* trash, int lane) {
   const int nt = h.n_buf + h.n_in, nb = nt + 2;
   const int* Pc = s.P + cur * nb;
   const int* Qc = s.Q + cur * nb;
@@ -220,6 +250,21 @@ __device__ __forceinline__ bool step(const SparseHeader& h, const State& s,
   const uint32_t w = it.w;
   const int* in = it.in;
   bool ok = w & kValid;
+  // the wide items' further outputs, each tested by the warp
+  const uint32_t wide = __ballot_sync(kFull, it.n_more > 0);
+  for (uint32_t m = wide; m; m &= m - 1) {
+    const int src = __ffs(m) - 1;
+    const int n = __shfl_sync(kFull, it.n_more, src);
+    const int at = __shfl_sync(kFull, it.more_at, src);
+    bool part = true;
+    for (int f = lane; f < n; f += kLanes) {
+      int b, lim;
+      out_entry<kGlobal>(outs, at + f, b, lim);
+      part &= Pc[b] - Qc[b] < lim;
+    }
+    const bool all = __all_sync(kFull, part);
+    if (lane == src) ok &= all;
+  }
   uint32_t head[3];
   int q[3], ra[3];
   int2 bi[3];
@@ -240,11 +285,6 @@ __device__ __forceinline__ bool step(const SparseHeader& h, const State& s,
     wa[f] = s.wpa[ob[f]];
     bo[f] = s.binfo[ob[f]];
     ok &= po[f] - Qc[ob[f]] < it.lim[f];
-  }
-  for (int f = kFan; f < h.fan; ++f) {    // wide fan-outs only
-    int b, lim;
-    out_entry<kGlobal>(it.outs, h.fan, f, b, lim);
-    ok &= Pc[b] - Qc[b] < lim;
   }
   const int sink = it.sink;
   const int oc = s.ocnt[sink];
@@ -275,39 +315,47 @@ __device__ __forceinline__ bool step(const SparseHeader& h, const State& s,
     *(real && fire ? &s.data[wa[f]] : utrash) = v;
     *(real ? &s.wpa[ob[f]] : trash) = fire ? wrap(wa[f] + 1, bo[f]) : wa[f];
   }
-  for (int f = kFan; f < h.fan; ++f) {
-    int b, lim;
-    out_entry<kGlobal>(it.outs, h.fan, f, b, lim);
-    if (b < nt) {
-      Pn[b] = Pc[b] + fire;
-      if (fire) {
-        const int wb = s.wpa[b];
-        s.data[wb] = v;
-        s.wpa[b] = wrap(wb + 1, s.binfo[b]);
-      }
-    }
-  }
   const bool out = fire && sink < h.n_out;
   if (out) outm[static_cast<size_t>(sink) * h.max_cycles + oc] = v;
   *(out ? &s.ocnt[sink] : trash) = oc + 1;
   *(fire && (w & kAcc) ? &s.accv[item] : utrash) = v;
+  // the wide items' further outputs, each pushed by the warp
+  for (uint32_t m = wide; m; m &= m - 1) {
+    const int src = __ffs(m) - 1;
+    const int n = __shfl_sync(kFull, it.n_more, src);
+    const int at = __shfl_sync(kFull, it.more_at, src);
+    const int fs = __shfl_sync(kFull, fire, src);
+    const uint32_t vs = __shfl_sync(kFull, v, src);
+    for (int f = lane; f < n; f += kLanes) {
+      int b, lim;
+      out_entry<kGlobal>(outs, at + f, b, lim);
+      Pn[b] = Pc[b] + fs;
+      if (fs) {
+        const int wb = s.wpa[b];
+        s.data[wb] = vs;
+        s.wpa[b] = wrap(wb + 1, s.binfo[b]);
+      }
+    }
+  }
   return fire;
 }
 
-// blob: the program (shared route), or the workspace that holds the
-// program and the state (global route).
-template <bool kGlobal>
+// blob: the program (shared and stream layouts), or the workspace that
+// holds the program and the state (global layout).
+template <int kLayout>
 __global__ void __launch_bounds__(kLanes, 1)
 sim_sparse_kernel(SparseHeader h, int* blob,
                   const long long* __restrict__ feed,
                   const long long* __restrict__ frem0,
                   long long* __restrict__ outm,
                   long long* __restrict__ state) {
+  constexpr bool kGlobal = kLayout == kGlobalLayout;
+  constexpr bool kStreamed = kLayout == kStreamLayout;
   extern __shared__ __align__(16) int smem[];
   int* sm = kGlobal ? blob : smem;
   const int lane = threadIdx.x;
   const int nt = h.n_buf + h.n_in, nb = nt + 2;
-  if (!kGlobal) copy_blob(sm, blob, h.blob_words, lane);
+  if (!kGlobal) copy_blob(sm, blob + h.o_copy, h.copy_words, lane);
   for (int i = h.s_p + lane; i < h.s_words; i += kLanes) sm[i] = 0;
   cp_async_wait_all();
   __syncwarp();
@@ -323,7 +371,8 @@ sim_sparse_kernel(SparseHeader h, int* blob,
   s.binfo = reinterpret_cast<const int2*>(sm + h.o_binfo);
   const int* table = sm + h.o_table;
   const int4* roms = reinterpret_cast<const int4*>(sm + h.o_rom);
-  const int* dsc = sm + h.o_desc;
+  const int* outs = sm + h.o_outs;
+  const int* dsc = (kStreamed ? blob : sm) + h.o_desc;
   for (int b = lane; b < nb; b += kLanes) {
     s.rpa[b] = s.wpa[b] = s.binfo[b].x;
     // a feed row's pushes are its tokens; the input dummy holds one token
@@ -339,15 +388,19 @@ sim_sparse_kernel(SparseHeader h, int* blob,
   cp_async_wait_all();
   __syncwarp();
 
-  // with one round of items (up to 32), a lane's descriptor is
-  // loop-invariant (the shared route keeps it in registers)
-  const int* mine = dsc + lane * h.desc_words;
+  // on the shared layout with one round of items (up to 32), a lane's
+  // descriptor is loop-invariant and stays in registers
+  const uint4* mine = reinterpret_cast<const uint4*>(dsc + lane * 12);
   const uint4 zero4 = make_uint4(0, 0, 0, 0);
-  const uint4 a0 = !kGlobal && h.n_rounds
-                       ? reinterpret_cast<const uint4*>(mine)[0] : zero4;
-  const uint4 a1 = !kGlobal && h.n_rounds
-                       ? reinterpret_cast<const uint4*>(mine)[1] : zero4;
-  const uint32_t a8 = !kGlobal && h.n_rounds ? mine[8] : 0u;
+  const bool held = kLayout == kSharedLayout && h.n_rounds > 0;
+  const uint4 a0 = held ? mine[0] : zero4;
+  const uint4 a1 = held ? mine[1] : zero4;
+  const uint4 a2 = held ? mine[2] : zero4;
+  DescStream<3, kStreamChunk> stream;
+  if (kStreamed && h.n_rounds > 0)
+    stream.start(reinterpret_cast<const uint4*>(dsc),
+                 reinterpret_cast<uint4*>(sm + h.s_pre), h.n_rounds,
+                 h.n_rounds, lane);
   int fired = 1, rounds = 0, cur = 0;
   while (rounds < h.max_cycles) {
     if (h.refill && rounds > 0 && rounds % h.refill == 0) {
@@ -359,26 +412,25 @@ sim_sparse_kernel(SparseHeader h, int* blob,
     }
     ++rounds;
     bool any = false;
-    if (kGlobal) {
-      for (int k = 0; k < h.n_rounds; ++k)
-        any |= step<true>(h, s, table, roms,
-                          item32(dsc + (k * kLanes + lane) * h.desc_words,
-                                 h.fan),
-                          k * kLanes + lane, cur, outm, s.trash + lane);
-    } else {
-      any = h.n_rounds > 0 &&
-            step<false>(h, s, table, roms, item16(a0, a1, a8, mine), lane,
-                        cur, outm, s.trash + lane);
-      for (int k = 1; k < h.n_rounds; ++k) {
-        const int* dk = dsc + (k * kLanes + lane) * h.desc_words;
-        any |= step<false>(h, s, table, roms,
-                           item16(reinterpret_cast<const uint4*>(dk)[0],
-                                  reinterpret_cast<const uint4*>(dk)[1],
-                                  dk[8], dk),
-                           k * kLanes + lane, cur, outm, s.trash + lane);
+    for (int k = 0; k < h.n_rounds; ++k) {
+      const int item = k * kLanes + lane;
+      Item it;
+      if (kGlobal) {
+        it = item32(dsc + item * h.desc_words);
+      } else if (kStreamed) {
+        uint4 d[3];
+        stream.advance(d);
+        it = item16(d[0], d[1], d[2]);
+      } else if (k == 0) {
+        it = item16(a0, a1, a2);
+      } else {
+        const uint4* dk = reinterpret_cast<const uint4*>(dsc + item * 12);
+        it = item16(dk[0], dk[1], dk[2]);
       }
+      any |= step<kGlobal>(h, s, table, roms, outs, it, item, cur, outm,
+                           s.trash + lane, lane);
     }
-    fired = __any_sync(0xFFFFFFFFu, any);
+    fired = __any_sync(kFull, any);
     __syncwarp();
     cur ^= 1;
     if (!fired) break;
@@ -404,15 +456,33 @@ sim_sparse_kernel(SparseHeader h, int* blob,
   }
 }
 
+template <int kLayout>
+cudaError_t launch_sparse(const SparseHeader& h, int* blob,
+                          const long long* feed, const long long* frem0,
+                          long long* outm, long long* state,
+                          cudaStream_t stream) {
+  const size_t smem = kLayout == kGlobalLayout
+                          ? 0 : static_cast<size_t>(h.s_words) * sizeof(int);
+  if (smem > 48 * 1024) {                 // past the default, opt in
+    const cudaError_t err = cudaFuncSetAttribute(
+        sim_sparse_kernel<kLayout>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  sim_sparse_kernel<kLayout><<<1, kLanes, smem, stream>>>(h, blob, feed,
+                                                          frem0, outm, state);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 int sim_sparse_header_ints() { return sizeof(SparseHeader) / sizeof(int); }
 
-// hdr: SparseHeader's fields, host memory. blob: the program (shared
-// route) or the workspace of s_words words that starts with it (global
-// route); feed: int64 [n_rows, max_feed]; frem0: int64 [n_rows]; outm:
+// hdr: SparseHeader's fields, host memory. blob: the program (shared and
+// stream layouts) or the workspace of s_words words that starts with it
+// (global layout); feed: int64 [n_rows, max_feed]; frem0: int64 [n_rows]; outm:
 // int64 [max(1, n_out), max_cycles]; state: int64 [n_buf + n_rows +
 // max(1, n_out) + 2]; all device memory.
 // Returns the launch's cudaError_t.
@@ -421,21 +491,18 @@ int sim_sparse_launch(const int* hdr, int* blob, const long long* feed,
                       long long* state, cudaStream_t stream) {
   SparseHeader h;
   memcpy(&h, hdr, sizeof(h));
-  if (h.global_route) {
-    sim_sparse_kernel<true><<<1, kLanes, 0, stream>>>(h, blob, feed, frem0,
-                                                      outm, state);
-    return cudaGetLastError();
+  switch (h.layout) {
+    case kSharedLayout:
+      return launch_sparse<kSharedLayout>(h, blob, feed, frem0, outm, state,
+                                          stream);
+    case kStreamLayout:
+      return launch_sparse<kStreamLayout>(h, blob, feed, frem0, outm, state,
+                                          stream);
+    case kGlobalLayout:
+      return launch_sparse<kGlobalLayout>(h, blob, feed, frem0, outm, state,
+                                          stream);
   }
-  const size_t smem = static_cast<size_t>(h.s_words) * sizeof(int);
-  if (smem > 48 * 1024) {                 // past the default, opt in
-    const cudaError_t err = cudaFuncSetAttribute(
-        sim_sparse_kernel<false>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  sim_sparse_kernel<false><<<1, kLanes, smem, stream>>>(h, blob, feed, frem0,
-                                                        outm, state);
-  return cudaGetLastError();
+  return cudaErrorInvalidValue;
 }
 
 }  // extern "C"

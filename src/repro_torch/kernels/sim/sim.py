@@ -19,19 +19,24 @@ the kernels evaluate without a branch. A header of sizes and word offsets
 field) travels as launch arguments.
 
 A program whose blob and state do not fit a block's shared memory, or the
-descriptors' 16-bit fields, takes the kernels' global route instead: the
-same kernel keeps blob and state in a workspace in device memory, with
-32-bit descriptor fields. ``dense_plan`` and ``sparse_plan`` pick the route
-on the host, from the packed sizes, before any launch; each wrapper counts
-its launches (``launches``) and each route's (``shared_launches``,
-``global_launches``).
+descriptors' 16-bit fields, takes the kernels' global route instead, in one
+of two layouts (``LAYOUTS``). ``"stream"``: the state (and the program's
+small tables) stays in shared memory, and the descriptors stream from
+device memory, each lane ``cp.async``-ing its own in double-buffered
+chunks of rounds.
+``"global"``: blob and state live in a workspace in device memory, with
+32-bit descriptor fields, for programs whose state alone passes shared
+memory or whose slots pass the 16-bit fields. ``dense_plan`` and
+``sparse_plan`` pick the layout on the host, from the packed sizes, before
+any launch; each wrapper counts its launches (``launches``) and each
+route's (``shared_launches``, ``global_launches``: both global layouts).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -46,20 +51,29 @@ __all__ = ["sim_dense", "sim_sparse", "stage_plan", "SparseResult",
 
 DENSE_FIELDS = (
     "n_nodes", "n_in", "n_out", "n_const", "n_light", "n_heavy", "n_rom",
-    "cycles", "stride", "blob_words", "global_route",
-    "o_desc", "o_const", "o_rom", "o_table",
-    "s_val", "s_ring", "s_ptr", "s_in", "s_out", "s_words")
+    "cycles", "stride", "out_chunk", "layout",
+    "o_desc", "o_const", "o_rom", "o_table", "o_copy", "copy_words",
+    "s_val", "s_ring", "s_ptr", "s_in", "s_out", "s_pre", "s_words")
 SPARSE_FIELDS = (
-    "n_buf", "n_in", "n_out", "n_rows", "n_rounds", "desc_words", "fan",
-    "max_feed", "window", "refill", "max_cycles", "blob_words",
-    "global_route", "o_desc", "o_binfo", "o_rom", "o_table",
-    "s_p", "s_q", "s_rpa", "s_wpa", "s_data", "s_accv", "s_ocnt", "s_trash",
-    "s_words")
+    "n_buf", "n_in", "n_out", "n_rows", "n_rounds", "desc_words",
+    "max_feed", "window", "refill", "max_cycles", "layout", "o_desc", "o_binfo", "o_outs", "o_rom", "o_table", "o_copy",
+    "copy_words", "s_p", "s_q", "s_rpa", "s_wpa", "s_data", "s_accv",
+    "s_ocnt", "s_trash", "s_pre", "s_words")
+#: where the program and the state live (the kernels' Layout): both in
+#: shared memory (the shared route); the state in shared memory and the
+#: descriptors streamed from device memory; both in device memory
+LAYOUTS = ("shared", "stream", "global")
+#: rounds of descriptors a lane streams as one chunk on the stream layout,
+#: two chunks in shared memory (the kernels' kStreamChunk)
+STREAM_CHUNKS = {"dense": 16, "sparse": 4}
 
 LANES = 32
 #: cycles of input (and of output) staged in shared memory at a time; the
 #: kernel's kChunk
 CHUNK = 32
+#: cycles of output the dense stream layout may stage between flushes: the
+#: plan takes the largest whose staging fits shared memory
+OUT_CHUNKS = (32, 16, 8, 4, 2, 1)
 #: sparse feeds of up to this many words are staged whole; longer ones
 #: through a ring of ``2 * FEED_REFILL`` tokens a row, refilled every
 #: ``FEED_REFILL`` rounds
@@ -83,6 +97,11 @@ D_SHIFT, D_UOP_SHIFT = 18, 24
 #: sits in bits 12-31
 SPARSE_FLAGS = {"Rom": 1, "Acc": 2, "Valid": 4}
 ROM_SHIFT = 12
+#: output entries a sparse descriptor holds (sim_sparse.cu kFan); an item's
+#: further outputs sit in the out-list, its descriptor's ``more`` word
+#: giving their count and ``<< MORE_SHIFT`` their first entry
+FAN = 4
+MORE_SHIFT = 12
 
 
 @functools.lru_cache(maxsize=None)
@@ -141,16 +160,41 @@ def _check_16(kind: str, n: int, what: str, name: str) -> None:
     has, and the plan takes the global route."""
     if n >= NONE16:
         raise ValueError(f"{name}: {n} {what} overflow the {kind} kernel's "
-                         f"16-bit descriptor fields; pack it with wide=True "
-                         f"(the global route)")
+                         f"16-bit descriptor fields; pack it with "
+                         f"layout='global'")
+
+
+def _layout(layout: str) -> int:
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
+    return LAYOUTS.index(layout)
+
+
+def _smem_image(layout: str, blob_words: int, offs: Dict[str, int],
+                copied: Sequence[str], state: Sequence[Tuple[str, int]]
+                ) -> Dict[str, int]:
+    """Offsets of what shared memory holds. The shared layout copies the
+    whole blob, the global one nothing (its state follows the blob in the
+    workspace); the stream layout copies the blob's ``copied`` sections
+    (the last ones, contiguous), rebased to word 0, and its ``state``
+    starts with the ring of streamed descriptors (``s_pre``, on a 16-byte
+    boundary as the copy ends on one)."""
+    if layout != "stream":
+        return dict(o_copy=0, copy_words=blob_words,
+                    **_state(blob_words, list(state) + [("s_pre", 0)]))
+    o_copy = offs[copied[0]]
+    out = {k: offs[k] - o_copy for k in copied}
+    return dict(out, o_copy=o_copy, copy_words=blob_words - o_copy,
+                **_state(blob_words - o_copy, state))
 
 
 def _workspace(values: Dict[str, int], blob: np.ndarray,
                dev: torch.device, what: str) -> torch.Tensor:
-    """The program on the card: the blob alone on the shared route; on the
-    global route a workspace of ``s_words`` words that starts with it (the
-    kernel zeroes the state behind it at every launch)."""
-    if not values["global_route"]:
+    """The program on the card: the blob alone on the shared and stream
+    layouts; on the global layout a workspace of ``s_words`` words that
+    starts with it (the kernel zeroes the state behind it at every
+    launch)."""
+    if values["layout"] != LAYOUTS.index("global"):
         return torch.from_numpy(blob).to(dev)
     need, free = 4 * values["s_words"], torch.cuda.mem_get_info(dev)[0]
     if need > free:
@@ -266,16 +310,16 @@ def stage_plan(prog) -> List[Tuple[int, int]]:
     return stages
 
 
-def pack_dense(prog, cycles: int, wide: bool = False
-               ) -> Tuple[Dict[str, int], np.ndarray]:
+def pack_dense(prog, cycles: int, layout: str = "shared",
+               out_chunk: int = CHUNK) -> Tuple[Dict[str, int], np.ndarray]:
     """Header values and int32 blob of a ``DenseProgram`` for ``sim_dense``,
-    on the shared route or (``wide``) the global route.
+    in one of ``LAYOUTS``.
 
     A cycle runs a list of rounds, one 8-word descriptor a lane: x, y and z
     as byte offsets into this cycle's bank of values (x into the input
     staging for an input), the destination's byte offset ``| flags << 18 |
     micro-op << 24``, then a ROM row, a ring word, a ring length and 0; on
-    the global route word 3 is the destination's byte offset alone and
+    the global layout word 3 is the destination's byte offset alone and
     word 7 ``flags << 18 | micro-op << 24``. Light
     rounds come first: each combinational stage of ``stage_plan`` cut into
     rounds of 32 nodes, each round followed by a ``__syncwarp()``; their
@@ -289,24 +333,49 @@ def pack_dense(prog, cycles: int, wide: bool = False
     and one that takes the writes of idle lanes. The light rounds end with
     a copy of the first, which the last prefetches for the next cycle.
     Checks that the lowering has the canonical slot layout (inputs, seq
-    heads, accumulators, constants, then the groups in order)."""
-    return _pack_dense(prog, cycles, lambda words, fits16: wide)
+    heads, accumulators, constants, then the groups in order).
+
+    Outputs are staged ``out_chunk`` cycles at a time (one of
+    ``OUT_CHUNKS``), two such banks: output o's destination is ``o *
+    out_chunk`` words into the bank of its cycle. The stream layout keeps
+    the shared route's descriptors in device memory and copies the
+    constants, ROM rows and tables to shared memory before its state: the
+    ring of streamed descriptors (``s_pre``), the value banks, rings, input
+    and output staging."""
+    if out_chunk not in OUT_CHUNKS:
+        raise ValueError(f"out_chunk must be one of {OUT_CHUNKS}, got "
+                         f"{out_chunk}")
+    return _pack_dense(prog, cycles, lambda words: (layout, out_chunk))
 
 
-def dense_plan(prog, cycles: int, smem_limit: int
+def dense_plan(prog, cycles: int, smem_limit: int,
+               layout: Optional[str] = None
                ) -> Tuple[Dict[str, int], np.ndarray]:
-    """``pack_dense`` on the route the program fits, packed once: the shared
-    route if its slots fit the 16-bit fields and its blob and state
-    ``smem_limit`` bytes of shared memory, else the global route."""
-    return _pack_dense(prog, cycles, lambda words, fits16: (
-        not fits16 or 4 * words > smem_limit))
+    """``pack_dense`` in the layout the program fits, packed once: the
+    shared route if its slots fit the 16-bit fields and its blob and state
+    ``smem_limit`` bytes of shared memory; else the stream layout with the
+    largest output staging whose state fits; else the global layout.
+    ``layout`` forces a layout (the stream layout still with the largest
+    output staging that fits, else the smallest)."""
+    def pick(words):
+        if words is None or layout == "global":
+            return "global", CHUNK
+        shared, stream = words
+        if layout is None and 4 * shared <= smem_limit or layout == "shared":
+            return "shared", CHUNK
+        fits = [oc for oc in OUT_CHUNKS if 4 * stream[oc] <= smem_limit]
+        if fits or layout == "stream":
+            return "stream", (fits or OUT_CHUNKS[-1:])[0]
+        return "global", CHUNK
+    return _pack_dense(prog, cycles, pick)
 
 
 def _pack_dense(prog, cycles: int, route) -> Tuple[Dict[str, int],
                                                    np.ndarray]:
-    """``pack_dense``'s work; ``route(s_words, fits16)`` picks the global
-    route from the program's words of blob and state (the same on both
-    routes) and whether its slots fit the shared route's 16-bit fields."""
+    """``pack_dense``'s work; ``route(words)`` picks the layout and the
+    output staging's cycles from the shared-memory words of the shared
+    layout and of the stream layout at each of ``OUT_CHUNKS``, ``None``
+    where the slots pass the 16-bit fields."""
     n = prog.n_nodes
     n_in, n_seq, n_acc = (len(prog.input_pos), len(prog.seq_pos),
                           len(prog.accum_pos))
@@ -415,9 +484,12 @@ def _pack_dense(prog, cycles: int, route) -> Tuple[Dict[str, int],
     const = (np.column_stack([prog.const_pos, prog.const_vals])
              if n_const else np.zeros(0))
 
-    def blob_of(wide):
+    def blob_of(wide, out_chunk):
         desc = np.zeros_like(raw)
         desc[:, :4] = 4 * raw[:, :4]          # byte offsets
+        # an output's staging row is out_chunk words
+        outs = (raw[:, 4] >> D_SHIFT) & DENSE_FLAGS["DOut"] > 0
+        desc[outs, 3] = 4 * (raw[outs, 3] // CHUNK * out_chunk)
         desc[:, 4:7] = raw[:, 5:]
         if wide:
             desc[:, 7] = raw[:, 4]
@@ -427,34 +499,46 @@ def _pack_dense(prog, cycles: int, route) -> Tuple[Dict[str, int],
                       ("o_rom", _rom_section(prog.table_mat, prog.tab_len)),
                       ("o_table", prog.table_mat)])
 
-    blob, offs = blob_of(False)          # sizes are the same on both routes
-    state = _state(blob.size, [
-        ("s_val", 2 * stride), ("s_ring", ring_words + LANES),
-        ("s_ptr", LANES * len(heavy_rounds)), ("s_in", 2 * n_in * CHUNK),
-        ("s_out", 2 * n_out * CHUNK)])
-    wide = bool(route(state["s_words"], fits16))
-    if wide:
-        blob, _ = blob_of(True)
-    else:
+    # sizes are the same on all layouts and output stagings
+    blob, offs = blob_of(False, CHUNK)
+    state = [("s_val", 2 * stride), ("s_ring", ring_words + LANES),
+             ("s_ptr", LANES * len(heavy_rounds)),
+             ("s_in", 2 * n_in * CHUNK)]
+
+    def image(layout, oc):
+        pre = ([("s_pre", 2 * STREAM_CHUNKS["dense"] * LANES * 8)]
+               if layout == "stream" else [])
+        return _smem_image(layout, blob.size, offs, (
+            "o_const", "o_rom", "o_table") if layout == "stream" else (),
+            pre + state + [("s_out", 2 * n_out * oc)])
+
+    layout, oc = route((image("shared", CHUNK)["s_words"], {
+        oc: image("stream", oc)["s_words"] for oc in OUT_CHUNKS})
+        if fits16 else None)
+    lay = _layout(layout)
+    if layout != "global":
         _check_16("sim_dense", stride, "value slots", prog.name)
         _check_16("sim_dense", ring_words + LANES, "ring words", prog.name)
+    blob, _ = blob_of(layout == "global", oc)
     values = dict(
         n_nodes=n, n_in=n_in, n_out=n_out, n_const=n_const,
         n_light=len(light), n_heavy=len(heavy_rounds),
         n_rom=sum(bool(it[5] & DENSE_FLAGS["Rom"]) for it in heavy),
-        cycles=cycles, stride=stride, blob_words=blob.size,
-        global_route=int(wide), **offs, **state)
+        cycles=cycles, stride=stride, out_chunk=oc, blob_words=blob.size,
+        layout=lay, global_route=int(layout != "shared"),
+        **dict(offs, **image(layout, oc)))
     return values, blob
 
 
-def dense_launcher(prog, in_mat: torch.Tensor, cycles: int):
+def dense_launcher(prog, in_mat: torch.Tensor, cycles: int,
+                   layout: Optional[str] = None):
     """Pack and upload a ``DenseProgram`` for ``sim_dense`` on ``in_mat``'s
-    card, on the route ``dense_plan`` picks: returns ``(out, launch)``,
-    where each ``launch()`` runs the kernel once into ``out`` [n_out,
-    cycles] (so a timing loop launches with no host work between the
-    kernels)."""
+    card, in the layout ``dense_plan`` picks (or ``layout``): returns
+    ``(out, launch)``, where each ``launch()`` runs the kernel once into
+    ``out`` [n_out, cycles] (so a timing loop launches with no host work
+    between the kernels)."""
     dev = in_mat.device
-    values, blob = dense_plan(prog, cycles, _smem_limit(dev))
+    values, blob = dense_plan(prog, cycles, _smem_limit(dev), layout)
     blob_t = _workspace(values, blob, dev, prog.name)
     out = torch.empty((len(prog.output_pos), cycles), dtype=torch.int64,
                       device=dev)
@@ -518,9 +602,9 @@ def _sparse_fits16(prog) -> bool:
 
 
 def pack_sparse(prog, feed_shape: Tuple[int, int], max_cycles: int,
-                wide: bool = False) -> Tuple[Dict[str, int], np.ndarray]:
+                layout: str = "shared") -> Tuple[Dict[str, int], np.ndarray]:
     """Header values and int32 blob of a ``SparseProgram`` for
-    ``sim_sparse``, on the shared route or (``wide``) the global route.
+    ``sim_sparse``, in one of ``LAYOUTS``.
 
     Buffers are the lowering's ``n_buf``, one a feed row (``n_buf + j``
     for input ``j``, its tokens staged in shared memory), and two dummies:
@@ -529,42 +613,59 @@ def pack_sparse(prog, feed_shape: Tuple[int, int], max_cycles: int,
     Items are the evaluable nodes that have inputs (the others never fire),
     the OUTPUTs, the INPUTs and one a CONST-fed buffer, cut into rounds of
     32, one a lane; each round every item decides, evaluates and pops and
-    pushes its own buffers. Descriptor (``desc_words`` words): ``uop |
-    flags << 4 | rom << 12``; ``in0 | in1 << 16``; ``in2 | sink << 16``
-    (the OUTPUT's index, ``n_out`` for none); the ``__byte_perm`` selectors
-    of x and y; z's selector ``| k << 16`` (the item's constant: 1, a
-    CONST's value, 0; an accumulator's state replaces it); then ``fan``
-    (at least 4) output words ``buffer | limit << 16`` (the capacity, 1 for
-    a CONST's refill of an empty buffer). The global route's wide
-    descriptor gives each field a word: the flags word, in0, in1, in2, the
-    sink, the selectors of x and y, z's selector ``| k << 16``, 0, then
-    ``fan`` buffers and ``fan`` limits. ``binfo`` holds each buffer's first
-    data word and capacity."""
+    pushes its own buffers. Descriptor (12 words): ``uop | flags << 4 |
+    rom << 12``; ``in0 | in1 << 16``; ``in2 | sink << 16`` (the OUTPUT's
+    index, ``n_out`` for none); the ``__byte_perm`` selectors of x and y;
+    z's selector ``| k << 16`` (the item's constant: 1, a CONST's value, 0;
+    an accumulator's state replaces it); ``FAN`` output words ``buffer |
+    limit << 16`` (the capacity, 1 for a CONST's refill of an empty
+    buffer); then ``more``: the count of the item's further outputs ``|``
+    their first entry in the out-list ``<< MORE_SHIFT`` (0 for none). The
+    out-list (``o_outs``) packs those entries, a word each, item after
+    item: a lane loops only its own outputs. The global layout's
+    descriptor gives each field a word (16 words): the flags word, in0,
+    in1, in2, the sink, the selectors of x and y, z's selector ``| k <<
+    16``, ``more``, then ``FAN`` buffers and ``FAN`` limits; its out-list
+    entries are (buffer, limit) pairs. ``binfo`` holds each buffer's first
+    data word and capacity. The stream layout keeps the descriptors in
+    device memory and copies ``binfo``, the out-list, the ROM rows and
+    tables to shared memory before its state."""
     n_ev, n_in = len(prog.ev_names), len(prog.input_names)
     n_out, n_buf = len(prog.output_names), prog.n_buf
     rows, max_feed = feed_shape
     n_tot = n_buf + n_in
     d_in, d_out = n_tot, n_tot + 1
+    wide = layout == "global"
+    lay = _layout(layout)
     if not wide:
         _check_16("sim_sparse", n_tot + 2, "buffers", prog.name)
-    fan = max(4, prog.ev_out.shape[1], prog.in_out.shape[1])
-    head = 8 + fan if wide else 5
-    desc_words = head + fan + (-(head + fan) % 4)
+    fan = max(FAN, prog.ev_out.shape[1], prog.in_out.shape[1])
+    desc_words = 16 if wide else 12
     # feed rows staged whole, or through a ring refilled ahead of fptr
     if n_in * max_feed <= FEED_WHOLE_WORDS:
         window, refill = max_feed, 0
     else:
         window, refill = 2 * FEED_REFILL, FEED_REFILL
     flag = SPARSE_FLAGS
+    extra: List[Tuple[int, int]] = []       # the out-list's entries
 
     def encode(w0, ins, sink, selxy, selzk, outs):
-        outs = list(outs) + [(d_out, 1)] * (fan - len(outs))
+        more = 0
+        if len(outs) > FAN:
+            n, first = len(outs) - FAN, len(extra)
+            if n >= 1 << MORE_SHIFT or first >= 1 << (32 - MORE_SHIFT):
+                raise ValueError(f"{prog.name}: an out-list of {first + n} "
+                                 f"entries passes the sparse descriptor's "
+                                 f"more word")
+            extra.extend(outs[FAN:])
+            more = n | first << MORE_SHIFT
+        outs = list(outs[:FAN]) + [(d_out, 1)] * (FAN - len(outs[:FAN]))
         if wide:
-            words = ([w0, *ins, sink, selxy, selzk, 0]
+            words = ([w0, *ins, sink, selxy, selzk, more]
                      + [b for b, _ in outs] + [lim for _, lim in outs])
         else:
             words = ([w0, ins[0] | ins[1] << 16, ins[2] | sink << 16, selxy,
-                      selzk] + [b | lim << 16 for b, lim in outs])
+                      selzk] + [b | lim << 16 for b, lim in outs] + [more])
         return words + [0] * (desc_words - len(words))
 
     def item(uop, srcs, ins, outs, kval, flags, sink=n_out, rom=0):
@@ -626,47 +727,58 @@ def pack_sparse(prog, feed_shape: Tuple[int, int], max_cycles: int,
     binfo = [(b * max_cap, int(cap[b])) for b in range(n_buf)]
     binfo += [(n_buf * max_cap + j * window, window) for j in range(n_in)]
     binfo += [(zero_word, 1), (zero_word, 1)]
+    outs = (np.array(extra, dtype=np.int64).reshape(-1, 2) if wide else
+            np.array([b | lim << 16 for b, lim in extra], dtype=np.int64))
     blob, offs = _blob([
         ("o_desc", np.array(items, dtype=np.int64)),
         ("o_binfo", np.array(binfo, dtype=np.int64)),
+        ("o_outs", outs),
         ("o_rom", _rom_section(prog.table_mat, prog.tab_len)),
         ("o_table", prog.table_mat)])
-    state = _state(blob.size, [
-        ("s_p", 2 * (n_tot + 2)), ("s_q", 2 * (n_tot + 2)),
-        ("s_rpa", n_tot + 2), ("s_wpa", n_tot + 2),
-        ("s_data", zero_word + 1), ("s_accv", n_rounds * LANES),
-        ("s_ocnt", n_out + 1), ("s_trash", LANES)])
+    state = [("s_p", 2 * (n_tot + 2)), ("s_q", 2 * (n_tot + 2)),
+             ("s_rpa", n_tot + 2), ("s_wpa", n_tot + 2),
+             ("s_data", zero_word + 1), ("s_accv", n_rounds * LANES),
+             ("s_ocnt", n_out + 1), ("s_trash", LANES)]
+    if layout == "stream":
+        state = [("s_pre", 2 * STREAM_CHUNKS["sparse"] * LANES * desc_words)
+                 ] + state
+    image = _smem_image(layout, blob.size, offs,
+                        ("o_binfo", "o_outs", "o_rom", "o_table"), state)
     values = dict(
         n_buf=n_buf, n_in=n_in, n_out=n_out, n_rows=rows, n_rounds=n_rounds,
         desc_words=desc_words, fan=fan, max_feed=max_feed, window=window,
         refill=refill, max_cycles=max_cycles, blob_words=blob.size,
-        global_route=int(wide), **offs, **state)
+        layout=lay, global_route=int(layout != "shared"),
+        **dict(offs, **image))
     return values, blob
 
 
 def sparse_plan(prog, feed_shape: Tuple[int, int], max_cycles: int,
                 smem_limit: int) -> Tuple[Dict[str, int], np.ndarray]:
-    """``pack_sparse`` on the route the program fits: the shared route if
+    """``pack_sparse`` in the layout the program fits: the shared route if
     its buffers fit the 16-bit fields and its blob and state ``smem_limit``
-    bytes of shared memory, else the global route (its wide descriptors
-    make it a second pack)."""
+    bytes of shared memory; else the stream layout if its state and tables
+    fit; else the global layout."""
     if _sparse_fits16(prog):
-        values, blob = pack_sparse(prog, feed_shape, max_cycles)
-        if 4 * values["s_words"] <= smem_limit:
-            return values, blob
-    return pack_sparse(prog, feed_shape, max_cycles, wide=True)
+        for layout in ("shared", "stream"):
+            values, blob = pack_sparse(prog, feed_shape, max_cycles, layout)
+            if 4 * values["s_words"] <= smem_limit:
+                return values, blob
+    return pack_sparse(prog, feed_shape, max_cycles, "global")
 
 
 def sparse_launcher(prog, feed: torch.Tensor, frem: torch.Tensor,
-                    max_cycles: int):
+                    max_cycles: int, layout: Optional[str] = None):
     """Pack and upload a ``SparseProgram`` for ``sim_sparse`` on ``feed``'s
-    card, on the route ``sparse_plan`` picks: returns ``(result,
-    launch)``, where each ``launch()`` runs the kernel once into
+    card, in the layout ``sparse_plan`` picks (or ``layout``): returns
+    ``(result, launch)``, where each ``launch()`` runs the kernel once into
     ``result``, a :class:`SparseResult`."""
     dev = feed.device
     rows, n_out = feed.shape[0], max(1, len(prog.output_names))
-    values, blob = sparse_plan(prog, tuple(feed.shape), max_cycles,
-                               _smem_limit(dev))
+    values, blob = (
+        sparse_plan(prog, tuple(feed.shape), max_cycles, _smem_limit(dev))
+        if layout is None else
+        pack_sparse(prog, tuple(feed.shape), max_cycles, layout))
     blob_t = _workspace(values, blob, dev, prog.name)
     feed_t = feed.to(torch.int64).contiguous()
     frem_t = frem.to(device=dev, dtype=torch.int64).contiguous()

@@ -226,6 +226,55 @@ def _blockwise_attention(q, k, v, *, causal: bool, bq: int = 512,
     return torch.cat(blocks, dim=1)[:, :sq].to(q.dtype)
 
 
+def _slot_sharded(c: torch.Tensor) -> bool:
+    return isinstance(c, DTensor) and any(p.is_shard(c.ndim - 2)
+                                          for p in c.placements)
+
+
+def _slot_range(c: DTensor) -> Tuple[int, int]:
+    """This rank's first slot of the cache ``c`` [..., T, hd] and its
+    count. A slot dim sharded on several mesh dims splits in mesh order,
+    each split as ``torch.chunk`` splits: DTensor's ``Shard`` in both torch
+    versions the port runs on (2.11 and 2.13); a shard that disagrees
+    raises."""
+    dim, mesh = c.ndim - 2, c.device_mesh
+    coord = mesh.get_coordinate()
+    lo, n = 0, c.shape[dim]
+    for i, p in enumerate(c.placements):
+        if p.is_shard(dim):
+            step = -(-n // mesh.size(i))
+            first = min(step * coord[i], n)
+            lo, n = lo + first, min(step, n - first)
+    if n != c.to_local().shape[dim]:
+        raise RuntimeError(f"cache shard of {c.to_local().shape[dim]} slots "
+                           f"where torch.chunk gives {n}: {c.placements}")
+    return lo, n
+
+
+def write_slots(c: torch.Tensor, new: torch.Tensor, pos: int) -> None:
+    """Write ``new`` [B, KV, s, hd] into the cache ``c`` [B, KV, T, hd] at
+    slots ``pos`` to ``pos + s``, in place (the reference's
+    ``dynamic_update_slice``).
+
+    A DTensor cache sharded on its slots is written on each rank's own
+    shard: ``new`` goes to the cache's placements with its slot dim
+    replicated, and each rank copies the slots its shard holds (a write may
+    straddle two ranks, or miss a rank). Slice assignment into a DTensor
+    writes a redistributed copy and leaves the cache as it was."""
+    s = new.shape[2]
+    if not isinstance(c, DTensor):
+        c[:, :, pos:pos + s] = new.to(c.dtype)
+        return
+    mesh, dim = c.device_mesh, c.ndim - 2
+    want = [Replicate() if p.is_shard(dim) else p for p in c.placements]
+    new = replicate_like(new.to(c.dtype), c).redistribute(mesh, want)
+    lo, n = _slot_range(c)
+    a, b = max(pos, lo), min(pos + s, lo + n)
+    if a < b:
+        c.to_local()[:, :, a - lo:b - lo].copy_(
+            new.to_local()[:, :, a - pos:b - pos])
+
+
 def cache_attention(qg: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Attention in f32 directly in cache layout: q [B, S, KV, G, hd]
@@ -289,9 +338,15 @@ def attention(p: Tree, x: torch.Tensor, cfg, *, positions: torch.Tensor,
         if cache_pos + s > t:
             raise ValueError(f"cache of {t} slots cannot take {s} tokens at "
                              f"position {cache_pos}")
-        ck[:, :, cache_pos:cache_pos + s] = k.transpose(1, 2).to(ck.dtype)
-        cv[:, :, cache_pos:cache_pos + s] = v.transpose(1, 2).to(cv.dtype)
+        write_slots(ck, k.transpose(1, 2), cache_pos)
+        write_slots(cv, v.transpose(1, 2), cache_pos)
     if cache is not None and s == 1 and cfg.use_flash:
+        if _slot_sharded(ck):
+            raise NotImplementedError(
+                "flash_decode reads the whole cache of one rank, but "
+                "decode_cache_shard='seq' shards the cache's slots over the "
+                "ranks: decode that profile with use_flash=False (the einsum "
+                "cache branch)")
         # single-token decode through the flash_decode kernel: streams the
         # cache once, no score traffic to device memory
         lens = torch.full((b,), cache_pos + 1, dtype=torch.int32,

@@ -588,9 +588,11 @@ def test_sim_dense_global_route_on_wide_dags(card, width):
 @pytest.mark.requires_cuda
 def test_sim_sparse_global_route_on_a_wide_dag(card):
     """The smallest seeded wide DAG past the sparse kernel's shared memory
-    (width 176, as a sparse program): one launch on the global route, end
-    state and streams bit for bit the plain version's and numpy's."""
-    g = _wide(0, 176)
+    under its compact out-lists (width 960, as a sparse program; width 176
+    fitted only with its descriptors padded to the widest fan-out): one
+    launch on the global route, end state and streams bit for bit the
+    plain version's and numpy's."""
+    g = _wide(0, 960)
     g.sparse = True
     ins = _sim_inputs(g, 64)
     before = (sim_sparse.launches, sim_sparse.global_launches)
@@ -722,3 +724,35 @@ def test_evict_and_readmit_on_the_card_byte_identical(card):
     assert served.design.placement == direct.design.placement
     assert (json.dumps(served.summary(), sort_keys=True)
             == json.dumps(direct.summary(), sort_keys=True))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("layout", ["shared", "stream", "global"])
+@pytest.mark.parametrize("case", ["harris", "wide", "mttkrp", "wide sparse"])
+def test_sim_kernels_in_every_layout(card, case, layout):
+    """Each kernel forced into each layout (shared route, state in shared
+    memory with the program streamed, all in device memory) on an app and
+    a seeded wide DAG (fan-outs past the descriptor's four as a sparse
+    program): one launch, bit for bit the plain version's."""
+    if case in ("harris", "wide"):
+        g = ALL_APPS["harris"].build(1) if case == "harris" else _wide(0)
+        prog = lower_dense(g)
+        x = torch.from_numpy(_input_matrix(prog, _sim_inputs(g, 100),
+                                           100)).cuda()
+        out, launch = dense_launcher(prog, x, 100, layout)
+        launch()
+        assert torch.equal(out, sim_dense_plain(prog, x, 100))
+        return
+    g = ALL_APPS["mttkrp"].build(1) if case == "mttkrp" else _wide(0, 40)
+    g.sparse = True
+    prog = lower_sparse(g)
+    feed, frem = (torch.from_numpy(t).cuda()
+                  for t in _feed_matrix(prog, _sim_inputs(g, 48)))
+    res, launch = SIM_MOD.sparse_launcher(prog, feed, frem, 4000, layout)
+    launch()
+    want = sim_sparse_plain(prog, feed, frem, 4000)
+    for field in ("blen", "frem", "ocnt", "fired", "rounds"):
+        assert torch.equal(getattr(res, field), getattr(want, field)), field
+    for o in range(len(prog.output_names)):
+        k = int(want.ocnt[o])
+        assert torch.equal(res.outm[o, :k], want.outm[o, :k])

@@ -526,10 +526,13 @@ def test_sparse_pack_marks_absent_entries(app):
     got = []
     for it in items:
         ins = [it[1] & 0xFFFF, it[1] >> 16, it[2] & 0xFFFF]
-        outs = [(o & 0xFFFF, o >> 16) for o in it[5:5 + h["fan"]]]
+        outs = [(o & 0xFFFF, o >> 16) for o in it[5:5 + K.sim.FAN]]
+        more = int(it[5 + K.sim.FAN])
+        n, at = more & 0xFFF, h["o_outs"] + (more >> K.sim.MORE_SHIFT)
+        outs += [(int(o) & 0xFFFF, int(o) >> 16) for o in blob[at:at + n]]
         if not it[0] >> 4 & K.sim.SPARSE_FLAGS["Valid"]:
             assert ins == [d_in] * 3 and it[2] >> 16 == n_out
-            assert all(b == d_out for b, _ in outs)
+            assert all(b == d_out for b, _ in outs) and more == 0
             continue
         got.append((sorted(b for b in ins if b != d_in),
                     sorted((b, c) for b, c in outs if b != d_out),
@@ -756,9 +759,12 @@ def test_memo_keys_on_the_backend():
 # in that interval and fails on a word that one lane writes and another
 # reads or writes (a race), or that is read while a copy into it is in
 # flight. The only races a design allows are named where they are allowed.
-# With ``wide`` a walker runs the global route's blob: the same rounds over
-# the wide descriptors, its workspace words checked as the shared words
-# are, and the staging copies made by the lanes as plain stores.
+# ``layout`` picks the blob's layout (``K.sim.LAYOUTS``). On "global" a
+# walker runs the same rounds over the wide descriptors, its workspace
+# words checked as the shared words are, and the staging copies made by the
+# lanes as plain stores. On "stream" shared memory holds the copied tables
+# and the state, the descriptors are read from the blob in device memory
+# in the order of each lane's stream (``_Stream``).
 
 M32 = 0xFFFFFFFF
 UOP_NAMES = ("add", "sub", "mul", "and", "or", "xor", "shr", "shl",
@@ -823,17 +829,78 @@ class _Warp:
             s.clear()
 
 
-def walk_dense(prog, in_mat, cycles, wide=False):
+class _Stream:
+    """One lane's descriptors streamed from device memory, in the kernels'
+    order (``sim_ops.cuh`` ``DescStream``): position q (round q % n of the
+    cycle's list) sits in chunk q // C, and chunks are copied, one copy
+    group each, into two buffers by turns: chunks 0 and 1 at the start,
+    chunk j + 1 when position j * C is taken, after a wait for all copies.
+    Checks that every read finds its chunk landed in its buffer, and that
+    no chunk overwrites a buffer before every position of the chunk there
+    was read."""
+
+    def __init__(self, n, chunk):
+        self.n, self.C = n, chunk
+        self.buf, self.pending, self.fetched, self.q = {}, [], 0, 0
+        self._fetch()
+        self._fetch()
+        self._wait(1)
+        self.held = self._read(0)
+
+    def _fetch(self):
+        j = self.fetched
+        old = self.buf.get(j % 2)
+        assert old is None or (old[0] + 1) * self.C <= self.q, (old, j)
+        self.buf[j % 2] = (j, False)
+        self.pending.append(j)
+        self.fetched += 1
+
+    def _wait(self, n):
+        landed = self.pending[:len(self.pending) - n]
+        for j in landed:
+            self.buf[j % 2] = (j, True)
+        self.pending = self.pending[len(landed):]
+
+    def _read(self, q):
+        assert self.buf.get(q // self.C % 2) == (q // self.C, True), \
+            (q, self.buf)
+        return q % self.n
+
+    def advance(self):
+        """The held position's round; the next position is held, and at a
+        chunk's first position the chunk after it sent for."""
+        got = self.held
+        self.q += 1
+        if self.q % self.C == 0:
+            self._wait(0)
+            assert self.fetched == self.q // self.C + 1
+            self._fetch()
+        self.held = self._read(self.q)
+        return got
+
+
+def _warp_of(h, blob):
+    """The warp's shared memory: the blob (shared layout), its copied
+    sections (stream), or the workspace (global), then the state."""
+    lo = h["o_copy"] if h["layout"] == 1 else 0
+    n = h["copy_words"] if h["layout"] == 1 else blob.size
+    return blob[lo:lo + n]
+
+
+def walk_dense(prog, in_mat, cycles, layout="shared", out_chunk=None):
     """``sim_dense`` over ``pack_dense``'s blob, lane by lane: the outputs
-    [n_out][cycles], as the kernel flushes them from its output staging.
-    Idle lanes all write the idle slot, which nothing reads: the one race
-    the design allows."""
-    h, blob = pack_dense(prog, cycles, wide)
-    assert h["global_route"] == int(wide)
+    [n_out][cycles], as the kernel flushes them from its output staging
+    (``out_chunk`` cycles a bank). Idle lanes all write the idle slot,
+    which nothing reads: the one race the design allows."""
+    h, blob = pack_dense(prog, cycles, layout, out_chunk or K.sim.CHUNK)
+    assert h["layout"] == K.sim.LAYOUTS.index(layout)
+    assert h["global_route"] == int(layout != "shared")
+    wide, stream = layout == "global", layout == "stream"
     stride, ch, n_in, n_out = h["stride"], K.sim.CHUNK, h["n_in"], h["n_out"]
     idle = [h["s_val"] + b * stride + h["n_nodes"] + 2 for b in (0, 1)]
-    w = _Warp(blob, h["s_words"], allowed=idle)
+    w = _Warp(_warp_of(h, blob), h["s_words"], allowed=idle)
     sm = w.sm
+    gm = [int(v) & M32 for v in blob]       # device memory's program
     val, ring, ptr = h["s_val"], h["s_ring"], h["s_ptr"]
     inbuf, outbuf = h["s_in"], h["s_out"]
     fl = K.sim.DENSE_FLAGS
@@ -856,14 +923,16 @@ def walk_dense(prog, in_mat, cycles, wide=False):
             else:
                 w.copy(addr, int(in_mat[r][t0 + k]))
 
+    oc = h["out_chunk"]
+
     def flush(c):
-        t0 = c * ch
-        width = min(ch, cycles - t0)
+        t0 = c * oc
+        width = min(oc, cycles - t0)
         for i in range(n_out * width):
             o, k = divmod(i, width)
             assert out[o][t0 + k] is None
-            out[o][t0 + k] = w.ld(i % 32, outbuf + (c & 1) * n_out * ch
-                                  + o * ch + k)
+            out[o][t0 + k] = w.ld(i % 32, outbuf + (c & 1) * n_out * oc
+                                  + o * oc + k)
 
     stage(0)
     w.wait()
@@ -874,27 +943,37 @@ def walk_dense(prog, in_mat, cycles, wide=False):
     w.sync()
     od, n_light, n_heavy = h["o_desc"], h["n_light"], h["n_heavy"]
     heavy0 = od + 8 * 32 * (n_light + (n_light > 0))
-    desc = lambda base, k, lane: sm[base + 8 * (k * 32 + lane):][:8]  # noqa
-    # flags and micro-op: word 3's high bits, or word 7 on the global route;
-    # the destination's byte offset: word 3's low bits, or all of it
+    src = gm if stream else sm
+    desc = lambda base, k, lane: src[base + 8 * (k * 32 + lane):][:8]  # noqa
+    # flags and micro-op: word 3's high bits, or word 7 on the global
+    # layout; the destination's byte offset: word 3's low bits, or all of it
     ctl = (lambda dw: dw[7]) if wide else (lambda dw: dw[3])  # noqa: E731
     dest = ((lambda dw: dw[3]) if wide  # noqa: E731
             else (lambda dw: dw[3] & ((1 << K.sim.D_SHIFT) - 1)))
     d = [desc(od, 0, lane) if n_light else [0] * 8 for lane in range(32)]
     hd = [desc(heavy0, 0, lane) if n_heavy else [0] * 8 for lane in range(32)]
+    per_cycle = n_light + n_heavy
+    feed = (_Stream(per_cycle, K.sim.STREAM_CHUNKS["dense"])
+            if stream and per_cycle else None)
+
+    def streamed(k, heavy):
+        """The stream's next position: round k of the light or heavy list
+        (the light list's closing copy is never streamed)."""
+        r = feed.advance()
+        assert r == (n_light + k if heavy else k)
+        return [desc(heavy0 if heavy else od, k, lane) for lane in range(32)]
+
     for t in range(cycles):
-        if t % ch == ch - 1:
-            c = t // ch
-            if t + 1 < cycles:
-                w.wait()
-                w.sync()
-                stage(c + 2)
-            if c > 0:
-                flush(c - 1)
+        if t % ch == ch - 1 and t + 1 < cycles:
+            w.wait()
+            w.sync()
+            stage(t // ch + 2)
+        if t % oc == oc - 1 and t >= oc:
+            flush(t // oc - 1)
         V, Vn = val + (t & 1) * stride, val + ((t + 1) & 1) * stride
         u = t + 1
         inb = inbuf + ((u // ch) & 1) * n_in * ch + u % ch
-        outb = outbuf + ((t // ch) & 1) * n_out * ch + t % ch
+        outb = outbuf + ((t // oc) & 1) * n_out * oc + t % oc
 
         def store(lane, dw, value):
             f = ctl(dw) >> K.sim.D_SHIFT & 0x3F
@@ -905,17 +984,23 @@ def walk_dense(prog, in_mat, cycles, wide=False):
             return inb if ctl(dw) >> K.sim.D_SHIFT & fl["XIn"] else V
 
         for k in range(n_light):
-            dn = [desc(od, k + 1, lane) for lane in range(32)]
+            if stream:
+                d = streamed(k, False)
+            else:
+                dn = [desc(od, k + 1, lane) for lane in range(32)]
             for lane in range(32):
                 dw = d[lane]
                 x = w.ld(lane, xbase(dw) + dw[0] // 4)
                 y, z = w.ld(lane, V + dw[1] // 4), w.ld(lane, V + dw[2] // 4)
                 store(lane, dw, _alu16(ctl(dw) >> K.sim.D_UOP_SHIFT, x, y, z))
             w.sync()
-            d = dn
+            if not stream:
+                d = dn
         for k in range(n_heavy):
+            rnd = streamed(k, True) if stream else None
             for lane in range(32):
-                dw = hd[lane] if k == 0 else desc(heavy0, k, lane)
+                dw = (rnd[lane] if stream else hd[lane] if k == 0
+                      else desc(heavy0, k, lane))
                 f = ctl(dw) >> K.sim.D_SHIFT & 0x3F
                 x = w.ld(lane, xbase(dw) + dw[0] // 4)
                 y, z = w.ld(lane, V + dw[1] // 4), w.ld(lane, V + dw[2] // 4)
@@ -934,8 +1019,8 @@ def walk_dense(prog, in_mat, cycles, wide=False):
                 w.st(lane, slot, pn)
                 store(lane, dw, head if f & fl["Ring"] else v)
         w.sync()
-    last = (cycles - 1) // ch
-    if cycles % ch and last > 0:
+    last = (cycles - 1) // oc
+    if cycles % oc and last > 0:
         flush(last - 1)
     if cycles:
         flush(last)
@@ -943,17 +1028,22 @@ def walk_dense(prog, in_mat, cycles, wide=False):
     return out
 
 
-def walk_sparse(prog, feed, frem, max_cycles, wide=False):
+def walk_sparse(prog, feed, frem, max_cycles, layout="shared"):
     """``sim_sparse`` over ``pack_sparse``'s blob, lane by lane: (blen,
     frem, streams, ocnt, fired, rounds). A consumer reads its buffer's head
     even when the buffer is empty, and discards it (it does not fire); a
     producer may push into that word in the same round: the one race the
-    design allows, so such a read is not recorded."""
+    design allows, so such a read is not recorded. An item's outputs past
+    the descriptor's four are the warp's: every lane tests and pushes a
+    stride of them, item after item of the round."""
     feed = np.asarray(feed)
-    h, blob = pack_sparse(prog, feed.shape, max_cycles, wide)
-    assert h["global_route"] == int(wide)
-    w = _Warp(blob, h["s_words"])
+    h, blob = pack_sparse(prog, feed.shape, max_cycles, layout)
+    assert h["layout"] == K.sim.LAYOUTS.index(layout)
+    assert h["global_route"] == int(layout != "shared")
+    wide, stream = layout == "global", layout == "stream"
+    w = _Warp(_warp_of(h, blob), h["s_words"])
     sm = w.sm
+    gm = [int(v) & M32 for v in blob]       # device memory's program
     n_buf, n_in, n_out = h["n_buf"], h["n_in"], h["n_out"]
     nt = n_buf + n_in
     nb = nt + 2
@@ -961,6 +1051,7 @@ def walk_sparse(prog, feed, frem, max_cycles, wide=False):
     data, accv, ocnt = h["s_data"], h["s_accv"], h["s_ocnt"]
     trash = h["s_trash"]
     fl = K.sim.SPARSE_FLAGS
+    fan, shift = K.sim.FAN, K.sim.MORE_SHIFT
     binfo = lambda b: (sm[h["o_binfo"] + 2 * b],  # noqa: E731
                        sm[h["o_binfo"] + 2 * b + 1])
     frem0 = [int(v) for v in frem]
@@ -989,19 +1080,34 @@ def walk_sparse(prog, feed, frem, max_cycles, wide=False):
     D = h["desc_words"]
     outm = [[0] * max_cycles for _ in range(max(1, n_out))]
 
-    def step(lane, item, dw, cur):
+    def decode(dw):
+        """(flags word, ins, sink, selxy, selzk, the first outputs,
+        (count, first entry) of the rest)."""
+        if wide:
+            outs = list(zip(dw[8:8 + fan], dw[8 + fan:8 + 2 * fan]))
+            return dw[0], dw[1:4], dw[4], dw[5], dw[6], outs, dw[7]
+        outs = [(o & 0xFFFF, o >> 16) for o in dw[5:5 + fan]]
+        return (dw[0], [dw[1] & 0xFFFF, dw[1] >> 16, dw[2] & 0xFFFF],
+                dw[2] >> 16, dw[3], dw[4], outs, dw[5 + fan])
+
+    def entry(more, f):
+        """Entry f of an item's out-list: (buffer, limit)."""
+        at = (more >> shift) + f
+        if wide:
+            return sm[h["o_outs"] + 2 * at], sm[h["o_outs"] + 2 * at + 1]
+        o = sm[h["o_outs"] + at]
+        return o & 0xFFFF, o >> 16
+
+    def wrap(a, b):
+        base, cap = binfo(b)
+        return base if a == base + cap else a
+
+    def step(lane, item, dw, cur, ok_more):
         Pc, Qc = P + cur * nb, Q + cur * nb
         Pn, Qn = P + (cur ^ 1) * nb, Q + (cur ^ 1) * nb
-        flags = dw[0] >> 4 & 0xFF
-        fan = h["fan"]
-        if wide:
-            ins, sink, selxy, selzk = dw[1:4], dw[4], dw[5], dw[6]
-            outs = list(zip(dw[8:8 + fan], dw[8 + fan:8 + 2 * fan]))
-        else:
-            ins = [dw[1] & 0xFFFF, dw[1] >> 16, dw[2] & 0xFFFF]
-            sink, selxy, selzk = dw[2] >> 16, dw[3], dw[4]
-            outs = [(o & 0xFFFF, o >> 16) for o in dw[5:5 + fan]]
-        ok = bool(flags & fl["Valid"])
+        w0, ins, sink, selxy, selzk, outs, _ = decode(dw)
+        flags = w0 >> 4 & 0xFF
+        ok = bool(flags & fl["Valid"]) and ok_more
         head, q, ra = [0] * 3, [0] * 3, [0] * 3
         for k, b in enumerate(ins):
             q[k] = w.ld(lane, Qc + b)
@@ -1022,17 +1128,12 @@ def walk_sparse(prog, feed, frem, max_cycles, wide=False):
         x = _byte_perm(h01, h2k, selxy & 0xFFFF) & 0xFFFF
         y = _byte_perm(h01, h2k, selxy >> 16) & 0xFFFF
         z = _byte_perm(h01, h2k, selzk & 0xFFFF) & 0xFFFF
-        ro = h["o_rom"] + 4 * (dw[0] >> K.sim.ROM_SHIFT)
+        ro = h["o_rom"] + 4 * (w0 >> K.sim.ROM_SHIFT)
         idx = ((sm[ro + 2] * x) & M32) * sm[ro + 1] >> 32
         r = w.ld(lane, h["o_table"] + sm[ro] + idx)
-        v = r if flags & fl["Rom"] else _alu16(dw[0] & 0xF, x, y, z)
+        v = r if flags & fl["Rom"] else _alu16(w0 & 0xF, x, y, z)
         fire = int(ok)
         mine = trash + lane            # the lane's word for stores not made
-
-        def wrap(a, b):
-            base, cap = binfo(b)
-            return base if a == base + cap else a
-
         for k, b in enumerate(ins):
             real = b < nt
             w.st(lane, Qn + b if real else mine, q[k] + fire)
@@ -1049,10 +1150,43 @@ def walk_sparse(prog, feed, frem, max_cycles, wide=False):
             outm[sink][oc] = v
         w.st(lane, ocnt + sink if fire and sink < n_out else mine, oc + 1)
         w.st(lane, accv + item if fire and flags & fl["Acc"] else mine, v)
-        return fire
+        return fire, v
 
-    desc = lambda k, lane: sm[h["o_desc"] + (k * 32 + lane) * D:][:D]  # noqa
-    mine = [desc(0, lane) if h["n_rounds"] else None for lane in range(32)]
+    def item_round(k, descs, cur):
+        """Item round k of a round: the wide items' further outputs tested
+        by the warp, every lane's item, then those outputs pushed by the
+        warp. Returns the lanes that fired."""
+        Pc, Qc = P + cur * nb, Q + cur * nb
+        Pn = P + (cur ^ 1) * nb
+        more = [decode(dw)[6] for dw in descs]
+        wide_lanes = [lane for lane in range(32) if more[lane] & 0xFFF]
+        ok_more = [True] * 32
+        for src in wide_lanes:
+            n = more[src] & ((1 << shift) - 1)
+            part = [all(w.ld(lane, Pc + b) - w.ld(lane, Qc + b) < lim
+                        for b, lim in (entry(more[src], f)
+                                       for f in range(lane, n, 32)))
+                    for lane in range(32)]
+            ok_more[src] = all(part)
+        res = [step(lane, k * 32 + lane, descs[lane], cur, ok_more[lane])
+               for lane in range(32)]
+        for src in wide_lanes:
+            n = more[src] & ((1 << shift) - 1)
+            fire, v = res[src]
+            for lane in range(32):
+                for f in range(lane, n, 32):
+                    b, _ = entry(more[src], f)
+                    w.st(lane, Pn + b, w.ld(lane, Pc + b) + fire)
+                    if fire:
+                        a = w.ld(lane, wpa + b)
+                        w.st(lane, data + a, v)
+                        w.st(lane, wpa + b, wrap(a + 1, b))
+        return [f for f, _ in res]
+
+    src = gm if stream else sm
+    desc = lambda k, lane: src[h["o_desc"] + (k * 32 + lane) * D:][:D]  # noqa
+    ring = (_Stream(h["n_rounds"], K.sim.STREAM_CHUNKS["sparse"])
+            if stream and h["n_rounds"] else None)
     fired, rounds, cur = 1, 0, 0
     while rounds < max_cycles:
         if R and rounds > 0 and rounds % R == 0:
@@ -1060,14 +1194,13 @@ def walk_sparse(prog, feed, frem, max_cycles, wide=False):
             w.sync()
             stage([sm[Q + cur * nb + n_buf + j] + R for j in range(n_in)], R)
         rounds += 1
-        any_ = [False] * 32
-        for lane in range(32):
-            if h["n_rounds"]:
-                any_[lane] |= bool(step(lane, lane, mine[lane], cur))
-            for k in range(1, h["n_rounds"]):
-                any_[lane] |= bool(step(lane, k * 32 + lane, desc(k, lane),
-                                        cur))
-        fired = int(any(any_))
+        any_ = False
+        for k in range(h["n_rounds"]):
+            if ring is not None:
+                assert ring.advance() == k
+            any_ |= any(item_round(k, [desc(k, lane) for lane in range(32)],
+                                   cur))
+        fired = int(any_)
         w.sync()
         cur ^= 1
         if not fired:
@@ -1082,18 +1215,18 @@ def walk_sparse(prog, feed, frem, max_cycles, wide=False):
     return blen, frem_out, outm, counts, fired, rounds
 
 
-def _check_dense_walk(prog, ins, cycles, wide=False):
+def _check_dense_walk(prog, ins, cycles, layout="shared", out_chunk=None):
     x = _input_matrix(prog, ins, cycles)
     want = K.sim_dense_plain(prog, torch.from_numpy(x), cycles)
-    assert walk_dense(prog, x, cycles, wide) == want.tolist()
+    assert walk_dense(prog, x, cycles, layout, out_chunk) == want.tolist()
 
 
-def _check_sparse_walk(prog, ins, max_cycles, wide=False):
+def _check_sparse_walk(prog, ins, max_cycles, layout="shared"):
     feed, frem = _feed_matrix(prog, ins)
     want = K.sim_sparse_plain(prog, torch.from_numpy(feed),
                               torch.from_numpy(frem), max_cycles)
     blen, frem_out, outm, ocnt, fired, rounds = walk_sparse(
-        prog, feed, frem, max_cycles, wide)
+        prog, feed, frem, max_cycles, layout)
     assert (blen, frem_out, ocnt, fired, rounds) == (
         want.blen.tolist(), want.frem.tolist(), want.ocnt.tolist(),
         int(want.fired), int(want.rounds))
@@ -1195,14 +1328,14 @@ def test_dense_walker_on_the_global_route(app):
     walked lane by lane equals the plain version, race-free."""
     g = _port_app(app)
     _check_dense_walk(lower_dense(g), _inputs(g, WALK_CYCLES), WALK_CYCLES,
-                      wide=True)
+                      "global")
 
 
 @pytest.mark.parametrize("app", sorted(SPARSE_APPS))
 def test_sparse_walker_on_the_global_route(app):
     g = _port_app(app)
     _check_sparse_walk(lower_sparse(g), _inputs(g, SPARSE_TOKENS),
-                       SPARSE_MAX, wide=True)
+                       SPARSE_MAX, "global")
 
 
 def test_sparse_walker_on_the_global_route_through_the_feed_window(
@@ -1210,7 +1343,7 @@ def test_sparse_walker_on_the_global_route_through_the_feed_window(
     monkeypatch.setattr(K.sim, "FEED_WHOLE_WORDS", 0)
     g = _port_app("mttkrp")
     rounds = _check_sparse_walk(lower_sparse(g), _inputs(g, 300), 300 * 40,
-                                wide=True)
+                                "global")
     assert rounds > 2 * K.sim.FEED_REFILL
 
 
@@ -1222,20 +1355,151 @@ def test_global_route_walkers_on_seeded_dags(seed):
     for make in (_seeded_dfg, _seeded_pred_dfg):
         pg = _port_graph(make(seed))
         _check_dense_walk(lower_dense(pg), _inputs(pg, 40, seed), 40,
-                          wide=True)
+                          "global")
     g = _wide_dfg(seed)
-    _check_dense_walk(lower_dense(g), _inputs(g, 40, seed), 40, wide=True)
+    _check_dense_walk(lower_dense(g), _inputs(g, 40, seed), 40, "global")
     g = _wide_dfg(seed, width=12)
     g.sparse = True
     prog = lower_sparse(g)
     assert pack_sparse(prog, (3, 16), 640)[0]["fan"] > 4
-    _check_sparse_walk(prog, _inputs(g, 16, seed), 640, wide=True)
+    _check_sparse_walk(prog, _inputs(g, 16, seed), 640, "global")
+
+
+@pytest.mark.parametrize("app", ALL_DENSE)
+def test_dense_walker_on_the_stream_layout(app):
+    """The global route's stream layout (state in shared memory, the
+    descriptors streamed from device memory) walked lane by lane equals the
+    plain version, race-free."""
+    g = _port_app(app)
+    _check_dense_walk(lower_dense(g), _inputs(g, WALK_CYCLES), WALK_CYCLES,
+                      "stream")
+
+
+@pytest.mark.parametrize("app", sorted(SPARSE_APPS))
+def test_sparse_walker_on_the_stream_layout(app):
+    g = _port_app(app)
+    _check_sparse_walk(lower_sparse(g), _inputs(g, SPARSE_TOKENS),
+                       SPARSE_MAX, "stream")
+
+
+@pytest.mark.parametrize("out_chunk", [1, 4, 16])
+def test_dense_walker_with_a_short_output_staging(out_chunk):
+    """Outputs staged fewer cycles a bank (the stream layout's choice where
+    32 cycles of them do not fit): flushed every ``out_chunk`` cycles, the
+    last bank partly filled at 70 cycles, equal to the plain version."""
+    g = _wide_dfg(2, 40)
+    for layout in ("stream", "shared"):
+        _check_dense_walk(lower_dense(g), _inputs(g, WALK_CYCLES, 2),
+                          WALK_CYCLES, layout, out_chunk)
+
+
+def test_dense_plan_shrinks_the_output_staging_to_fit():
+    """Between the stream layout's words at two output stagings, the plan
+    takes the smaller staging; its descriptors address output rows of that
+    many words."""
+    prog = lower_dense(_wide_dfg(0, 300))
+    words = {oc: pack_dense(prog, 64, "stream", oc)[0]["s_words"]
+             for oc in K.sim.OUT_CHUNKS}
+    assert all(words[a] > words[b] for a, b in zip(K.sim.OUT_CHUNKS,
+                                                   K.sim.OUT_CHUNKS[1:]))
+    h, blob = K.dense_plan(prog, 64, 4 * words[4])
+    assert (h["layout"], h["out_chunk"]) == (1, 4)
+    light, heavy = _dense_rounds(h, blob)
+    desc = np.concatenate([light[:-1], heavy]).reshape(-1, 8)
+    outs = desc[(desc[:, 3] >> K.sim.D_SHIFT) & K.sim.DENSE_FLAGS["DOut"]
+                > 0, 3] & ((1 << K.sim.D_SHIFT) - 1)
+    assert sorted(outs.tolist()) == [16 * o for o in range(h["n_out"])]
+
+
+def test_sparse_walker_on_the_stream_layout_through_the_feed_window(
+        monkeypatch):
+    monkeypatch.setattr(K.sim, "FEED_WHOLE_WORDS", 0)
+    g = _port_app("mttkrp")
+    rounds = _check_sparse_walk(lower_sparse(g), _inputs(g, 300), 300 * 40,
+                                "stream")
+    assert rounds > 2 * K.sim.FEED_REFILL
+
+
+def _one_wide_item(fan):
+    """An input feeding ``fan`` adders (one wide item), each adding a
+    second, narrow input, the sums chained pairwise into outputs."""
+    g = DFG("fan")
+    a, b = g.add(INPUT, name="a"), g.add(INPUT, name="b")
+    pes = []
+    for i in range(fan):
+        pe = g.add(PE, op=BINOPS[i % len(BINOPS)])
+        g.connect(a, pe, port=0)
+        g.connect(b if i == 0 else pes[-1], pe, port=1)
+        pes.append(pe)
+    for i, pe in enumerate(pes):
+        g.connect(pe, g.add("output", name=f"o{i}"))
+    g.sparse = True
+    return g.validate()
+
+
+@pytest.mark.parametrize("layout", ["shared", "stream", "global"])
+@pytest.mark.parametrize("fan", [5, 36, 70])
+def test_sparse_walker_on_one_wide_item_among_narrow_ones(fan, layout):
+    """One item with a fan-out past the descriptor's four (past one and
+    two strides of the warp) among items of one or two outputs: its
+    further outputs tested and pushed by the whole warp."""
+    g = _one_wide_item(fan)
+    prog = lower_sparse(g)
+    h, blob = pack_sparse(prog, (2, 16), 640, layout)
+    assert h["fan"] == fan
+    desc = blob[h["o_desc"]:h["o_desc"] + h["n_rounds"] * 32 *
+                h["desc_words"]].view(np.uint32).reshape(-1, h["desc_words"])
+    more = desc[:, 7 if layout == "global" else 5 + K.sim.FAN] & 0xFFF
+    assert sorted(int(m) for m in more if m) == [fan - K.sim.FAN]
+    _check_sparse_walk(prog, _inputs(g, 16), 640, layout)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_walkers_on_seeded_wide_dags_in_every_layout(seed):
+    """The seeded wide DAGs, dense and sparse, in each layout: the shared
+    route, the stream layout (state in shared memory, program streamed)
+    and the global layout, each equal to the plain version."""
+    g = _wide_dfg(seed)
+    prog = lower_dense(g)
+    for layout in K.sim.LAYOUTS:
+        _check_dense_walk(prog, _inputs(g, 40, seed), 40, layout)
+    g = _wide_dfg(seed, width=12)
+    g.sparse = True
+    prog = lower_sparse(g)
+    for layout in K.sim.LAYOUTS:
+        _check_sparse_walk(prog, _inputs(g, 16, seed), 640, layout)
+
+
+def test_walkers_on_programs_whose_state_fits_but_not_the_program():
+    """At a block of less shared memory than the shared route needs but
+    more than the state does, the plans take the stream layout; its blobs
+    walk equal to the plain version."""
+    g = _wide_dfg(1, 160)
+    prog = lower_dense(g)
+    shared, _ = pack_dense(prog, WALK_CYCLES)
+    stream, _ = pack_dense(prog, WALK_CYCLES, "stream", 4)
+    limit = 4 * stream["s_words"]
+    assert 4 * shared["s_words"] > limit
+    h, _ = K.dense_plan(prog, WALK_CYCLES, limit)
+    assert (h["layout"], h["out_chunk"]) == (1, 4)
+    _check_dense_walk(prog, _inputs(g, WALK_CYCLES, 1), WALK_CYCLES,
+                      "stream", 4)
+    g = _wide_dfg(1, 320)
+    g.sparse = True
+    prog = lower_sparse(g)
+    shared, _ = pack_sparse(prog, (3, 24), 960)
+    stream, _ = pack_sparse(prog, (3, 24), 960, "stream")
+    limit = 4 * stream["s_words"]
+    assert 4 * shared["s_words"] > limit
+    assert K.sparse_plan(prog, (3, 24), 960, limit)[0]["layout"] == 1
+    _check_sparse_walk(prog, _inputs(g, 24, 1), 960, "stream")
 
 
 def test_plans_take_the_global_route_past_shared_memory():
     """The plan packs on the shared route while the blob and state fit a
-    block's shared memory, else on the global route, from the packed sizes
-    alone; the apps stay on the shared route."""
+    block's shared memory; else in the stream layout while the state (and
+    the tables) fit; else in the global layout; from the packed sizes
+    alone. The apps stay on the shared route."""
     for app in ALL_DENSE:
         prog = lower_dense(_port_app(app))
         assert K.dense_plan(prog, 256, SMEM_LIMIT)[0]["global_route"] == 0
@@ -1249,20 +1513,30 @@ def test_plans_take_the_global_route_past_shared_memory():
         prog = lower_dense(_wide_dfg(0, width))
         shared, _ = pack_dense(prog, 256)
         h, blob = K.dense_plan(prog, 256, SMEM_LIMIT)
+        stream, _ = pack_dense(prog, 256, "stream", h["out_chunk"])
         assert h["global_route"] == int(4 * shared["s_words"] > SMEM_LIMIT)
-        assert h["s_words"] == shared["s_words"] and h["blob_words"] == \
-            blob.size
-        routes.append(h["global_route"])
+        assert 4 * stream["s_words"] <= SMEM_LIMIT
+        assert h["s_words"] == (stream if h["layout"] else shared)[
+            "s_words"] and h["blob_words"] == blob.size
+        routes.append(h["layout"])
+        # a block with less shared memory than either: the global layout
+        least = pack_dense(prog, 256, "stream", 1)[0]["s_words"]
+        tight = 4 * min(shared["s_words"], least) - 4
+        assert K.dense_plan(prog, 256, tight)[0]["layout"] == 2
     assert routes == [0, 1]
     routes = []
-    for width in (40, 200):
+    for width in (200, 960):
         g = _wide_dfg(0, width)
         g.sparse = True
         prog = lower_sparse(g)
         shared, _ = pack_sparse(prog, (3, 64), 2560)
+        stream, _ = pack_sparse(prog, (3, 64), 2560, "stream")
         h, _ = K.sparse_plan(prog, (3, 64), 2560, SMEM_LIMIT)
         assert h["global_route"] == int(4 * shared["s_words"] > SMEM_LIMIT)
-        routes.append(h["global_route"])
+        assert 4 * stream["s_words"] <= SMEM_LIMIT
+        routes.append(h["layout"])
+        tight = 4 * min(shared["s_words"], stream["s_words"]) - 4
+        assert K.sparse_plan(prog, (3, 64), 2560, tight)[0]["layout"] == 2
     assert routes == [0, 1]
 
 
@@ -1280,7 +1554,7 @@ def test_plans_take_the_global_route_past_the_16_bit_fields():
     h, _ = K.dense_plan(prog, 8, 1 << 30)
     assert h["global_route"] == 1
     ins = {"i": list(range(1, 9))}
-    _check_dense_walk(prog, ins, 8, wide=True)
+    _check_dense_walk(prog, ins, 8, "global")
 
 
 def test_dense_walker_on_a_routed_netlist():
@@ -1316,6 +1590,23 @@ def test_micro_ops_and_flags_match_the_cuda_source():
     assert _flags(sparse) == {n: f << 4 for n, f in
                               K.sim.SPARSE_FLAGS.items()}
     assert f"kRomShift = {K.sim.ROM_SHIFT};" in sparse
+
+
+def test_layout_constants_match_the_cuda_source():
+    """The layouts' numbering, the sparse descriptor's inline outputs and
+    more-word split, and each kernel's streamed chunk, as the kernels
+    declare them."""
+    ops = (CSRC / "sim_ops.cuh").read_text()
+    assert tuple(v.split("=")[0].strip() for v in _enum(ops, "Layout")) == \
+        tuple(f"k{n.capitalize()}Layout" for n in K.sim.LAYOUTS)
+    dense = (CSRC / "sim_dense.cu").read_text()
+    sparse = (CSRC / "sim_sparse.cu").read_text()
+    assert f"kStreamChunk = {K.sim.STREAM_CHUNKS['dense']};" in dense
+    assert f"kStreamChunk = {K.sim.STREAM_CHUNKS['sparse']};" in sparse
+    assert "DescStream<2, kStreamChunk>" in dense
+    assert "DescStream<3, kStreamChunk>" in sparse
+    assert f"kFan = {K.sim.FAN};" in sparse
+    assert f"kMoreShift = {K.sim.MORE_SHIFT};" in sparse
 
 
 @pytest.mark.parametrize("op", [o for o in _OPS if o not in ("acc", "accp")])
