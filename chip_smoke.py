@@ -8,6 +8,7 @@
                                         # "dots" leg and the mesh), and
                                         # 4b's zamba2 training
     python3 chip_smoke.py --phase dryrun    # phases 1, 2, 10 (with 10b)
+    python3 chip_smoke.py --phase mesh  # phases 1, 2, 4c's kernels, 4, 4c
 
 Drives the port (``src/repro_torch``) only. Phases, each printing its own
 lines:
@@ -49,6 +50,32 @@ lines:
              count (all on the tensor cores) and its device kernels, prefill
              against the no-cache forward, and one decode step through the
              kernel against the einsum cache branch.
+4c. shards and mesh — the kernels' forms for a mesh's shards, in one
+             process on slices standing in for ranks' shards (run before
+             phase 4): flash_decode's partial form (output and
+             log-sum-exp) on 2 and 4 slot shards of the serve row's cache
+             (B 4, KV 8, G 4, hd 128, 160 slots, lengths 144, 144, 100 and
+             37: shards past a frontier run empty) and of zamba2's (KV 32,
+             G 1, hd 80, the CUDA-core route), bf16 and f32, merged and held
+             to the whole-cache kernel, each shard's lse to the plain
+             version's, and at forced split counts of 1, 2 and 3 on both
+             routes with a length of 0 (output 0, lse -inf);
+             flash_attention with q_off on 4 row slices of
+             llama3-8b's and zamba2's training shapes (model layout), cut
+             evenly and at offsets that are no multiple of a tile, bf16 and
+             one f32 case, each held to the whole-sequence kernel's rows;
+             the partial call on one shard and the offset call on the
+             heaviest slice timed beside bound, plain version and SDPA on
+             the same shard. Then (after phase 4) ``serve`` on
+             ``make_smoke_mesh()`` (one rank, nccl): llama3-8b at full
+             width under the default rules (the cache's head dim gathered
+             for the kernel) and under ``decode_cache_shard="seq"`` (the
+             partial form and the merge over the "model" group on every
+             layer of every step), each with phase 4's greedy tokens and
+             logits within the bf16 bar, the launches counted and the
+             decode ms a step beside phase 4's; whisper-small on the mesh,
+             its encoder through flash_attention on DTensor shards, against
+             its plain run.
 4b. families — the six families beyond dense at full width through
              ``repro_torch.launch.serve.serve`` (batch 4, prompt 128, 32
              generated tokens, random weights from the seeds):
@@ -368,14 +395,16 @@ def time_ms(fn, arg_sets, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def decode_bound(q, k, lengths):
+def decode_bound(q, k, lengths, lse: bool = False):
     """(least ms, what bounds it) for one flash_decode call on these inputs:
-    the K/V rows below each length read once, q and lengths read, out
-    written, against the flops of QK and PV at the card's peak."""
+    the K/V rows below each length read once, q and lengths read, out (and
+    in the partial form the f32 lse) written, against the flops of QK and
+    PV at the card's peak."""
     b, kv, g, hd = q.shape
-    rows = int(lengths.clamp(max=k.shape[2]).sum())
+    rows = int(lengths.clamp(min=0, max=k.shape[2]).sum())
     es = q.element_size()
-    nbytes = 2 * kv * hd * rows * es + 2 * q.numel() * es + 4 * b
+    nbytes = (2 * kv * hd * rows * es + 2 * q.numel() * es + 4 * b
+              + (4 * b * kv * g if lse else 0))
     flops = 4 * kv * g * hd * rows
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[q.dtype]
@@ -383,15 +412,15 @@ def decode_bound(q, k, lengths):
                                        else "operations")
 
 
-def attention_bound(q, k, causal):
+def attention_bound(q, k, causal, q_off: int = 0):
     """(least ms, what bounds it) for one flash_attention call: the (query,
     key) pairs this mask keeps, 4 * d flops each (QK and PV) at the card's
-    peak, against q, k, v read and o written once."""
+    peak, against q, k, v read and o written once. With ``q_off``, q's row
+    r is key row q_off + r."""
     b, h, sq, d = q.shape
     skv = k.shape[2]
     if causal:                      # top left: row r sees keys 0..r
-        m = min(sq, skv)
-        pairs = m * (m + 1) // 2 + (sq - m) * skv
+        pairs = sum(min(q_off + r + 1, skv) for r in range(sq))
     else:
         pairs = sq * skv
     flops = 4 * d * b * h * pairs
@@ -741,7 +770,7 @@ def bf16_kernel_resources() -> str:
     return "; ".join(out) + f"; SASS {counts}"
 
 
-def phase_serve(card: str) -> int:
+def phase_serve(card: str) -> tuple:
     from repro_torch.kernels.flash_decode import flash_decode
     from repro_torch.launch import serve
     from repro_torch.models import LM
@@ -753,6 +782,8 @@ def phase_serve(card: str) -> int:
     r = serve.main(["--arch", ARCH, "--batch", str(BATCH),
                     "--prompt-len", str(PROMPT), "--gen", str(GEN)])
     launches, kernels = flash_decode.launches, flash_decode.device_launches
+    plain = {"tokens": r.tokens, "logits": r.logits,
+             "step_ms": 1e3 * r.decode_s / r.decode_steps}
     if flash_decode.tensor_core_launches != launches:
         raise RuntimeError(f"flash_decode: {flash_decode.tensor_core_launches}"
                            f" of {launches} calls on the tensor cores")
@@ -800,7 +831,7 @@ def phase_serve(card: str) -> int:
         del full
         check_branches(r, einsum_model)
     phase_profile(r)
-    return launches
+    return launches, plain
 
 
 def check_branches(r, einsum_model) -> None:
@@ -911,6 +942,372 @@ def device_profile(phase: str, what: str, step, reps: int,
             log(phase, f"{ms:8.3f} ms {100 * ms / busy:5.1f}%  x{n:<4d} "
                 f"#{rank} {name[:90]}")
     return len(kernels)
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: the kernels on shards, and serving on a device mesh
+
+# the serve row's cache split over ranks: one sequence short enough that the
+# shards past its frontier run empty (length 37 in 40- and 80-slot shards)
+SHARD_LENGTHS = [PROMPT + GEN // 2] * 2 + [100, 37]
+# q's rows of the train shape cut over 4 ranks: evenly (offsets 1024 apart,
+# whole 128-row tiles) and raggedly (offsets that are no multiple of a tile)
+ROW_CUTS = {"even": (0, 1024, 2048, 3072, 4096),
+            "ragged": (0, 1000, 2100, 3333, 4096)}
+
+
+def phase_shard_kernels(dev) -> tuple:
+    """The kernels' forms for a mesh's shards, in one process on slices
+    standing in for the ranks' shards. flash_decode's partial form (output
+    and log-sum-exp) on 2 and 4 slot shards of the serve row's cache and of
+    zamba2's (hd 80, G 1: the CUDA-core route), bf16 and f32, merged by
+    ``merge_partials`` and held to the whole-cache kernel; each shard's lse
+    held to the plain version's; the partial form at forced split counts
+    (one split: the split kernel writes the lse; more: the combine does),
+    a length of 0 included. flash_attention with ``q_off`` on 4 row
+    slices of llama3-8b's and zamba2's training shapes (model layout),
+    evenly and raggedly cut, bf16 and one f32 case, each held to the
+    matching rows of the whole-sequence kernel. Times the partial call on
+    one shard and the offset call on the heaviest slice beside bound, plain
+    version and SDPA on the same shard."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.flash_decode import (flash_decode,
+                                                  flash_decode_ref,
+                                                  merge_partials)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    t = PROMPT + GEN
+    max_err = {"decode": 0.0, "attention": 0.0}
+    flash_decode.lse_launches = 0
+    for kv, g, hd in ((8, 4, 128), (32, 1, 80)):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                       for shape in ((BATCH, kv, g, hd), (BATCH, kv, t, hd),
+                                     (BATCH, kv, t, hd)))
+            lens = torch.tensor(SHARD_LENGTHS, dtype=torch.int32, device=dev)
+            want = flash_decode(q, k, v, lens).float()
+            for shards in (2, 4):
+                outs, lses, lo, past = [], [], 0, 0
+                for ks, vs in zip(k.chunk(shards, 2), v.chunk(shards, 2)):
+                    n = ks.shape[2]
+                    ln = (lens - lo).clamp(0, n).to(torch.int32)
+                    ks, vs = ks.contiguous(), vs.contiguous()
+                    out, lse = flash_decode(q, ks, vs, ln, return_lse=True)
+                    _, lse_plain = flash_decode_ref(q, ks, vs, ln,
+                                                    return_lse=True)
+                    torch.testing.assert_close(lse, lse_plain, rtol=0,
+                                               atol=1e-3, equal_nan=True)
+                    past += int((ln == 0).sum())
+                    outs.append(out), lses.append(lse)
+                    lo += n
+                got = merge_partials(outs, lses).to(dtype).float()
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                torch.testing.assert_close(got, want, **KERNEL_TOL[dtype])
+                max_err["decode"] = max(max_err["decode"], err)
+                log("shards", f"flash_decode partial {str(dtype)[6:]} B="
+                    f"{BATCH} KV={kv} G={g} hd={hd} T={t} lengths="
+                    f"{SHARD_LENGTHS} on {shards} slot shards ({past} "
+                    f"(sequence, shard) pairs past the frontier), merged: "
+                    f"max abs err {err:.3g} against the whole-cache kernel "
+                    f"(tol {KERNEL_TOL[dtype]})")
+            del q, k, v, want, outs, lses
+    # the partial form at forced split counts: one split (the split kernel
+    # writes the lse), two, and one a tile of 16 rows (the combine writes
+    # it), on a 40-slot shard with lengths 40, 17, 0 and 1, on both routes
+    fd = importlib.import_module(
+        "repro_torch.kernels.flash_decode.flash_decode")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    forced = 0
+    for kv, g, hd, dtype in ((8, 4, 128, torch.bfloat16),
+                             (32, 1, 80, torch.bfloat16),
+                             (8, 4, 128, torch.float32)):
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                   for shape in ((BATCH, kv, g, hd), (BATCH, kv, 40, hd),
+                                 (BATCH, kv, 40, hd)))
+        ln = torch.tensor([40, 17, 0, 1], dtype=torch.int32, device=dev)
+        want, want_lse = flash_decode_ref(q, k, v, ln, return_lse=True)
+        for n_split in (1, 2, 3):
+            p = fd.plan(BATCH, kv, g, 40, hd, q.element_size(), 16, sms,
+                        n_split)
+            out, lse = fd._launch(q, k, v, ln, 16, p, return_lse=True)
+            torch.cuda.synchronize()
+            forced += 1
+            torch.testing.assert_close(out, want,
+                                       **KERNEL_TOL[torch.float32])
+            torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-3)
+            if not (torch.all(out[2] == 0) and torch.all(lse[2] == -math.inf)):
+                raise RuntimeError("flash_decode partial form: length 0 must "
+                                   "give output 0 and lse -inf")
+            log("shards", f"flash_decode partial {str(dtype)[6:]} KV={kv} "
+                f"G={g} hd={hd}, 40 slots, lengths [40, 17, 0, 1], bk=16, "
+                f"n_split={p.n_split} ({'tensor' if p.tensor_cores else 'CUDA'}"
+                f" cores): f32 output max abs err "
+                f"{(out - want).abs().max().item():.3g}, lse max abs err "
+                f"{(lse - want_lse)[ln > 0].abs().max().item():.3g} against "
+                f"the plain version; length 0 gives 0 and -inf")
+        del q, k, v, want
+    if flash_decode.lse_launches != 2 * 2 * (2 + 4) + forced:
+        raise RuntimeError(f"flash_decode partial form: "
+                           f"{flash_decode.lse_launches} launches, want "
+                           f"{24 + forced}")
+
+    # timed: the serve row's first of 4 slot shards (40 slots, all live)
+    kv, g, hd = 8, 4, 128
+    sets = []
+    for _ in range(40):
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16) for shape in ((BATCH, kv, g, hd),
+                                          (BATCH, kv, t // 4, hd),
+                                          (BATCH, kv, t // 4, hd)))
+        sets.append((q, k, v, torch.full((BATCH,), t // 4, dtype=torch.int32,
+                                         device=dev)))
+    mask = torch.ones(1, 1, 1, t // 4, dtype=torch.bool, device=dev)
+    q, k, v, ln = sets[0]
+    bound_ms, bound_by = decode_bound(q, k, ln, lse=True)
+    decode = {"ms": time_ms(lambda *a: flash_decode(*a, return_lse=True),
+                            sets, 400),
+              "plain_ms": time_ms(lambda *a: flash_decode_ref(
+                  *a, return_lse=True), sets, 400),
+              "bound_ms": bound_ms, "bound_by": bound_by,
+              "library_ms": time_ms(sdpa_decode, [a[:3] + (mask,)
+                                                  for a in sets], 400)}
+    outs = [flash_decode(*a, return_lse=True) for a in sets[:4]]
+    merge_ms = time_ms(lambda *o: merge_partials(o[::2], o[1::2]),
+                       [tuple(x for pair in outs for x in pair)], 400)
+    log("shards", f"flash_decode partial bf16 on one of 4 slot shards (B="
+        f"{BATCH} KV={kv} G={g} hd={hd}, {t // 4} slots, all live; output "
+        f"and lse): " + json.dumps(decode) + f", roofline share "
+        f"{decode['bound_ms'] / decode['ms']:.3f} (library: SDPA on the "
+        f"shard, output only); merge_partials of 4 shards' states "
+        f"{merge_ms:.5f} ms (plain torch; across ranks it is two "
+        f"all-reduces)")
+    del sets, outs
+    torch.cuda.empty_cache()
+
+    # flash_attention on row slices: (name, H, KV, d, dtype, cut)
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    cases = [("llama3-8b", 32, 8, 128, torch.bfloat16, "even"),
+             ("llama3-8b", 32, 8, 128, torch.bfloat16, "ragged"),
+             ("zamba2-2.7b", 32, 32, 80, torch.bfloat16, "even"),
+             ("zamba2-2.7b", 32, 32, 80, torch.bfloat16, "ragged"),
+             ("llama3-8b", 32, 8, 128, torch.float32, "ragged")]
+    before = flash_attention.launches
+    for name, h, kvh, d, dtype, cut in cases:
+        q, k, v = (torch.randn((b, s, heads, d), generator=gen,
+                               device=dev).to(dtype).transpose(1, 2)
+                   for heads in (h, kvh, kvh))
+        want = flash_attention(q, k, v, causal=True).float()
+        edges = ROW_CUTS[cut]
+        errs = []
+        for lo, hi in zip(edges[:-1], edges[1:]):
+            got = flash_attention(q[:, :, lo:hi], k, v, causal=True,
+                                  q_off=lo).float()
+            torch.cuda.synchronize()
+            errs.append((got - want[:, :, lo:hi]).abs().max().item())
+            torch.testing.assert_close(got, want[:, :, lo:hi],
+                                       **KERNEL_TOL[dtype])
+        max_err["attention"] = max(max_err["attention"], *errs)
+        log("shards", f"flash_attention {str(dtype)[6:]} {name} train shape "
+            f"B={b} H={h} KV={kvh} S={s} d={d} causal, model layout, rows "
+            f"cut at {edges} with q_off: max abs err by slice "
+            f"{[f'{e:.3g}' for e in errs]} against the whole-sequence "
+            f"kernel's rows (tol {KERNEL_TOL[dtype]})")
+        del q, k, v, want
+        torch.cuda.empty_cache()
+    want_launches = sum(len(ROW_CUTS[c[5]]) for c in cases)
+    if flash_attention.launches - before != want_launches:
+        raise RuntimeError(f"flash_attention: "
+                           f"{flash_attention.launches - before} launches, "
+                           f"want {want_launches}")
+
+    # timed: llama3's heaviest even slice, rows 3072-4095 against all keys
+    q, k, v = (torch.randn((b, s, heads, 128), generator=gen, device=dev)
+               .to(torch.bfloat16).transpose(1, 2) for heads in (32, 8, 8))
+    lo = ROW_CUTS["even"][3]
+    qs = q[:, :, lo:]
+    rows = lo + torch.arange(s - lo, device=dev)[:, None]
+    allowed = rows >= torch.arange(s, device=dev)[None, :]
+    dense = [qs.contiguous(), k.contiguous(), v.contiguous()]
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=allowed,
+                                              enable_gqa=True)
+    torch.testing.assert_close(sdpa(*dense).float(), flash_attention_plain(
+        qs, k, v, q_off=lo).float(), rtol=TOL[torch.bfloat16],
+        atol=TOL[torch.bfloat16])
+    bound_ms, bound_by = attention_bound(qs, k, True, lo)
+    attn = {"ms": time_ms(lambda *a: flash_attention(*a, q_off=lo),
+                          [(qs, k, v)], 20),
+            "plain_ms": time_ms(lambda *a: flash_attention_plain(
+                *a, q_off=lo), [(qs, k, v)], 4),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": time_ms(sdpa, [tuple(dense)], 20)}
+    log("shards", f"flash_attention bf16 llama3-8b rows {lo}-{s - 1} of the "
+        f"train shape (q_off {lo}, all {s} keys): " + json.dumps(attn)
+        + f", roofline share {attn['bound_ms'] / attn['ms']:.4f} (library: "
+        f"SDPA with the offset's boolean mask)")
+    del q, k, v, qs, dense
+    torch.cuda.empty_cache()
+    return ({"name": "flash_decode (partial form: output and lse on a slot "
+                     "shard)", "route": "cuda",
+             "source": "src/repro_torch/kernels/flash_decode/csrc/"
+                       "flash_decode.cu",
+             "replaces": "src/repro/kernels/flash_decode/flash_decode.py:29",
+             "max_abs_err": max_err["decode"], **decode},
+            {"name": "flash_attention (q_off, on a rank's rows)",
+             "route": "cuda",
+             "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                       "flash_attention_wgmma.cu",
+             "replaces": "src/repro/kernels/flash_attention/"
+                         "flash_attention.py:32",
+             "max_abs_err": max_err["attention"], **attn})
+
+
+def hd_gather_bytes(arch: str = "llama3-8b", shape: str = "decode_32k",
+                    mesh=(16, 16)) -> dict:
+    """Host arithmetic, modelled (not measured): the wire bytes a rank
+    receives a decode step when the default rules shard the KV cache's head
+    dim over the "model" axis and the decode branch gathers it for
+    flash_decode: each layer's K and V of the rank's batch shard (batch over
+    "data"), less the rank's own 1 / model part, at the H100's NVLink 450
+    GB/s each way. Beside it the cache a rank holds, and the same gather's
+    bytes on one "model" axis of 16 ranks alone (data 1)."""
+    from repro_torch.configs import SHAPES, get_config
+    cfg, sp = get_config(arch), SHAPES[shape]
+    data, model = mesh
+
+    def received(data):
+        b = -(-sp.global_batch // data)
+        layer = (2 * b * cfg.num_kv_heads * sp.seq_len
+                 * cfg.resolved_head_dim * 2)
+        return cfg.num_layers * layer * (model - 1) // model, layer
+    step, layer = received(data)
+    alone, _ = received(1)
+    return {"arch": arch, "shape": shape, "mesh": mesh,
+            "bytes_a_rank_a_step": step, "layer_kv_bytes_a_rank": layer,
+            "seconds_at_450GBps": step / 450e9,
+            "cache_bytes_a_rank": cfg.num_layers * layer // model,
+            "bytes_a_rank_a_step_on_16_ranks": alone,
+            "seconds_on_16_ranks": alone / 450e9}
+
+
+def phase_mesh_serve(card: str, plain: dict) -> tuple:
+    """``serve`` on ``make_smoke_mesh()`` (one rank, nccl): llama3-8b at
+    full width and depth (batch 4, prompt 128, 32 tokens) under the default
+    rules (the cache sharded on its head dim over a mesh dim of 1, gathered
+    for the kernel) and under ``decode_cache_shard="seq"`` (the kernel's
+    partial form on the rank's slots, merged over the "model" group), each
+    giving phase 4's greedy tokens with its logits within the bf16 bar and
+    a kernel launch on every layer of every decode step; then whisper-small,
+    whose encoder runs flash_attention on DTensor shards, against its plain
+    run. Returns the launches (flash_decode whole, its partial form,
+    flash_attention on shards)."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_smoke_mesh
+
+    def reset():
+        for name in ("launches", "lse_launches", "device_launches",
+                     "tensor_core_launches"):
+            setattr(flash_decode, name, 0)
+        flash_attention.launches = 0
+
+    t_phase = time.perf_counter()
+    counts = {"decode": 0, "partial": 0, "attention": 0}
+    mesh = make_smoke_mesh()
+    try:
+        cfg = get_config(ARCH)
+        for profile, edit in (("tp (default rules)", {}),
+                              ("cache_seq", {"decode_cache_shard": "seq"})):
+            reset()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            r = serve.serve(cfg.replace(**edit), batch=BATCH,
+                            prompt_len=PROMPT, gen=GEN, mesh=mesh)
+            secs = time.perf_counter() - t0
+            want = cfg.num_layers * (GEN - 1)
+            got = (flash_decode.launches, flash_decode.lse_launches,
+                   flash_decode.tensor_core_launches)
+            expect = (want, want if edit else 0, want)
+            if got != expect:
+                raise RuntimeError(f"mesh serve {profile}: flash_decode "
+                                   f"(calls, partial form, tensor cores) "
+                                   f"{got}, want {expect}")
+            layout = [str(p) for p in r.cache["self"]["k"].placements]
+            diff = (r.logits.float() - plain["logits"].float()).abs().max()
+            same = torch.equal(r.tokens, plain["tokens"])
+            step_ms = 1e3 * r.decode_s / r.decode_steps
+            log("mesh", f"{cfg.name} on {mesh} under {profile} (cache "
+                f"{layout}): tokens {'equal to' if same else 'DIFFER from'} "
+                f"phase 4's plain run, logits max abs diff {diff.item():.3g} "
+                f"(bar {TOL[torch.bfloat16]}); flash_decode {got[0]} calls = "
+                f"{cfg.num_layers} layers x {GEN - 1} steps ({got[1]} in the "
+                f"partial form), all on the tensor cores; decode "
+                f"{step_ms:.2f} ms/step against the plain run's "
+                f"{plain['step_ms']:.2f}, prefill {1e3 * r.prefill_s:.2f} "
+                f"ms, peak memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+                f"{secs:.1f} s in all, on {card}")
+            if not same:
+                raise RuntimeError(f"mesh serve {profile}: tokens differ from "
+                                   f"the plain run")
+            torch.testing.assert_close(r.logits.float(),
+                                       plain["logits"].float(),
+                                       rtol=TOL[torch.bfloat16],
+                                       atol=TOL[torch.bfloat16])
+            counts["decode"] += got[0] - got[1]
+            counts["partial"] += got[1]
+            del r
+        # whisper-small: plain, then on the mesh
+        wcfg = get_config("whisper-small")
+        runs = {}
+        for where in ("plain", "mesh"):
+            reset()
+            torch.cuda.empty_cache()
+            runs[where] = serve.serve(
+                wcfg, batch=BATCH, prompt_len=PROMPT, gen=GEN,
+                mesh=mesh if where == "mesh" else None)
+            runs[where + "_counts"] = (flash_attention.launches,
+                                       flash_decode.launches)
+        m = runs["mesh"].model.cfg
+        want = (2 * m.encoder_layers, m.num_layers * (GEN - 1))
+        if runs["mesh_counts"] != want:
+            raise RuntimeError(f"whisper on the mesh: (flash_attention, "
+                               f"flash_decode) {runs['mesh_counts']}, want "
+                               f"{want}")
+        same = torch.equal(runs["mesh"].tokens, runs["plain"].tokens)
+        diff = (runs["mesh"].logits.float()
+                - runs["plain"].logits.float()).abs().max().item()
+        step_ms = {w: 1e3 * runs[w].decode_s / runs[w].decode_steps
+                   for w in ("plain", "mesh")}
+        log("mesh", f"whisper-small on {mesh}: encoder flash_attention "
+            f"{want[0]} calls on DTensor shards (2 prefills x "
+            f"{m.encoder_layers} layers), flash_decode {want[1]}; tokens "
+            f"{'equal to' if same else 'DIFFER from'} its plain run's, "
+            f"logits max abs diff {diff:.3g}; decode {step_ms['mesh']:.2f} "
+            f"ms/step against {step_ms['plain']:.2f} plain, on {card}")
+        if not same:
+            raise RuntimeError("whisper on the mesh: tokens differ from its "
+                               "plain run")
+        torch.testing.assert_close(runs["mesh"].logits.float(),
+                                   runs["plain"].logits.float(),
+                                   rtol=TOL[torch.bfloat16],
+                                   atol=TOL[torch.bfloat16])
+        counts["attention"] += want[0]
+        counts["decode"] += want[1]
+        del runs
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    log("mesh", "the head-dim gather of the default rules, modelled (host "
+        "arithmetic, not measured): " + json.dumps(hd_gather_bytes()))
+    log("mesh", f"phase took {time.perf_counter() - t_phase:.1f} s on {card}")
+    return counts["decode"], counts["partial"], counts["attention"]
 
 
 def phase_train(card: str) -> int:
@@ -3858,9 +4255,9 @@ def print_ok() -> None:
 def main(argv) -> int:
     if argv not in ([], ["--phase", "sim"], ["--phase", "multi"],
                     ["--phase", "families"], ["--phase", "train"],
-                    ["--phase", "dryrun"]):
+                    ["--phase", "dryrun"], ["--phase", "mesh"]):
         raise SystemExit("usage: python3 chip_smoke.py "
-                         "[--phase sim|multi|families|train|dryrun]")
+                         "[--phase sim|multi|families|train|dryrun|mesh]")
     card = phase_device()
     # f32 comparisons run in full f32: no TF32 in matmuls or convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3868,6 +4265,19 @@ def main(argv) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     dev = torch.device("cuda")
     phase_build()
+    if argv == ["--phase", "mesh"]:     # phases 1, 2, 4c's kernels, 4, 4c
+        kernels = phase_shard_kernels(dev)
+        _, plain = phase_serve(card)
+        torch.cuda.empty_cache()
+        counts = phase_mesh_serve(card, plain)
+        log("mesh", f"launches (flash_decode whole, partial form, "
+            f"flash_attention on shards): {counts}; "
+            + json.dumps([{k: e[k] for k in ("name", "max_abs_err", "ms",
+                                             "plain_ms", "bound_ms",
+                                             "library_ms")}
+                          for e in kernels]))
+        print_ok()
+        return 0
     if argv == ["--phase", "multi"]:    # phases 1, 2, 7e
         phase_multi(dev, card)
         print_ok()
@@ -3896,7 +4306,13 @@ def main(argv) -> int:
         return 0
     decode = phase_kernels(dev)
     attn = phase_flash_attention(dev)
-    decode["launches"] = phase_serve(card)
+    partial, offset = phase_shard_kernels(dev)
+    decode["launches"], plain = phase_serve(card)
+    torch.cuda.empty_cache()
+    mesh_decode, partial["launches"], offset["launches"] = phase_mesh_serve(
+        card, plain)
+    decode["launches"] += mesh_decode
+    del plain
     torch.cuda.empty_cache()
     attn["launches"] = phase_train(card)
     torch.cuda.empty_cache()
@@ -3922,7 +4338,8 @@ def main(argv) -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {k: e[k] for k in keys}
-        for e in (decode, attn, maxplus, stencil, *sim)]}), flush=True)
+        for e in (decode, attn, partial, offset, maxplus, stencil, *sim)]}),
+        flush=True)
     print_ok()
     return 0
 

@@ -17,6 +17,9 @@
 //     the reference makes around its call.
 // Nothing is padded: keys at or past Skv are masked (their rows are never
 // loaded into the P.V sum) and query rows at or past Sq are never written.
+// A query-row offset `q_off` (>= 0, any value) makes q's row r the keys'
+// row q_off + r for the causal mask and the causal tile skip: a rank's
+// slice of a sequence's rows keeps the whole sequence's diagonal.
 //
 // Bound on an H100 at the training shape (B=2, H=32, KV=8, S=4096, d=128,
 // causal) in f32: operations. 2*B*H*S^2*d flops (QK and PV over the causal
@@ -63,7 +66,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
-  int H, G, Sq, Skv, n_q_tiles, causal;
+  int H, G, Sq, Skv, n_q_tiles, causal, q_off;
   float scale;
   // strides in elements: batch, head, sequence (the last dim is contiguous)
   long long qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os;
@@ -157,10 +160,11 @@ __global__ void __launch_bounds__(kThreads, 2)
       static_cast<const float*>(prm.v) + b * prm.vb + kvh * prm.vh;
   float* og = static_cast<float*>(prm.o) + b * prm.ob + h * prm.oh;
 
-  // KV tiles up to the causal frontier of the last real row of this tile.
+  // KV tiles up to the causal frontier of the last real row of this tile
+  // (its key row: q_off further on).
   const int n_kv = (Skv + BK - 1) / BK;
   const int n_tiles =
-      prm.causal ? min(n_kv, (q0 + q_rows - 1) / BK + 1) : n_kv;
+      prm.causal ? min(n_kv, (prm.q_off + q0 + q_rows - 1) / BK + 1) : n_kv;
 
   // Q tile; rows past Sq are zero-filled so no stale bits enter a sum.
   for (int i = tid; i < BQ * CHUNKS; i += kThreads) {
@@ -237,7 +241,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     // 2. Scale, mask (before the max), online-softmax update.
 #pragma unroll
     for (int i = 0; i < RQ; ++i) {
-      const int row = q0 + ty + 16 * i;
+      const int row = prm.q_off + q0 + ty + 16 * i;  // the keys' row
       float mx = kNegInf;
 #pragma unroll
       for (int j = 0; j < CK; ++j) {
@@ -306,7 +310,8 @@ int launch(const Params& prm, int BH, cudaStream_t stream) {
 
 extern "C" {
 
-// f32 only; hd a multiple of 16 from 16 to 128.
+// f32 only; hd a multiple of 16 from 16 to 128; q_off >= 0 the keys' row of
+// q's row 0 under the causal mask, q_off + Sq below 2^31.
 // Pointers are device pointers, 16-byte aligned, with the strides (in
 // elements) of the batch, head and sequence dims given in `strides` as
 // q, k, v, o triples; the last dim is contiguous and every stride a multiple
@@ -314,12 +319,13 @@ extern "C" {
 // Launches on `stream`, does not synchronise and allocates nothing.
 int flash_attention_f32_launch(const void* q, const void* k, const void* v,
                                void* o, int B, int H, int KV, int Sq, int Skv,
-                               int hd, int causal, float scale,
-                               const long long* strides, cudaStream_t stream) {
-  if (B < 1 || H < 1 || KV < 1 || H % KV || Sq < 1 || Skv < 1)
+                               int hd, int causal, int q_off,
+                               float scale, const long long* strides,
+                               cudaStream_t stream) {
+  if (B < 1 || H < 1 || KV < 1 || H % KV || Sq < 1 || Skv < 1 || q_off < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Params prm{q, k, v, o, H, H / KV, Sq, Skv, (Sq + kBQ - 1) / kBQ, causal,
-             scale, strides[0], strides[1], strides[2], strides[3],
+             q_off, scale, strides[0], strides[1], strides[2], strides[3],
              strides[4], strides[5], strides[6], strides[7], strides[8],
              strides[9], strides[10], strides[11]};
   switch (hd) {

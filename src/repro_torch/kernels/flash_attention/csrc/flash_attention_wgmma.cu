@@ -60,6 +60,12 @@
 //     product of the full width instead of d / 16 narrow ones.
 //   * Epilogue: the `l == 0` guard, divide by l, bf16 stores through the
 //     output's strides; rows at or past Sq are never written.
+//   * A query-row offset `q_off` (>= 0, not necessarily a multiple of a
+//     tile) makes q's row r the keys' row q_off + r for the causal mask, the
+//     edge test and the tile count (up to the key tile of the block's last
+//     real row): a rank's slice of a sequence's rows keeps the diagonal.
+//     Key tile 0 holds key 0, which every row sees, so no row's first tile
+//     is wholly masked.
 //
 // Plain C interface, loaded with ctypes (repro_torch/kernels/_build.py).
 // cuTensorMapEncodeTiled is a driver function: it is fetched at run time
@@ -108,6 +114,7 @@ struct Params {
   __nv_bfloat16* o;
   long long ob, oh, os;  // output strides in elements: batch, head, row
   int H, G, Sq, Skv, n_q_tiles, causal;
+  int q_off;             // the keys' row of q's row 0 (causal mask)
   float scale_log2;      // 1/sqrt(d) * log2(e)
 };
 
@@ -228,8 +235,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int b = bh / prm.H, h = bh - b * prm.H, kvh = h / prm.G;
   const int q0 = qt * kBQ;
   const int n_kv = (prm.Skv + kBK - 1) / kBK;
-  // the causal frontier of the tile's last row: BQ == BK, so tile qt
-  const int n_tiles = prm.causal ? min(n_kv, qt + 1) : n_kv;
+  // the causal frontier of the tile's last real row, as a key row
+  const int last_row = prm.q_off + min(q0 + kBQ, prm.Sq) - 1;
+  const int n_tiles = prm.causal ? min(n_kv, last_row / kBK + 1) : n_kv;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -271,6 +279,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int warp = (threadIdx.x / 32) & 3;
     const int row_lo = q0 + wg * 64;            // this warpgroup's first row
     const int r0 = row_lo + warp * 16 + lane / 4;  // rows r0 and r0 + 8
+    const int key_lo = prm.q_off + row_lo;      // their rows as key rows
+    const int key_r0 = prm.q_off + r0;
     const int cq = 2 * (lane & 3);              // column offset in an n8 block
 
     float o[HD / 2];
@@ -308,12 +318,12 @@ __global__ void __launch_bounds__(kThreads, 1)
       // scale (log2 units) and mask: element 4j + 2i + c is row r0 + 8i,
       // key k0 + 8j + cq + c
       const bool edge = k0 + kBK > prm.Skv ||
-                        (prm.causal && k0 + kBK - 1 > row_lo);
+                        (prm.causal && k0 + kBK - 1 > key_lo);
 #pragma unroll
       for (int e = 0; e < 64; ++e) {
         float x = sc[e] * prm.scale_log2;
         if (edge) {
-          const int row = r0 + 8 * ((e >> 1) & 1);
+          const int row = key_r0 + 8 * ((e >> 1) & 1);
           const int col = k0 + 8 * (e >> 2) + cq + (e & 1);
           if (col >= prm.Skv || (prm.causal && col > row)) x = kNegInf;
         }
@@ -481,20 +491,21 @@ extern "C" {
 // aligned, with the strides (in elements) of the batch, head and sequence
 // dims given in `strides` as q, k, v, o triples; the last dim is
 // contiguous and every stride a multiple of 16 bytes below 2^40 bytes.
-// Grid: B*H blocks on x, ceil(Sq / 128) <= 65535 on y. Returns 0, a
-// cudaError_t, or -1 (no tensor-map encoder in the driver) / -1000 - r (the
-// encoder refused a map with CUresult r). Launches on `stream`, does not
-// synchronise and allocates nothing.
+// q_off >= 0 is the keys' row of q's row 0 under the causal mask, q_off +
+// Sq below 2^31. Grid: B*H blocks on x, ceil(Sq / 128) <= 65535 on y.
+// Returns 0, a cudaError_t, or -1 (no tensor-map encoder in the driver) /
+// -1000 - r (the encoder refused a map with CUresult r). Launches on
+// `stream`, does not synchronise and allocates nothing.
 int flash_attention_bf16_launch(const void* q, const void* k, const void* v,
                                 void* o, int B, int H, int KV, int Sq,
-                                int Skv, int hd, int causal, float scale,
-                                const long long* strides,
+                                int Skv, int hd, int causal, int q_off,
+                                float scale, const long long* strides,
                                 cudaStream_t stream) {
-  if (B < 1 || H < 1 || KV < 1 || H % KV || Sq < 1 || Skv < 1)
+  if (B < 1 || H < 1 || KV < 1 || H % KV || Sq < 1 || Skv < 1 || q_off < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Params prm{static_cast<__nv_bfloat16*>(o), strides[9], strides[10],
                    strides[11], H, H / KV, Sq, Skv, (Sq + kBQ - 1) / kBQ,
-                   causal, scale * 1.4426950408889634f};
+                   causal, q_off, scale * 1.4426950408889634f};
   switch (hd) {
     case 16: return launch<16>(q, k, v, prm, B, KV, strides, stream);
     case 32: return launch<32>(q, k, v, prm, B, KV, strides, stream);

@@ -13,6 +13,12 @@ Each source's header gives its bound on the card and its design. Both are
 counted: ``flash_attention.launches`` in all, and
 ``tensor_core_launches`` / ``cuda_core_launches`` by route.
 
+Both take a query-row offset ``q_off`` for the causal mask: on a mesh whose
+ranks each hold a slice of a sequence's rows, a rank's row r is the
+sequence's row q_off + r. DTensors are refused (their ``data_ptr()`` is 0):
+the model runs the kernel on each rank's shards through ``local_map``
+(``models/layers.py`` ``_local_attention``).
+
 The reference has no backward kernel (no ``custom_vjp``) and its kernel
 cannot be differentiated, so none is written here: on CUDA tensors the
 kernel sits in a ``torch.autograd.Function`` whose backward recomputes the
@@ -27,7 +33,7 @@ import functools
 
 import torch
 
-from .. import _build
+from .. import _build, refuse_dtensors
 from .ref import flash_attention_plain
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -49,13 +55,16 @@ def _kernel_lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     for fn in (lib.flash_attention_bf16_launch,
                lib.flash_attention_f32_launch):
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
                        + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
 
 
-def _check(q, k, v):
+def _check(q, k, v, q_off=0):
+    refuse_dtensors("flash_attention", q, k, v)
+    if not isinstance(q_off, int) or q_off < 0:
+        raise ValueError(f"q_off must be an int >= 0, got {q_off!r}")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"q, k, v must be [B, H, S, d], got {tuple(q.shape)}"
                          f", {tuple(k.shape)}, {tuple(v.shape)}")
@@ -76,7 +85,7 @@ def _check(q, k, v):
         raise ValueError(f"inputs lie on several devices: {devices}")
 
 
-def _check_launch(q, k, v):
+def _check_launch(q, k, v, q_off=0):
     """What only the kernels refuse, raised before any library is built."""
     b, h, sq, d = q.shape
     kv, skv = k.shape[1], k.shape[2]
@@ -101,18 +110,19 @@ def _check_launch(q, k, v):
             raise ValueError(f"{name}'s strides {x.stride()} or shape "
                              f"{tuple(x.shape)} exceed a TMA tensor map's "
                              f"limits (strides below 2^40 bytes)")
-    if max(sq, skv) >= 2 ** 31:
-        raise ValueError(f"sequence lengths {sq}, {skv} exceed int32")
+    if max(q_off + sq, skv) >= 2 ** 31:
+        raise ValueError(f"sequence lengths {q_off} + {sq}, {skv} exceed "
+                         f"int32")
 
 
 def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _launch(q, k, v, causal) -> torch.Tensor:
+def _launch(q, k, v, causal, q_off=0) -> torch.Tensor:
     """One kernel launch, chosen by dtype: bf16 on the tensor cores, f32 on
     CUDA cores."""
-    _check_launch(q, k, v)
+    _check_launch(q, k, v, q_off)
     b, h, sq, d = q.shape
     kv, skv = k.shape[1], k.shape[2]
     lib = _kernel_lib()
@@ -123,7 +133,7 @@ def _launch(q, k, v, causal) -> torch.Tensor:
     fn = (lib.flash_attention_bf16_launch if tensor_cores
           else lib.flash_attention_f32_launch)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
-             kv, sq, skv, d, int(causal), 1.0 / (d ** 0.5), strides,
+             kv, sq, skv, d, int(causal), q_off, 1.0 / (d ** 0.5), strides,
              _stream(q.device))
     if err == -1:
         raise RuntimeError("flash_attention: the CUDA driver has no "
@@ -142,7 +152,7 @@ def _launch(q, k, v, causal) -> torch.Tensor:
     return out
 
 
-def _plain_backward(q, k, v, do, causal):
+def _plain_backward(q, k, v, do, causal, q_off=0):
     """Gradients of the plain version, a few kv heads at a time."""
     b, h, sq, _ = q.shape
     kv, skv = k.shape[1], k.shape[2]
@@ -155,7 +165,8 @@ def _plain_backward(q, k, v, do, causal):
         kc = k[:, j0:j1].detach().requires_grad_()
         vc = v[:, j0:j1].detach().requires_grad_()
         with torch.enable_grad():
-            o = flash_attention_plain(qc, kc, vc, causal=causal)
+            o = flash_attention_plain(qc, kc, vc, causal=causal,
+                                      q_off=q_off)
             gq, gk, gv = torch.autograd.grad(o, (qc, kc, vc),
                                              do[:, j0 * g:j1 * g])
         dq[:, j0 * g:j1 * g] = gq
@@ -166,26 +177,28 @@ def _plain_backward(q, k, v, do, causal):
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal):
-        ctx.causal = causal
+    def forward(ctx, q, k, v, causal, q_off):
+        ctx.args = (causal, q_off)
         ctx.save_for_backward(q, k, v)
-        return _launch(q, k, v, causal)
+        return _launch(q, k, v, causal, q_off)
 
     @staticmethod
     def backward(ctx, do):
         q, k, v = ctx.saved_tensors
-        return (*_plain_backward(q, k, v, do, ctx.causal), None)
+        return (*_plain_backward(q, k, v, do, *ctx.args), None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, q_off: int = 0) -> torch.Tensor:
     """Attention over q [B, H, S, d] with k, v [B, KV, Skv, d].
 
     KV may be H (the reference's contract) or divide it: query head h then
     reads kv head h // (H // KV), the same function as repeating K and V.
-    The causal mask is top left (``row >= col``), as in the Pallas kernel.
-    Inputs may be strided views (the model passes its [B, S, H, d]
-    activations transposed); the output has q's layout.
+    The causal mask is top left (``row >= col``), as in the Pallas kernel,
+    with q's row r at key row ``q_off + r`` (``q_off`` >= 0: q holds rows
+    q_off to q_off + S of a longer sequence). Inputs may be strided views
+    (the model passes its [B, S, H, d] activations transposed); the output
+    has q's layout.
 
     Head dims 16 to 128 in steps of 16 (``HEAD_DIMS``: zamba2's 80
     included), in f32 or bf16, with no padded copy. The tiles are fixed
@@ -194,14 +207,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     CPU tensors take the plain version, with ordinary autograd; CUDA tensors
     launch the kernel (backward through the plain version), and anything the
-    kernel does not take raises.
+    kernel does not take (a DTensor included) raises.
     """
-    _check(q, k, v)
+    _check(q, k, v, q_off)
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal)
+        return flash_attention_plain(q, k, v, causal=causal, q_off=q_off)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
-    return _FlashAttention.apply(q, k, v, causal)
+    return _FlashAttention.apply(q, k, v, causal, q_off)
 
 
 flash_attention.launches = 0

@@ -20,18 +20,21 @@ from .ref import attention_ref
 
 
 def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  causal: bool = True, use_kernel: bool = True
-                  ) -> torch.Tensor:
+                  causal: bool = True, use_kernel: bool = True,
+                  q_off: int = 0) -> torch.Tensor:
     """Grouped-query attention: q [B, Hq, S, d], k/v [B, Hkv, Skv, d].
 
-    With ``use_kernel`` the causal mask is the kernel's (top left), without
-    it ``attention_ref``'s (bottom right), as in the reference; the two
-    agree at Sq == Skv."""
+    With ``use_kernel`` the causal mask is the kernel's (top left, q's row r
+    at key row ``q_off + r``), without it ``attention_ref``'s (bottom
+    right), as in the reference; the two agree at Sq == Skv and q_off 0."""
     hq, hkv = q.shape[1], k.shape[1]
     if hq % hkv:
         raise ValueError(f"q heads {hq} not a multiple of kv heads {hkv}")
     if use_kernel:
-        return flash_attention(q, k, v, causal=causal)
+        return flash_attention(q, k, v, causal=causal, q_off=q_off)
+    if q_off:
+        raise ValueError("attention_ref takes no q_off (its causal mask is "
+                         "bottom right)")
     if hq != hkv:
         rep = hq // hkv
         k = torch.repeat_interleave(k, rep, dim=1)

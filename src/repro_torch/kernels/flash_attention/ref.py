@@ -34,11 +34,14 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool = True) -> torch.Tensor:
+                          *, causal: bool = True, q_off: int = 0
+                          ) -> torch.Tensor:
     """The kernel's function: q [B, H, S, d] against k, v [B, KV, Skv, d].
 
     KV may divide H (query head h reads kv head h // (H // KV)); the group
-    axis is a reshape, so no repeated copy of K and V is made.
+    axis is a reshape, so no repeated copy of K and V is made. q's row r is
+    the keys' row ``q_off + r`` under the causal mask (a slice of a longer
+    sequence's rows).
     """
     b, h, sq, d = q.shape
     kv, skv = k.shape[1], k.shape[2]
@@ -46,10 +49,10 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qg = q.reshape(b, kv, g, sq, d).float()
     s = torch.einsum("bkgqd,bktd->bkgqt", qg, k.float()) * (1.0 / d ** 0.5)
     if causal:
-        rows = torch.arange(sq, device=q.device)[:, None]
+        rows = q_off + torch.arange(sq, device=q.device)[:, None]
         cols = torch.arange(skv, device=q.device)[None, :]
         s = s.masked_fill(rows < cols, NEG_INF)
-    # Under a top-left mask row r always sees key 0, so no row is fully
+    # Under a top-left mask row r (>= 0) always sees key 0, so no row is fully
     # masked while Skv >= 1 (the kernel's `l == 0 -> 1` guard never fires
     # there); with Skv == 0 the sum below is empty and rows give 0, as in
     # the kernel.

@@ -43,6 +43,18 @@
 //     that its launch overlaps the first kernel's tail. An empty chunk
 //     writes m = -inf, l = 0, acc = 0, which the merge weighs 0; a row whose
 //     every partial is empty stays 0 (the l == 0 guard).
+//   * The partial form (a non-null `lse`): the normalised output in f32
+//     (not q's type: a merge of shards' outputs rounded to bf16 each would
+//     round twice) and, beside it, each row's log-sum-exp [B, KV, G] in f32,
+//     written by the kernel that writes the output (the split kernel with
+//     one split, else the combine), in natural log units of the scaled
+//     scores: lse = ln sum_t exp(q.k_t / sqrt(hd)) = (M + log2 L) ln 2 over
+//     the state (M in log2 units, L). A length of 0
+//     (a cache shard wholly past its sequence's frontier) gives output 0
+//     and lse = -inf, which a merge of partial states weighs 0. The caller
+//     combines the states of several cache shards, one a rank, as the
+//     combine kernel combines splits; each shard passes its own frontier,
+//     so the kernel needs no slot offset.
 //
 // Known limits: on CUDA cores a group of more than 4 query heads is taken 4
 // heads a block (16 on the tensor cores), so its cache is read once for
@@ -74,7 +86,8 @@ struct Params {
   const void* k;
   const void* v;
   const int* lengths;
-  void* out;        // [B, KV, G, hd], q's type
+  void* out;        // [B, KV, G, hd], q's type; f32 where lse is given
+  float* lse;       // [B, KV, G] or null: log-sum-exp, natural log units
   float* part_ml;   // [B * KV, n_split, G, 2]: m (log2 units), l
   float* part_acc;  // [B * KV, n_split, G, hd]
   int KV, G, T, hd, bk, n_split, n_hg, stages;
@@ -116,6 +129,21 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
 // -inf too.
 __device__ __forceinline__ float weight(float m, float M) {
   return m == -INFINITY ? 0.f : exp2f(m - M);
+}
+
+// The output's element i: q's type, or f32 in the partial form.
+template <typename T>
+__device__ __forceinline__ void store_out(const Params& p, size_t i, float x) {
+  if (p.lse)
+    store(static_cast<float*>(p.out) + i, x);
+  else
+    store(static_cast<T*>(p.out) + i, x);
+}
+
+// A state's log-sum-exp in natural log units: (M + log2 L) ln 2, M the
+// running max in log2 units and L the sum of 2^(s - M); -inf when empty.
+__device__ __forceinline__ float log_sum_exp(float M, float L) {
+  return L == 0.f ? -INFINITY : (M + log2f(L)) * 0.6931471805599453f;
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -206,7 +234,8 @@ __device__ __forceinline__ void merge_warps(const Params& p, const Span& sp,
     }
     const size_t row = static_cast<size_t>(sp.bh) * p.G + sp.g0 + g;
     if (p.n_split == 1) {
-      store(static_cast<T*>(p.out) + row * hd + d, A / (L == 0.f ? 1.f : L));
+      store_out<T>(p, row * hd + d, A / (L == 0.f ? 1.f : L));
+      if (p.lse && d == 0) p.lse[row] = log_sum_exp(M, L);
     } else {
       const size_t part =
           (static_cast<size_t>(sp.bh) * p.n_split + sp.split) * p.G + sp.g0 +
@@ -750,6 +779,7 @@ __global__ void __launch_bounds__(kCombineThreads)
     y += ml[2 * part(s) + 1] * weight(ml[2 * part(s)], M);
   const float L = block_reduce<false>(y, red);
   const float inv = 1.f / (L == 0.f ? 1.f : L);
+  if (p.lse && threadIdx.x == 0) p.lse[row] = log_sum_exp(M, L);
 
   constexpr int kBatch = 8;  // splits whose loads are in flight together
   for (int d = threadIdx.x; d < p.hd; d += kCombineThreads) {
@@ -765,8 +795,7 @@ __global__ void __launch_bounds__(kCombineThreads)
 #pragma unroll
       for (int i = 0; i < kBatch; ++i) A = fmaf(a[i], w[i], A);
     }
-    store(static_cast<T*>(p.out) + static_cast<size_t>(row) * p.hd + d,
-          A * inv);
+    store_out<T>(p, static_cast<size_t>(row) * p.hd + d, A * inv);
   }
 }
 
@@ -860,7 +889,10 @@ int launch(const Params& p, int BKV, bool tensor_cores, size_t smem,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. q, k, v, out: device pointers of
-// contiguous tensors, 16-byte aligned; hd a multiple of 8 up to 256; bk >= 1;
+// contiguous tensors, 16-byte aligned; lse: null, or B * KV * G floats that
+// take each row's log-sum-exp (natural log; -inf at length 0), and then out
+// is f32 whatever q's type (the partial form); lengths may
+// be 0 or past T (clamped to [0, T]); hd a multiple of 8 up to 256; bk >= 1;
 // 1 <= stages <= 4; n_split >= 1, and with n_split > 1 part_ml and part_acc
 // hold B * KV * n_split * G * 2 and * hd floats. tensor_cores = 1 takes the
 // tensor-core kernel: bf16, hd 16, 32, 64 or 128, bk a multiple of 16.
@@ -873,7 +905,8 @@ extern "C" {
 // success). Does not synchronise and allocates nothing.
 int flash_decode_launch(int dtype, const void* q, const void* k,
                         const void* v, const int* lengths, void* out,
-                        float* part_ml, float* part_acc, int B, int KV, int G,
+                        float* lse, float* part_ml, float* part_acc, int B,
+                        int KV, int G,
                         int T_len, int hd, int bk, int n_split, int stages,
                         int tensor_cores, long long smem, float scale_log2,
                         cudaStream_t stream) {
@@ -885,8 +918,8 @@ int flash_decode_launch(int dtype, const void* q, const void* k,
                         (hd != 16 && hd != 32 && hd != 64 && hd != 128))))
     return static_cast<int>(cudaErrorInvalidValue);
   const int heads = tensor_cores ? kMmaHeads : kGB;
-  const Params p{q,  k,  v,  lengths, out,     part_ml,
-                 part_acc, KV, G, T_len, hd, bk, n_split,
+  const Params p{q,       k,  v, lengths, out,     lse,
+                 part_ml, part_acc, KV, G, T_len, hd, bk, n_split,
                  (G + heads - 1) / heads, stages, scale_log2};
   const size_t bytes = static_cast<size_t>(smem);
   if (dtype == 0) return launch<float>(p, B * KV, false, bytes, stream);

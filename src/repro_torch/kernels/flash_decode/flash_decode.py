@@ -13,8 +13,18 @@ from ``lengths`` (a device tensor: reading it would sync and break CUDA
 graph capture). bf16 calls at head dims 16-128 with tiles of whole 16-row
 units run on the tensor cores (mma.sync), the rest on CUDA cores.
 ``flash_decode.launches`` counts wrapper calls, ``tensor_core_launches`` and
-``cuda_core_launches`` the same calls by route, and ``device_launches`` the
-kernels they launched (two when the call was split).
+``cuda_core_launches`` the same calls by route, ``lse_launches`` the calls in
+the partial form (``return_lse=True``), and ``device_launches`` the kernels
+they launched (two when the call was split).
+
+The partial form returns each row's log-sum-exp beside the output, so that
+the states of several cache shards (one a rank, when the cache's slots are
+sharded over a mesh) combine as the kernel's own combine pass combines its
+splits (``ops.merge_partials``, ``ops.merge_over_ranks``).
+
+DTensors are refused: a wrapper on a DTensor would hand the kernel its null
+``data_ptr()``. The model runs the kernel on each rank's shards through
+``local_map`` (``models/layers.py``).
 """
 
 from __future__ import annotations
@@ -22,13 +32,13 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.device import sm_count
 
-from .. import _build
+from .. import _build, refuse_dtensors
 from .ref import flash_decode_ref
 
 MAX_SMEM_BYTES = 232_448          # opt-in shared memory per block on Hopper
@@ -108,13 +118,14 @@ def plan(b: int, kv: int, g: int, t: int, hd: int, elem_size: int, bk: int,
 def _kernel_lib() -> ctypes.CDLL:
     lib = _build.load("flash_decode")
     lib.flash_decode_launch.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
+        [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
         + [ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p])
     lib.flash_decode_launch.restype = ctypes.c_int
     return lib
 
 
 def _check(q, k_cache, v_cache, lengths, bk):
+    refuse_dtensors("flash_decode", q, k_cache, v_cache, lengths)
     if q.dim() != 4:
         raise ValueError(f"q must be [B, KV, G, hd], got {tuple(q.shape)}")
     b, kv, g, hd = q.shape
@@ -144,45 +155,56 @@ def _check(q, k_cache, v_cache, lengths, bk):
 
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                  v_cache: torch.Tensor, lengths: torch.Tensor, *,
-                 bk: int = 32) -> torch.Tensor:
+                 bk: int = 32, return_lse: bool = False
+                 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """One-token GQA decode attention, cache-layout native.
 
     q:        [B, KV, G, hd]   (new token's query, grouped by kv head)
     k_cache:  [B, KV, T, hd]
     v_cache:  [B, KV, T, hd]
     lengths:  [B]  int32       (per-sequence frontier; slots >= len masked)
-    returns   [B, KV, G, hd]   in q's dtype (float32 or bfloat16)
+    returns   [B, KV, G, hd]   in q's dtype (float32 or bfloat16); with
+              ``return_lse`` (the partial form, whose states over several
+              cache shards ``ops.merge_partials`` combines) the output in
+              f32, so that a merge rounds once, and each row's log-sum-exp
+              [B, KV, G] in f32 (natural log of sum_t exp(q.k_t / sqrt(hd))
+              over the slots below the frontier).
 
     ``bk`` is the number of cache rows a shared-memory tile holds; a block
     keeps up to four tiles of K and V in flight, fewer where shared memory
     is short, and a bk whose single stage does not fit raises.
 
-    A length of 0 is outside the contract: the reference kernel and its plain
-    version disagree there (padded vs unpadded average), and the model always
-    passes lengths >= 1.
+    A length of 0 (a cache shard wholly past the frontier) gives output 0
+    and lse -inf. (The reference kernel and its plain version disagree there,
+    padded vs unpadded average; the model's whole cache always has lengths
+    >= 1.)
 
     CPU tensors go to the plain version; CUDA tensors launch the kernel, and
-    anything it does not take raises.
+    anything it does not take (a DTensor included) raises.
     """
     _check(q, k_cache, v_cache, lengths, bk)
     if q.device.type == "cpu":
-        return flash_decode_ref(q, k_cache, v_cache, lengths)
+        return flash_decode_ref(q, k_cache, v_cache, lengths,
+                                return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode runs on cuda or cpu, not {q.device}")
     b, kv, g, hd = q.shape
     return _launch(q, k_cache, v_cache, lengths, bk,
                    plan(b, kv, g, k_cache.shape[2], hd, q.element_size(), bk,
-                        sm_count(q.device)))
+                        sm_count(q.device)), return_lse)
 
 
-def _launch(q, k_cache, v_cache, lengths, bk: int, p: Plan) -> torch.Tensor:
+def _launch(q, k_cache, v_cache, lengths, bk: int, p: Plan,
+            return_lse: bool = False):
     """The kernels on CUDA tensors that passed ``_check``, split as ``p``
     says (the card's checks pass other plans than ``plan``'s choice)."""
     b, kv, g, hd = q.shape
     if any(x.data_ptr() % 16 for x in (q, k_cache, v_cache)):
         raise ValueError("q, k_cache and v_cache must be 16-byte aligned")
     lib = _kernel_lib()
-    out = torch.empty_like(q)
+    out = torch.empty_like(q, dtype=torch.float32 if return_lse else None)
+    lse = (torch.empty((b, kv, g), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     part_ml = part_acc = None
     if p.n_split > 1:
         part_ml = torch.empty((b * kv, p.n_split, g, 2), dtype=torch.float32,
@@ -192,6 +214,7 @@ def _launch(q, k_cache, v_cache, lengths, bk: int, p: Plan) -> torch.Tensor:
     err = lib.flash_decode_launch(
         _DTYPES[q.dtype], q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         lengths.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(),
         None if part_ml is None else part_ml.data_ptr(),
         None if part_acc is None else part_acc.data_ptr(),
         b, kv, g, k_cache.shape[2], hd, bk, p.n_split, p.stages,
@@ -205,10 +228,14 @@ def _launch(q, k_cache, v_cache, lengths, bk: int, p: Plan) -> torch.Tensor:
         flash_decode.tensor_core_launches += 1
     else:
         flash_decode.cuda_core_launches += 1
-    return out
+    if lse is None:
+        return out
+    flash_decode.lse_launches += 1
+    return out, lse
 
 
 flash_decode.launches = 0
+flash_decode.lse_launches = 0
 flash_decode.device_launches = 0
 flash_decode.tensor_core_launches = 0
 flash_decode.cuda_core_launches = 0

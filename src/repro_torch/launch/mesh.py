@@ -17,6 +17,7 @@ gives a rank its shards' shapes without running a collective.
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional, Tuple, Union
 
 import torch
@@ -69,6 +70,21 @@ def make_smoke_mesh(device: Optional[Union[str, torch.device]] = None
                            f"has {dist.get_world_size()}")
     return init_device_mesh(dev.type, (1, 1),
                             mesh_dim_names=("data", "model"))
+
+
+def start_world(device: Optional[Union[str, torch.device]] = None
+                ) -> torch.device:
+    """Join the world that ``torchrun`` started (its ``RANK``,
+    ``WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT``; one process a card)
+    unless a default group already runs, and return this rank's device:
+    ``cuda:<LOCAL_RANK>`` under nccl, the CPU under gloo (``device="cpu"``)."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(dev)
+    if not dist.is_initialized():
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+    return dev
 
 
 def mesh_shape_for(n: int, model_parallel: int = 16) -> Tuple[int, int]:

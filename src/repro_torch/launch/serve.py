@@ -2,6 +2,17 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
         --batch 4 --prompt-len 128 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --mesh smoke
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+        --mesh auto
+
+``--mesh`` serves on a device mesh as the reference's driver does
+(``src/repro/launch/serve.py``): parameters, batch and cache are DTensors
+laid out by ``serve_shardings`` under ``rules_for(cfg)``, and the kernels
+run on each rank's shards. ``smoke`` is ``make_smoke_mesh()`` (one rank,
+nccl on the card); ``auto`` is ``make_mesh_for()`` over the world that
+``torchrun`` started, one process a card. Rank 0 prints. The default,
+``none``, serves plain tensors on one card.
 
 Any of the ten archs (``--arch``); runs on the card unless ``--device cpu``
 is given; ``--smoke`` uses the reduced config. The model is served as
@@ -17,16 +28,22 @@ the reference driver's stub inputs, ``0.1 * ones`` bf16 ``image_embeds``
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import time
 from typing import Dict, List, Optional
 
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.configs import ARCHS, get_config
-from repro_torch.configs.base import AUDIO_FRAMES, ModelConfig
+from repro_torch.configs.base import AUDIO_FRAMES, ModelConfig, ShapeSpec
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import use_rules
 from repro_torch.launch import steps as S
+from repro_torch.launch.mesh import make_mesh_for, make_smoke_mesh, start_world
 from repro_torch.models import LM
 from repro_torch.models.params import Tree
 from repro_torch.optim.adamw import tree_leaves
@@ -35,8 +52,8 @@ from repro_torch.optim.adamw import tree_leaves
 @dataclasses.dataclass
 class Served:
     model: LM
-    params: Tree
-    cache: Tree
+    params: Tree                  # DTensors on a mesh
+    cache: Tree                   # DTensors on a mesh
     prompts: torch.Tensor         # [B, prompt_len]
     tokens: torch.Tensor          # [B, gen] generated ids
     logits: torch.Tensor          # [gen, B, V] logits that chose each id
@@ -69,14 +86,33 @@ def prefill_batch(model: LM, prompts: torch.Tensor
     return batch
 
 
+def _place(tree: Tree, shardings: Tree) -> Tree:
+    """Replace each leaf of ``tree`` by a DTensor laid out by its ``(mesh,
+    placements)`` in ``shardings``, in place and a leaf at a time, so the
+    plain and the placed copies overlap by one leaf at most. The leaves are
+    inference tensors, as the steps' outputs are."""
+    for key, sh in shardings.items():
+        if isinstance(sh, dict):
+            _place(tree[key], sh)
+        else:
+            with torch.inference_mode():
+                tree[key] = distribute_tensor(tree[key], *sh)
+    return tree
+
+
 def serve(cfg: ModelConfig, *, batch: int, prompt_len: int, gen: int,
-          device=None) -> Served:
+          device=None, mesh: Optional[DeviceMesh] = None) -> Served:
     """Random-init ``cfg`` (seed 0), prefill ``batch`` random prompts (seed
     1), decode ``gen`` tokens greedily. The prefill is run once untimed
     first, and the first decode step is left out of ``decode_s``, so both
     times exclude one-time set-up (the kernel's build at first use
     included). The cache is zeroed before the timed prefill: prefill starts
-    recurrent states from the cache's, as in the reference."""
+    recurrent states from the cache's, as in the reference.
+
+    With ``mesh``, parameters, batch and cache are DTensors laid out by
+    ``serve_shardings`` and the steps run under ``rules_for(cfg)``, as the
+    reference's driver runs them; the tokens and logits come back whole on
+    every rank."""
     dev = resolve_device(device)
     model = LM(cfg.replace(use_flash=True))
     params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
@@ -86,30 +122,54 @@ def serve(cfg: ModelConfig, *, batch: int, prompt_len: int, gen: int,
     prompts = torch.randint(
         0, cfg.vocab_size, (batch, prompt_len), device=dev,
         generator=torch.Generator(device=dev).manual_seed(1))
-
     batch0 = prefill_batch(model, prompts)
-    prefill(params, batch0, cache)
-    for t in tree_leaves(cache):
-        t.zero_()
-    _sync(dev)
-    t0 = time.perf_counter()
-    logits, cache = prefill(params, batch0, cache)
-    _sync(dev)
-    t_prefill = time.perf_counter() - t0
+    rules = contextlib.nullcontext()
+    if mesh is not None:
+        p_sh, pb_sh, _ = S.serve_shardings(
+            model, mesh, ShapeSpec("prefill", prompt_len, batch, "prefill"))
+        _, db_sh, c_sh = S.serve_shardings(
+            model, mesh, ShapeSpec("decode", prompt_len + gen, batch,
+                                   "decode"))
+        params, cache = _place(params, p_sh), _place(cache, c_sh)
+        batch0 = _place(batch0, {k: pb_sh[k] for k in batch0})
+        rules = use_rules(S.rules_for(model.cfg))
 
-    toks = torch.argmax(logits, -1)[:, None]
-    out: List[torch.Tensor] = [toks]
-    out_logits = [logits]
-    t0 = None
-    for i in range(gen - 1):
-        logits, cache = decode(params, {"tokens": toks}, cache, prompt_len + i)
+    def place_tokens(t):
+        if mesh is None:
+            return t
+        with torch.inference_mode():
+            return distribute_tensor(t, *db_sh["tokens"])
+
+    def whole(t):
+        return t.full_tensor() if isinstance(t, DTensor) else t
+
+    with rules:
+        prefill(params, batch0, cache)
+        with torch.inference_mode():
+            for t in tree_leaves(cache):
+                t.zero_()
+        _sync(dev)
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, batch0, cache)
+        logits = whole(logits)
+        _sync(dev)
+        t_prefill = time.perf_counter() - t0
+
         toks = torch.argmax(logits, -1)[:, None]
-        out.append(toks)
-        out_logits.append(logits)
-        if i == 0:         # the first step carries one-time set-up
-            _sync(dev)
-            t0 = time.perf_counter()
-    _sync(dev)
+        out: List[torch.Tensor] = [toks]
+        out_logits = [logits]
+        t0 = None
+        for i in range(gen - 1):
+            logits, cache = decode(params, {"tokens": place_tokens(toks)},
+                                   cache, prompt_len + i)
+            logits = whole(logits)
+            toks = torch.argmax(logits, -1)[:, None]
+            out.append(toks)
+            out_logits.append(logits)
+            if i == 0:         # the first step carries one-time set-up
+                _sync(dev)
+                t0 = time.perf_counter()
+        _sync(dev)
     t_decode = 0.0 if t0 is None else time.perf_counter() - t0
     return Served(model, params, cache, prompts, torch.cat(out, dim=1),
                   torch.stack(out_logits), prompt_len + gen - 1, t_prefill,
@@ -125,16 +185,35 @@ def main(argv: Optional[List[str]] = None) -> Served:
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", choices=("none", "smoke", "auto"),
+                    default="none")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
     b, plen, gen = args.batch, args.prompt_len, args.gen
-    r = serve(cfg, batch=b, prompt_len=plen, gen=gen, device=args.device)
+    device, mesh, started = args.device, None, False
+    if args.mesh != "none":
+        started = not dist.is_initialized()
+        if args.mesh == "smoke":
+            mesh = make_smoke_mesh(device)
+        else:
+            device = start_world(device)
+            mesh = make_mesh_for()
+    try:
+        r = serve(cfg, batch=b, prompt_len=plen, gen=gen, device=device,
+                  mesh=mesh)
+        rank = 0 if mesh is None else mesh.get_rank()
+    finally:
+        if started:
+            dist.destroy_process_group()
+    if rank != 0:
+        return r
 
     gen_toks = b * r.decode_steps
-    print(f"[serve] {cfg.name} ({cfg.family}) on {args.device}: prefill "
+    where = args.device if mesh is None else f"{mesh}"
+    print(f"[serve] {cfg.name} ({cfg.family}) on {where}: prefill "
           f"{b}x{plen} in {r.prefill_s:.3f}s "
           f"({b * plen / max(r.prefill_s, 1e-9):.0f} tok/s)")
     print(f"[serve] decode {gen_toks} tokens ({r.decode_steps} steps after the "

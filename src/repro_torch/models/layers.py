@@ -14,6 +14,13 @@ Attention runs one of five ways:
   through ``gqa_attention`` (``"flash"``, the training path), online softmax over 512-row blocks in
   plain torch (``"blockwise"``) or the full-score einsum (``"einsum"``).
 
+On DTensors both kernels run on each rank's shards through ``local_map``
+(``_local_decode``, ``_local_attention``): a cache sharded on its slots
+takes the kernel's partial form on each rank's slots and merges the partial
+states over the ranks, a cache sharded on its head dim is gathered for the
+call, and a layout the kernel cannot take raises; no branch switches to
+another quietly.
+
 Cross-attention (``memory=``) takes keys and values from the memory and
 ropes neither side. MoE is the reference's capacity-based grouped routing:
 an f32 router, top-k with renormalised gates, a stable sort of the
@@ -44,7 +51,7 @@ from repro_torch.distributed.sharding import (flatten, gather_weight as GW,
                                               linear, replicate_like, shard,
                                               unflatten)
 from repro_torch.kernels.flash_attention import gqa_attention
-from repro_torch.kernels.flash_decode import flash_decode
+from repro_torch.kernels.flash_decode import flash_decode, merge_over_ranks
 from .params import ParamDef
 
 Tree = Dict[str, Any]
@@ -168,6 +175,20 @@ def _local_attention(fn, q, k, v, *, causal: bool) -> torch.Tensor:
                      redistribute_inputs=True)(q, k, v)
 
 
+def _flash_attention(q, k, v, *, causal: bool, q_off: int = 0
+                     ) -> torch.Tensor:
+    """q [B,S,KV,G,hd] x k, v [B,T,KV,hd] through the flash_attention
+    kernel. [B, S, H, hd] seen as [B, H, S, hd] through strides: the kernel
+    reads and writes the model's layout, and its output transposed back is
+    a view. It reads kv head h // G itself, where the reference's
+    gqa_attention repeats K and V first."""
+    b, s, kvh, g, hd = q.shape
+    o = gqa_attention(q.reshape(b, s, kvh * g, hd).transpose(1, 2),
+                      k.transpose(1, 2), v.transpose(1, 2), causal=causal,
+                      q_off=q_off)
+    return o.transpose(1, 2).reshape(b, s, kvh, g, hd)
+
+
 def _einsum_attention(q, k, v, *, causal: bool, q_off: int = 0
                       ) -> torch.Tensor:
     """q [B,S,KV,G,hd] x k, v [B,S,KV,hd] -> [B,S,KV,G,hd] in q's dtype;
@@ -226,11 +247,6 @@ def _blockwise_attention(q, k, v, *, causal: bool, bq: int = 512,
     return torch.cat(blocks, dim=1)[:, :sq].to(q.dtype)
 
 
-def _slot_sharded(c: torch.Tensor) -> bool:
-    return isinstance(c, DTensor) and any(p.is_shard(c.ndim - 2)
-                                          for p in c.placements)
-
-
 def _slot_range(c: DTensor) -> Tuple[int, int]:
     """This rank's first slot of the cache ``c`` [..., T, hd] and its
     count. A slot dim sharded on several mesh dims splits in mesh order,
@@ -249,6 +265,65 @@ def _slot_range(c: DTensor) -> Tuple[int, int]:
         raise RuntimeError(f"cache shard of {c.to_local().shape[dim]} slots "
                            f"where torch.chunk gives {n}: {c.placements}")
     return lo, n
+
+
+def _local_decode(qg: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                  frontier: int) -> torch.Tensor:
+    """``flash_decode`` of one token's q [B, 1, KV, G, hd] against the cache
+    [B, KV, T, hd] below slot ``frontier``; returns [B, 1, KV, G, hd].
+
+    Plain tensors go to the kernel as they are. DTensors run it on each
+    rank's shards through ``local_map``, a mesh dim by the cache's
+    placement:
+
+    * batch (split evenly): q takes the same shard, the call is local;
+    * slots: each rank runs the kernel's partial form on its slots [lo, lo
+      + n), with its own frontier clamp(frontier - lo, 0, n) (0 where the
+      shard lies wholly past it), and the ranks merge their (output,
+      log-sum-exp) states (``merge_over_ranks``: an all-reduce MAX, then a
+      SUM), as the kernel's combine pass merges its splits;
+    * head dim: the kernel cannot contract over part of hd, so K and V are
+      gathered for the call (what an opaque kernel under jit gets);
+    * anything else raises, naming the placements.
+
+    The frontiers are built on the device from the host's ``frontier``:
+    nothing is read back."""
+    if not isinstance(ck, DTensor):
+        lens = torch.full((qg.shape[0],), frontier, dtype=torch.int32,
+                          device=qg.device)
+        return flash_decode(qg[:, 0], ck, cv, lens)[:, None]
+    mesh = ck.device_mesh
+    if tuple(cv.placements) != tuple(ck.placements):
+        raise NotImplementedError(f"flash_decode: K cache {ck.placements} "
+                                  f"and V cache {cv.placements} differ")
+    pq, pc, slot_dims = [], [], []
+    for i, p in enumerate(ck.placements):
+        if p.is_replicate():
+            pq.append(Replicate()), pc.append(p)
+        elif p.is_shard(0) and ck.shape[0] % mesh.size(i) == 0:
+            pq.append(p), pc.append(p)
+        elif p.is_shard(2):
+            pq.append(Replicate()), pc.append(p), slot_dims.append(i)
+        elif p.is_shard(3):
+            pq.append(Replicate()), pc.append(Replicate())
+        else:
+            raise NotImplementedError(
+                f"flash_decode cannot take a cache [B, KV, T, hd] of shape "
+                f"{tuple(ck.shape)} with placements {ck.placements} on "
+                f"{mesh}: it takes batch shards that split evenly, slot "
+                f"shards and head-dim shards (gathered)")
+    lo, n = _slot_range(ck) if slot_dims else (0, ck.shape[2])
+    groups = [mesh.get_group(i) for i in slot_dims]
+
+    def local(q, k, v):
+        lens = (torch.full((q.shape[0],), frontier - lo, dtype=torch.int32,
+                           device=q.device)).clamp_(0, n)
+        if not groups:
+            return flash_decode(q[:, 0], k, v, lens)[:, None]
+        out, lse = flash_decode(q[:, 0], k, v, lens, return_lse=True)
+        return merge_over_ranks(out, lse, groups).to(q.dtype)[:, None]
+    return local_map(local, out_placements=pq, in_placements=(pq, pc, pc),
+                     device_mesh=mesh, redistribute_inputs=True)(qg, ck, cv)
 
 
 def write_slots(c: torch.Tensor, new: torch.Tensor, pos: int) -> None:
@@ -341,17 +416,9 @@ def attention(p: Tree, x: torch.Tensor, cfg, *, positions: torch.Tensor,
         write_slots(ck, k.transpose(1, 2), cache_pos)
         write_slots(cv, v.transpose(1, 2), cache_pos)
     if cache is not None and s == 1 and cfg.use_flash:
-        if _slot_sharded(ck):
-            raise NotImplementedError(
-                "flash_decode reads the whole cache of one rank, but "
-                "decode_cache_shard='seq' shards the cache's slots over the "
-                "ranks: decode that profile with use_flash=False (the einsum "
-                "cache branch)")
         # single-token decode through the flash_decode kernel: streams the
         # cache once, no score traffic to device memory
-        lens = torch.full((b,), cache_pos + 1, dtype=torch.int32,
-                          device=x.device)
-        out = flash_decode(qg[:, 0], ck, cv, lens)[:, None]   # [B,1,KV,G,hd]
+        out = _local_decode(qg, ck, cv, cache_pos + 1)        # [B,1,KV,G,hd]
     elif cache is not None:
         rows = cache_pos + torch.arange(s, device=x.device)[:, None]
         cols = torch.arange(t, device=x.device)[None, :]
@@ -360,13 +427,7 @@ def attention(p: Tree, x: torch.Tensor, cfg, *, positions: torch.Tensor,
             mask = mask & (rows >= cols)
         out = cache_attention(qg, ck, cv, mask)
     elif impl == "flash":
-        # [B, S, H, hd] seen as [B, H, S, hd] through strides: the kernel
-        # reads and writes the model's layout, and its output transposed
-        # back is a view. It reads kv head h // G itself, where the
-        # reference's gqa_attention repeats K and V first.
-        o = gqa_attention(q.transpose(1, 2), k.transpose(1, 2),
-                          v.transpose(1, 2), causal=causal)
-        out = o.transpose(1, 2).reshape(b, s, hkv, g, hd)
+        out = _local_attention(_flash_attention, qg, k, v, causal=causal)
     elif impl == "blockwise":
         out = _local_attention(_blockwise_attention, qg, k, v, causal=causal)
     elif impl == "einsum":

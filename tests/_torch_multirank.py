@@ -16,12 +16,18 @@ Cases (``CASES``):
 * ``serve-<family>-<profile>``: the smoke config at one unit of depth, in
   f32, laid out by ``serve_shardings``: a prefill of 8 tokens into a
   16-slot cache, then 4 decode steps, the logits and the whole cache held
-  to plain tensors;
+  to plain tensors; profiles ``tp`` (the default rules: the cache sharded
+  on its head dim), ``sp`` (sequence parallelism) and ``cache_seq``
+  (``decode_cache_shard="seq"``: the cache sharded on its slots);
 * ``train-<family>-sp``: one train step's loss and every gradient under
   sequence parallelism, laid out by ``train_shardings``;
-* ``flash-dense-cache_seq``: a decode step under ``use_flash`` on a cache
-  sharded on its slots raises, naming the profile (``flash_decode`` reads
-  one rank's cache as the whole).
+* ``flash-<family>-<profile>`` and ``flash-train-dense-sp``: the same under
+  ``use_flash``, held to the same run on plain tensors: every decode step
+  through ``flash_decode`` on each rank's shards (the partial form and a
+  merge over the ranks where the slots are sharded, a gather of the head
+  dim under ``tp``), and the train step's attention through
+  ``flash_attention`` on each rank's rows with their offset (on the CPU
+  both wrappers run their plain versions).
 """
 
 from __future__ import annotations
@@ -38,13 +44,15 @@ from torch.distributed.tensor import (DTensor, Replicate, Shard,
                                       distribute_tensor)
 
 ARCH = {"dense": "llama3-8b", "hybrid": "zamba2-2.7b"}
-PROFILES = {"sp": dict(sequence_parallel=True),
+PROFILES = {"tp": {}, "sp": dict(sequence_parallel=True),
             "cache_seq": dict(decode_cache_shard="seq")}
 CASES = (["write-even", "write-uneven", "write-nested"]
          + [f"serve-{f}-{p}" for f in ARCH for p in PROFILES]
-         + [f"train-{f}-sp" for f in ARCH] + ["flash-dense-cache_seq"])
-#: the card host's phase: the case that the fault broke, at its cheapest
-CHEAPEST = ["write-uneven", "serve-dense-cache_seq"]
+         + [f"train-{f}-sp" for f in ARCH]
+         + [f"flash-{f}-{p}" for f in ARCH for p in PROFILES]
+         + ["flash-train-dense-sp"])
+#: the card host's phase: the cases that the faults broke, at their cheapest
+CHEAPEST = ["write-uneven", "serve-dense-cache_seq", "flash-dense-cache_seq"]
 WORLD, MESH = 4, (2, 2)
 BATCH, PROMPT, SLOTS, STEPS = 2, 8, 16, 4
 RTOL = ATOL = 1e-4
@@ -96,8 +104,10 @@ def _run(case: str, mesh) -> None:
         _write_case(rest[0], mesh)
     elif kind == "serve":
         _serve_case(*rest, mesh)
+    elif kind == "flash" and rest[0] == "train":
+        _train_case(rest[1], mesh, flash=True)
     elif kind == "flash":
-        _flash_case(*rest, mesh)
+        _serve_case(*rest, mesh, flash=True)
     else:
         _train_case(rest[0], mesh)
 
@@ -123,13 +133,13 @@ def _write_case(layout: str, mesh) -> None:
     _close(cache, plain, f"{layout} cache [2, 2, {slots}, 4] {pl}", 0, 0)
 
 
-def _setup(family: str, profile: str):
+def _setup(family: str, profile: str, flash: bool = False):
     from repro_torch.configs import ARCHS
     from repro_torch.launch import dryrun as D
     from repro_torch.models import LM
     from repro_torch.optim.adamw import tree_map
     cfg = D.make_probe_cfg(ARCHS[ARCH[family]].smoke(), 1).replace(
-        attn_impl="auto", **PROFILES[profile])
+        attn_impl="auto", use_flash=flash, **PROFILES[profile])
     model = LM(cfg)
     params = tree_map(lambda t: t.float(),
                       model.init(torch.Generator().manual_seed(0), "cpu"))
@@ -141,12 +151,13 @@ def _place(tree, shardings):
     return tree_map(lambda t, sh: distribute_tensor(t, *sh), tree, shardings)
 
 
-def _serve_case(family: str, profile: str, mesh) -> None:
+def _serve_case(family: str, profile: str, mesh, flash: bool = False
+                ) -> None:
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.distributed import sharding as shd
     from repro_torch.launch import steps as S
     from repro_torch.optim.adamw import tree_leaves, tree_map
-    cfg, model, params = _setup(family, profile)
+    cfg, model, params = _setup(family, profile, flash)
     tokens = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT + STEPS),
                            generator=torch.Generator().manual_seed(1))
     prefill, decode = S.make_prefill_step(model), S.make_decode_step(model)
@@ -179,7 +190,7 @@ def _serve_case(family: str, profile: str, mesh) -> None:
             return {"tokens": distribute_tensor(t, *sh)}
     with shd.use_rules(S.rules_for(cfg)):
         got = run(dparams, dcache, dbatch)
-    what = f"serve {family} under {profile}"
+    what = f"serve {family} under {profile}{' with use_flash' * flash}"
     for i, (a, b) in enumerate(zip(got, want)):
         _close(a, b, f"{what}: logits of step {i}")
     for i, (a, b) in enumerate(zip(tree_leaves(dcache),
@@ -187,13 +198,16 @@ def _serve_case(family: str, profile: str, mesh) -> None:
         _close(a, b, f"{what}: cache leaf {i} {tuple(b.shape)}")
 
 
-def _train_case(family: str, mesh) -> None:
+def _train_case(family: str, mesh, flash: bool = False) -> None:
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.data import SyntheticLMData
     from repro_torch.distributed import sharding as shd
     from repro_torch.launch import steps as S
     from repro_torch.optim.adamw import tree_leaves
-    cfg, model, params = _setup(family, "sp")
+    cfg, model, params = _setup(family, "sp", flash)
+    if flash and model._impl(PROMPT) != "flash":
+        raise AssertionError(f"train {family}: attention {model._impl(PROMPT)}"
+                             f", not the flash branch")
     shape = ShapeSpec("train", PROMPT, BATCH, "train")
     batch = SyntheticLMData(cfg, shape, seed=0, device="cpu").batch(0)
     loss0, g0 = S.loss_and_grads(model, params, batch)
@@ -203,33 +217,10 @@ def _train_case(family: str, mesh) -> None:
     with shd.use_rules(S.rules_for(cfg)):
         loss1, g1 = S.loss_and_grads(model, _place(params, st_sh["params"]),
                                      dbatch)
-    what = f"train {family} under sp"
+    what = f"train {family} under sp{' with use_flash' * flash}"
     _close(loss1, loss0, f"{what}: loss", RTOL, 0)
     for i, (a, b) in enumerate(zip(tree_leaves(g1), tree_leaves(g0))):
         # relative to the gradient's scale: entries near 0 sum in
         # another order on 4 ranks
         _close(a, b, f"{what}: gradient {i} {tuple(b.shape)}", RTOL,
                RTOL * float(b.abs().max()))
-
-
-def _flash_case(family: str, profile: str, mesh) -> None:
-    from repro_torch.configs.base import ShapeSpec
-    from repro_torch.distributed import sharding as shd
-    from repro_torch.launch import steps as S
-    from repro_torch.models import LM
-    cfg, _, params = _setup(family, profile)
-    model = LM(cfg.replace(use_flash=True))
-    p_sh, b_sh, c_sh = S.serve_shardings(
-        model, mesh, ShapeSpec("decode", SLOTS, BATCH, "decode"))
-    with torch.inference_mode():
-        dparams = _place(params, p_sh)
-        cache = _place(model.init_cache(BATCH, SLOTS, "cpu"), c_sh)
-        tokens = distribute_tensor(torch.zeros(BATCH, 1, dtype=torch.long),
-                                   *b_sh["tokens"])
-    try:
-        with shd.use_rules(S.rules_for(cfg)):
-            S.make_decode_step(model)(dparams, {"tokens": tokens}, cache, 0)
-    except NotImplementedError as e:
-        assert "decode_cache_shard='seq'" in str(e), str(e)
-    else:
-        raise AssertionError("flash_decode took a cache sharded on its slots")

@@ -113,15 +113,15 @@ def test_zamba2_trains_at_head_dim_80_through_the_kernel(monkeypatch):
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
 
-    def launch(q, k, v, causal):
+    def launch(q, k, v, causal, q_off=0):
         fa_mod._check_launch(q, k, v)
         fa_mod._check_launch(*(x.bfloat16() for x in (q, k, v)))
         flash_attention.launches += 1
-        return flash_attention_plain(q, k, v, causal=causal)
+        return flash_attention_plain(q, k, v, causal=causal, q_off=q_off)
     monkeypatch.setattr(fa_mod, "_launch", launch)
     monkeypatch.setattr(ops, "flash_attention",
-                        lambda q, k, v, causal=True:
-                        fa_mod._FlashAttention.apply(q, k, v, causal))
+                        lambda q, k, v, causal=True, q_off=0:
+                        fa_mod._FlashAttention.apply(q, k, v, causal, q_off))
     monkeypatch.setattr(flash_attention, "launches", 0)
     ref, port, rparams, params = pair("zamba2-2.7b", "f32", head_dim=80)
     port = LM(port.cfg.replace(use_flash=True))

@@ -198,9 +198,9 @@ def test_gradients_match_jax_grad_of_reference(causal):
 def fake_kernel(monkeypatch):
     """The autograd Function on CPU tensors, its launch replaced by the plain
     version (the CUDA kernel cannot run here) and counted as a launch."""
-    def launch(q, k, v, causal):
+    def launch(q, k, v, causal, q_off=0):
         flash_attention.launches += 1
-        return flash_attention_plain(q, k, v, causal=causal)
+        return flash_attention_plain(q, k, v, causal=causal, q_off=q_off)
     monkeypatch.setattr(FA_MOD, "_launch", launch)
     monkeypatch.setattr(flash_attention, "launches", 0)
     return FA_MOD._FlashAttention.apply
@@ -218,7 +218,7 @@ def test_function_backward_matches_autograd_of_plain(fake_kernel, chunk,
     b = [x.requires_grad_() for x in _t(q, k, v)]
     # the model's layout: [B, S, H, d] storage seen through strides
     a_views = [x.transpose(1, 2).contiguous().transpose(1, 2) for x in a]
-    (fake_kernel(*a_views, True) * w).sum().backward()
+    (fake_kernel(*a_views, True, 0) * w).sum().backward()
     (flash_attention_plain(*b) * w).sum().backward()
     assert flash_attention.launches == 1
     for ga, gb in zip(a, b):

@@ -57,7 +57,7 @@ def test_kernel_path_makes_no_repeated_kv_copy(monkeypatch):
     reads kv head h // G itself); the plain path repeats them."""
     seen = []
     monkeypatch.setattr(OPS, "flash_attention",
-                        lambda q, k, v, causal: seen.append(
+                        lambda q, k, v, causal, q_off=0: seen.append(
                             (k.shape[1], k.data_ptr())) or q)
     q, k, v = torch.zeros(1, 8, 4, 16), torch.ones(1, 2, 4, 16), \
         torch.ones(1, 2, 4, 16)
@@ -72,9 +72,9 @@ def test_model_flash_branch_goes_through_gqa_attention(monkeypatch):
     layers = importlib.import_module("repro_torch.models.layers")
     calls = []
 
-    def spy(q, k, v, causal=True):
+    def spy(q, k, v, causal=True, q_off=0):
         calls.append((tuple(q.shape), tuple(k.shape), q.stride(1) < q.stride(2)))
-        return gqa_attention(q, k, v, causal=causal)
+        return gqa_attention(q, k, v, causal=causal, q_off=q_off)
     monkeypatch.setattr(layers, "gqa_attention", spy)
     cfg = get_config("llama3-8b").smoke().replace(use_flash=True)
     model = LM(cfg)

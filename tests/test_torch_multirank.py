@@ -1,8 +1,9 @@
 """The port's model on a real world of 4 gloo ranks on the CPU (a (2, 2)
-``("data", "model")`` mesh): dense and hybrid serve under sequence
-parallelism and under the sequence-sharded KV cache
+``("data", "model")`` mesh): dense and hybrid serve under the default
+rules, sequence parallelism and the sequence-sharded KV cache
 (``decode_cache_shard="seq"``), and train one step under sequence
-parallelism, each equal to the same run on plain tensors; and a bare
+parallelism, each equal to the same run on plain tensors, also under
+``use_flash`` (the kernels' branches on each rank's shards); and a bare
 DTensor cache written across two ranks' shards. The world is spawned once
 for the module (``tests/_torch_multirank.py`` holds the cases); each case
 is a test of its own."""

@@ -157,15 +157,15 @@ def test_remat_policies():
 def fake_kernel(monkeypatch):
     """Route CPU tensors through the autograd Function, its launch replaced by
     the plain version and counted (the CUDA kernel cannot run here)."""
-    def launch(q, k, v, causal):
+    def launch(q, k, v, causal, q_off=0):
         flash_attention.launches += 1
-        return flash_attention_plain(q, k, v, causal=causal)
+        return flash_attention_plain(q, k, v, causal=causal, q_off=q_off)
     monkeypatch.setattr(FA_MOD, "_launch", launch)
     # the model reaches the kernel through ops.gqa_attention
     ops = importlib.import_module("repro_torch.kernels.flash_attention.ops")
     monkeypatch.setattr(ops, "flash_attention",
-                        lambda q, k, v, causal=True:
-                        FA_MOD._FlashAttention.apply(q, k, v, causal))
+                        lambda q, k, v, causal=True, q_off=0:
+                        FA_MOD._FlashAttention.apply(q, k, v, causal, q_off))
     monkeypatch.setattr(flash_attention, "launches", 0)
 
 
@@ -486,11 +486,11 @@ def test_smoke_cli_trains_head_dim_16_through_flash(fake_kernel, monkeypatch):
     dim 16 and its 128-token sequences take the "flash" branch; every call
     passes the CUDA kernels' launch checks (d = 16 is a head dim they take)
     and is counted, 2 x layers a step under remat="full"."""
-    def launch(q, k, v, causal):
+    def launch(q, k, v, causal, q_off=0):
         FA_MOD._check_launch(q, k, v)
         FA_MOD._check_launch(*(x.bfloat16() for x in (q, k, v)))
         flash_attention.launches += 1
-        return flash_attention_plain(q, k, v, causal=causal)
+        return flash_attention_plain(q, k, v, causal=causal, q_off=q_off)
     monkeypatch.setattr(FA_MOD, "_launch", launch)
     r = T.main(["--smoke", "--steps", "4", "--device", "cpu"])
     cfg = r.model.cfg
