@@ -5,8 +5,8 @@
     python3 chip_smoke.py --phase multi # phases 1, 2, 7e
     python3 chip_smoke.py --phase families  # phases 1, 2, 4b
     python3 chip_smoke.py --phase train # phases 1, 2, 3b, 6 (with the
-                                        # "dots" leg and the mesh), and
-                                        # 4b's zamba2 training
+                                        # "dots" leg and the mesh legs),
+                                        # and 4b's zamba2 training
     python3 chip_smoke.py --phase dryrun    # phases 1, 2, 10 (with 10b)
     python3 chip_smoke.py --phase mesh  # phases 1, 2, 4c's kernels, 4, 4c
 
@@ -98,9 +98,9 @@ lines:
              at full width and depth (4 steps of 2 x 4096 tokens: losses
              finite, the router aux in the loss, launch count, step ms,
              tok/s, model TFLOP/s, peak memory) and zamba2-2.7b the same
-             way (54 layers, head dim 80: 9 shared-block applications a
-             step through the tensor-core kernel; its traced step records
-             the device alone); ``train --arch <a> --smoke --steps 4`` for
+             way but for 2 steps (54 layers, head dim 80: 9 shared-block
+             applications a step through the tensor-core kernel; its traced
+             step records the device alone); ``train --arch <a> --smoke --steps 4`` for
              each of the six.
 5. profile — device time by kernel over two decode steps, the split and
              combine kernels of flash_decode wherever they rank.
@@ -119,7 +119,16 @@ lines:
              recomputed), step ms and peak memory beside "full"'s; and the
              mesh: ``make_smoke_mesh()`` on the card (one rank, nccl) and
              every parameter distributed under ``train_shardings``, each
-             rank's shape and values the global ones.
+             rank's shape and values the global ones. Then, with those
+             states freed, the same training on ``make_smoke_mesh()``
+             through ``train(mesh=)`` (state and batches DTensors laid out
+             by ``train_shardings``, gradients synced to the parameters'
+             placements, the loss replicated): its first loss within 1e-3
+             relative of the plain run's and the others within 2e-2, 2 x
+             layers x steps launches on the tensor cores, step ms and peak
+             memory beside the plain run's; and ``train --smoke --steps 4
+             --mesh smoke --fail-at 2 --ckpt-every 1`` in a temporary
+             directory, which must restore step 2 onto the mesh.
 6b. train smoke — ``python -m repro_torch.launch.train --smoke --steps 4``
              on the card (the smoke config: head dim 16, 4 x 128 tokens).
              Checks finite losses and that every flash_attention launch took
@@ -250,8 +259,11 @@ lines:
 10b. multirank — first in phase 10: the cheapest cases of
              ``tests/test_torch_multirank.py`` (``tests/_torch_multirank.py``
              ``CHEAPEST``: a bare DTensor cache written across two ranks'
-             uneven shards, and llama3's smoke config serving 8 + 4 tokens
-             under ``decode_cache_shard="seq"``) in a world of 4 gloo ranks
+             uneven shards, llama3's smoke config serving 8 + 4 tokens
+             under ``decode_cache_shard="seq"`` (also under ``use_flash``),
+             and a train state checkpointed from the (2, 2) mesh and
+             restored onto it, onto a (1, 4) mesh and into plain tensors)
+             in a world of 4 gloo ranks
              on the host's CPU, a (2, 2) mesh, held to plain tensors under
              this machine's torch and its DTensor; printed with the torch
              version, failing the script on any difference.
@@ -360,6 +372,9 @@ FAMILY_DEPTH = {"llama4-maverick-400b-a17b": 2}
 # trained at full width and depth: granite-moe, and zamba2 (head dim 80; its
 # 2.42 B parameters take ~29 GB at 12 bytes a parameter)
 FAMILY_TRAIN = ("granite-moe-1b-a400m", "zamba2-2.7b")
+# zamba2's host-bound steps take 26-50 s each: 2 steps (one after the
+# first) keep the script inside its time limit
+FAMILY_TRAIN_STEPS = {"zamba2-2.7b": 2}
 
 
 def log(phase: str, msg: str) -> None:
@@ -1374,14 +1389,16 @@ def phase_train(card: str) -> int:
     check_adamw_step(r.model, state["s"], data.batch(TRAIN_STEPS + 1),
                      opt_cfg)
     params = r.state["params"]
-    first_loss, full_peak = r.losses[0], peak
+    first_loss, full_peak, full_losses = r.losses[0], peak, r.losses
     del r, state
     torch.cuda.empty_cache()
     check_train_branches(cfg, params, data.batch(0))
     del params
     torch.cuda.empty_cache()
-    return launches + train_dots(card, cfg, shape, first_loss, step_s,
-                                 full_peak)
+    launches += train_dots(card, cfg, shape, first_loss, step_s, full_peak)
+    torch.cuda.empty_cache()
+    return launches + phase_mesh_train(card, cfg, shape, full_losses,
+                                       step_s, full_peak)
 
 
 def train_dots(card: str, cfg, shape, full_loss: float, full_step_s: float,
@@ -1477,6 +1494,106 @@ def phase_mesh(card: str, model, params) -> None:
             f"{time.perf_counter() - t0:.1f} s on {card}")
     finally:
         dist.destroy_process_group()
+
+
+def phase_mesh_train(card: str, cfg, shape, full_losses: list,
+                     full_step_s: float, full_peak: float) -> int:
+    """Phase 6's training on ``make_smoke_mesh()`` (one rank, nccl) through
+    ``train(mesh=)``: the state and batches DTensors laid out by
+    ``train_shardings``, each gradient synced to its parameter's placements,
+    the loss replicated. The same weights and batches as phase 6's plain
+    run, so its first loss agrees within 1e-3 relative and the others within
+    2e-2; 2 x layers x steps flash_attention launches on the tensor cores;
+    step ms and peak memory beside phase 6's. Then ``train --smoke --mesh
+    smoke`` with checkpoints and a failure injected, in a temporary
+    directory: the loop restores the last checkpoint onto the mesh."""
+    import tempfile
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_smoke_mesh
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = make_smoke_mesh()
+    try:
+        for name in ("launches", "tensor_core_launches",
+                     "cuda_core_launches"):
+            setattr(flash_attention, name, 0)
+        r = train.train(cfg, shape, steps=TRAIN_STEPS, device="cuda",
+                        mesh=mesh, log=lambda m: log("mesh-train", m))
+        got = (flash_attention.launches, flash_attention.tensor_core_launches)
+        leaves = [x for _, x in tree_items(r.state["params"])]
+        on_mesh = all(isinstance(x, DTensor) and x.device_mesh == mesh
+                      for x in leaves)
+        backend = dist.get_backend()
+        r.state = leaves = None
+    finally:
+        dist.destroy_process_group()
+    want = 2 * cfg.num_layers * TRAIN_STEPS
+    if got != (want, want):
+        raise RuntimeError(f"mesh training: flash_attention (calls, tensor "
+                           f"cores) {got}, want {(want, want)}")
+    if not on_mesh or len(r.losses) != TRAIN_STEPS or not all(
+            math.isfinite(x) for x in r.losses):
+        raise RuntimeError(f"mesh training: losses {r.losses}, parameters "
+                           f"on the mesh: {on_mesh}")
+    diffs = [abs(a - b) / abs(b) for a, b in zip(r.losses, full_losses)]
+    if diffs[0] > 1e-3 or max(diffs) > 2e-2:
+        raise RuntimeError(f"mesh training: losses {r.losses} against the "
+                           f"plain run's {full_losses} (relative "
+                           f"{diffs}; bars 1e-3 first, 2e-2 after)")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step_s = sum(r.step_times[1:]) / len(r.step_times[1:])
+    tokens = shape.global_batch * shape.seq_len
+    n = cfg.param_count()
+    log("mesh-train", f"{cfg.name} ({cfg.num_layers} layers) "
+        f"{shape.global_batch} x {shape.seq_len} tokens on {mesh} "
+        f"({backend}): losses "
+        f"{[round(x, 4) for x in r.losses]} against the plain run's "
+        f"{[round(x, 4) for x in full_losses]}, relative differences "
+        f"{[float(f'{d:.3g}') for d in diffs]} (largest {max(diffs):.3g}; "
+        f"bars 1e-3 first, 2e-2 after); flash_attention launches {got[0]} = "
+        f"2 x {cfg.num_layers} layers x {TRAIN_STEPS} steps, all on the "
+        f"tensor cores")
+    log("mesh-train", f"step times (s) {[round(t, 4) for t in r.step_times]}"
+        f"; steps after the first {1e3 * step_s:.1f} ms (plain "
+        f"{1e3 * full_step_s:.1f}, x{step_s / full_step_s:.3f}), "
+        f"{tokens / step_s:.1f} tok/s, model "
+        f"{6 * n * tokens / step_s / 1e12:.1f} TFLOP/s, peak memory "
+        f"{peak:.2f} GiB (plain {full_peak:.2f}), on {card}")
+    launches = got[0]
+    del r
+    torch.cuda.empty_cache()
+
+    for name in ("launches", "tensor_core_launches", "cuda_core_launches"):
+        setattr(flash_attention, name, 0)
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as ckpt:
+        r = train.main(["--smoke", "--steps", "4", "--mesh", "smoke",
+                        "--fail-at", "2", "--ckpt-every", "1",
+                        "--ckpt-dir", ckpt])
+        saved = sorted(os.listdir(ckpt))
+    smoke = r.model.cfg
+    # steps 0 and 1, the failure before step 2, the step-2 checkpoint
+    # restored, steps 2 and 3
+    want = 4 * 2 * smoke.num_layers
+    got = (flash_attention.launches, flash_attention.tensor_core_launches)
+    if r.history != ["failure@2:injected", "restored@2"] or \
+            r.end_step != 4 or got != (want, want) or dist.is_initialized():
+        raise RuntimeError(f"train --smoke --mesh smoke --fail-at 2: history "
+                           f"{r.history}, end step {r.end_step}, "
+                           f"flash_attention {got} (want {want}), group "
+                           f"left {dist.is_initialized()}")
+    log("mesh-train", f"train --smoke --steps 4 --mesh smoke --fail-at 2 "
+        f"--ckpt-every 1: events {r.history}, losses "
+        f"{[round(x, 4) for x in r.losses]}, checkpoints kept {saved}, "
+        f"flash_attention launches {got[0]} (4 steps x 2 x "
+        f"{smoke.num_layers} layers, tensor cores); "
+        f"{time.perf_counter() - t1:.1f} s; phase "
+        f"{time.perf_counter() - t0:.1f} s on {card}")
+    return launches + got[0]
 
 
 def phase_train_smoke(card: str) -> None:
@@ -1847,9 +1964,9 @@ def family_kernel_shapes(dev) -> dict:
 
 def train_family(card: str, arch: str) -> int:
     """``arch`` at full width and depth through ``train.train``: 4 steps of
-    2 x 4096 tokens, every flash_attention launch on the tensor cores, one
-    more step traced; for a MoE, the router aux in the loss checked on one
-    batch."""
+    2 x 4096 tokens (``FAMILY_TRAIN_STEPS``), every flash_attention launch
+    on the tensor cores, one more step traced; for a MoE, the router aux in
+    the loss checked on one batch."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.data import SyntheticLMData
@@ -1859,19 +1976,20 @@ def train_family(card: str, arch: str) -> int:
     from repro_torch.models import LM
 
     cfg = get_config(arch)
+    steps = FAMILY_TRAIN_STEPS.get(arch, TRAIN_STEPS)
     shape = ShapeSpec("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     for name in ("launches", "tensor_core_launches", "cuda_core_launches"):
         setattr(flash_attention, name, 0)
-    r = train.train(cfg, shape, steps=TRAIN_STEPS, device="cuda",
+    r = train.train(cfg, shape, steps=steps, device="cuda",
                     log=lambda m: log("families", m))
     got = (flash_attention.launches, flash_attention.tensor_core_launches)
-    want = TRAIN_STEPS * train_attention_launches(r.model.cfg)
+    want = steps * train_attention_launches(r.model.cfg)
     if got != (want, want):
         raise RuntimeError(f"{arch} train: flash_attention (calls, tensor "
                            f"cores) {got}, want {(want, want)}")
-    if len(r.losses) != TRAIN_STEPS or not all(
+    if len(r.losses) != steps or not all(
             math.isfinite(x) for x in r.losses):
         raise RuntimeError(f"{arch} train losses: {r.losses}")
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1890,7 +2008,7 @@ def train_family(card: str, arch: str) -> int:
         f"{6 * n_act * tokens / step_s / 1e12:.1f} TFLOP/s (6 x active "
         f"params x tokens), peak memory {peak:.2f} GiB, on {card}")
     log("families", f"{arch}: flash_attention {got[0]} calls = "
-        f"{TRAIN_STEPS} steps x {want // TRAIN_STEPS} (remat="
+        f"{steps} steps x {want // steps} (remat="
         f"{cfg.remat!r}), all on the tensor cores")
     if cfg.num_experts:
         batch = data.batch(0)
@@ -1907,12 +2025,12 @@ def train_family(card: str, arch: str) -> int:
         log("families", f"{arch}: the router aux term on step 0's batch "
             f"{term:.6f} (loss {loss:.6f}, without it {base:.6f})")
         del batch
-    opt_cfg = S.make_optimizer_config(cfg, total_steps=TRAIN_STEPS)
+    opt_cfg = S.make_optimizer_config(cfg, total_steps=steps)
     step_fn = S.make_train_step(r.model, opt_cfg)
     state = {"s": r.state}
 
     def one_step():
-        state["s"], _ = step_fn(state["s"], data.batch(TRAIN_STEPS))
+        state["s"], _ = step_fn(state["s"], data.batch(steps))
     # a step of the Mamba2 stack is ~10^5 kernels: trace the device alone
     device_profile("families", f"{arch}: 1 train step", one_step, reps=1,
                    watch="flash_attention",

@@ -1,4 +1,5 @@
-"""Checkpointing: manifest + one ``.npy`` per leaf, atomic publish.
+"""Checkpointing: manifest + one ``.npy`` per leaf, atomic publish,
+reshard-on-restore.
 
 The JAX package's on-disk layout, so either side can read the other's
 checkpoints:
@@ -6,14 +7,23 @@ checkpoints:
     <dir>/step_000123.tmp-<nonce>/   (written, then atomically renamed)
     <dir>/step_000123/
         MANIFEST.json     {step, leaves: [{path, file, shape, dtype}]}
-        <leaf>.npy        one file per leaf; bf16 stored as its uint16 bits
+        <leaf>.npy        one file per leaf at its global shape; bf16 stored
+                          as its uint16 bits
 
 Leaf paths join the tree's keys with ``__`` in the order jax flattens a
 pytree: dict keys sorted, NamedTuple fields in order, None skipped. Restore
 copies each leaf into the matching tensor of ``like``, in place, where the
 reference builds new arrays: the trainer restores into its live state, so a
-second copy of the train state is never held beside it. One device: no
-shardings argument.
+second copy of the train state is never held beside it.
+
+State on a device mesh (DTensor leaves): a save gathers each leaf whole, one
+leaf at a time, on the calling thread of every rank in the same order (the
+gathers are collectives); rank 0 alone writes, and every rank waits for the
+write at a barrier, so ``latest_step`` agrees on every rank. A restore reads
+each rank's own slice of each file into the rank's shard. With
+``shardings`` (a tree of ``(mesh, placements)``) every leaf comes back laid
+out by its sharding, whatever mesh or layout wrote it: the reference's
+elastic reshard. Every rank reads the same directory.
 
 Fault-tolerance contract: a checkpoint directory either exists completely
 (rename is atomic) or not at all; ``latest_step`` never sees partial state.
@@ -32,6 +42,9 @@ from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor
 
 Tree = Any
 
@@ -40,7 +53,8 @@ _SEP = "__"
 
 def _flatten(tree: Tree, prefix: Tuple[str, ...] = ()
              ) -> List[Tuple[str, Any]]:
-    """[(path, leaf)] in jax's flattening order."""
+    """[(path, leaf)] in jax's flattening order (a ``(mesh, placements)``
+    pair is one leaf)."""
     if tree is None:
         return []
     if isinstance(tree, dict):
@@ -83,29 +97,60 @@ def _host(x: torch.Tensor) -> _Host:
     return _Host(arr.view(np.uint16) if dtype == "bfloat16" else arr, dtype)
 
 
-def _host_tree(tree: Tree) -> Tree:
-    return _unflatten(tree, {p: _host(x) for p, x in _flatten(tree)})
+@torch.no_grad()
+def _gather(tree: Tree) -> Tuple[Optional[List[Tuple[str, _Host]]], bool]:
+    """(the leaves on the host, or None on a rank that does not write;
+    whether the tree lies on a mesh).
+
+    A DTensor leaf is gathered whole, a leaf at a time (the whole leaf is
+    dropped before the next gather); every rank takes part in each gather,
+    and rank 0 alone writes."""
+    leaves = _flatten(tree)
+    on_mesh = any(isinstance(x, DTensor) for _, x in leaves)
+    out = [] if not on_mesh or dist.get_rank() == 0 else None
+    for p, x in leaves:
+        if isinstance(x, DTensor):
+            x = x.full_tensor()
+        if out is not None:
+            out.append((p, _host(x)))
+    return out, on_mesh
 
 
-def save_checkpoint(directory: str, step: int, tree: Tree) -> str:
+def _barrier() -> None:
+    if dist.get_backend() == "nccl":
+        dist.barrier(device_ids=[torch.cuda.current_device()])
+    else:
+        dist.barrier()
+
+
+def _write(directory: str, step: int, leaves: List[Tuple[str, _Host]]
+           ) -> None:
     os.makedirs(directory, exist_ok=True)
     final = os.path.join(directory, f"step_{step:08d}")
     tmp = tempfile.mkdtemp(prefix=f"step_{step:08d}.tmp-", dir=directory)
     manifest = {"step": step, "leaves": []}
-    for path, leaf in _flatten(tree):
-        host = leaf if isinstance(leaf, _Host) else _host(leaf)
-        arr, dtype = host.arr, host.dtype
+    for path, host in leaves:
         fname = re.sub(r"[^A-Za-z0-9_.-]", "_", path) + ".npy"
-        np.save(os.path.join(tmp, fname), arr)
+        np.save(os.path.join(tmp, fname), host.arr)
         manifest["leaves"].append({"path": path, "file": fname,
-                                   "shape": list(arr.shape),
-                                   "dtype": dtype})
+                                   "shape": list(host.arr.shape),
+                                   "dtype": host.dtype})
     with open(os.path.join(tmp, "MANIFEST.json"), "w") as f:
         json.dump(manifest, f, indent=1)
     if os.path.exists(final):
         shutil.rmtree(final)
     os.rename(tmp, final)                      # atomic publish
-    return final
+
+
+def save_checkpoint(directory: str, step: int, tree: Tree) -> str:
+    """Write ``tree`` as ``<directory>/step_<step>``; on a mesh every rank
+    calls this, and it returns once rank 0 has written."""
+    leaves, on_mesh = _gather(tree)
+    if leaves is not None:
+        _write(directory, step, leaves)
+    if on_mesh:
+        _barrier()
+    return os.path.join(directory, f"step_{step:08d}")
 
 
 def latest_step(directory: str) -> Optional[int]:
@@ -116,51 +161,120 @@ def latest_step(directory: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
+def _local_slice(shape: Tuple[int, ...], mesh: DeviceMesh, placements
+                 ) -> Tuple[slice, ...]:
+    """This rank's part of a ``shape`` leaf laid out by ``placements``:
+    each ``Shard(d)`` cuts dim ``d`` in ``torch.chunk``'s pieces, mesh dims
+    in order (a dim sharded on two mesh dims is cut by the first, then each
+    piece by the second), as DTensor lays out its shards."""
+    bounds = [[0, n] for n in shape]
+    coord = mesh.get_coordinate()
+    for i, p in enumerate(placements):
+        if p.is_shard():
+            lo, hi = bounds[p.dim]
+            piece = -(-(hi - lo) // mesh.size(i))
+            start = min(lo + coord[i] * piece, hi)
+            bounds[p.dim] = [start, min(start + piece, hi)]
+    return tuple(slice(a, b) for a, b in bounds)
+
+
+def _mesh_device(mesh: DeviceMesh) -> torch.device:
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
 @torch.no_grad()
-def restore_checkpoint(directory: str, step: int, like: Tree) -> Tree:
-    """Copy the checkpoint into ``like``'s tensors, in place (each keeps its
-    dtype and device), and return ``like``."""
+def restore_checkpoint(directory: str, step: int, like: Tree,
+                       shardings: Optional[Tree] = None) -> Tree:
+    """Restore into the structure of ``like`` and return it.
+
+    A plain leaf of ``like`` is filled in place (it keeps its dtype and
+    device); a DTensor leaf gets its own rank's slice of the file in its
+    shard, in place. ``shardings``, a tree of ``(mesh, placements)`` with
+    ``like``'s paths, lays each leaf out anew where its sharding differs
+    from the leaf's (another mesh or layout, a plain or meta leaf): a new
+    DTensor of ``like``'s dtype whose shard is read from the file, and the
+    tree comes back rebuilt around it. Every rank reads the same
+    directory."""
     path = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(path, "MANIFEST.json")) as f:
         manifest = json.load(f)
     by_path = {e["path"]: e for e in manifest["leaves"]}
+    targets = dict(_flatten(shardings))
+    out, rebuilt = {}, False
     for p, leaf in _flatten(like):
         entry = by_path[p]
-        arr = np.load(os.path.join(path, entry["file"]))
+        arr = np.load(os.path.join(path, entry["file"]), mmap_mode="r")
         want = tuple(leaf.shape)
         if tuple(arr.shape) != want:
             raise ValueError(f"{p}: checkpoint shape {arr.shape} != {want}")
         if entry["dtype"] == "bfloat16":
-            t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+            arr = arr.view(np.int16)
+
+        def read(sl):
+            t = torch.from_numpy(np.array(arr[sl]))
+            return t.view(torch.bfloat16) if entry["dtype"] == "bfloat16" \
+                else t
+
+        target = targets.get(p)
+        if target is None and isinstance(leaf, DTensor):
+            target = (leaf.device_mesh, leaf.placements)
+        if target is None:
+            if leaf.is_meta:
+                raise ValueError(f"{p}: a meta leaf needs a sharding")
+            leaf.copy_(read(...))
+            out[p] = leaf
+        elif isinstance(leaf, DTensor) and leaf.device_mesh == target[0] \
+                and tuple(leaf.placements) == tuple(target[1]):
+            leaf.to_local().copy_(read(_local_slice(want, *target)))
+            out[p] = leaf
         else:
-            t = torch.from_numpy(arr)
-        leaf.copy_(t)
-    return like
+            mesh, placements = target
+            local = read(_local_slice(want, mesh, placements)).to(
+                _mesh_device(mesh), leaf.dtype)
+            out[p] = DTensor.from_local(
+                local, mesh, placements, run_check=False,
+                shape=torch.Size(want),
+                stride=torch.empty(want, device="meta").stride())
+            rebuilt = True
+        del arr
+    return _unflatten(like, out) if rebuilt else like
 
 
 class CheckpointManager:
     """Keeps the last ``keep`` checkpoints; optional async (background-thread)
     saves so the training loop overlaps I/O with the next step. The state is
     copied to the host before ``save`` returns, so the loop may go on
-    updating it in place."""
+    updating it in place. On a mesh the gathers run in ``save``, on the
+    calling thread; the thread only writes, on rank 0, and every rank waits
+    for it at a barrier in ``wait`` (and so in the next ``save`` and in
+    ``restore_latest``)."""
 
     def __init__(self, directory: str, keep: int = 3, async_save: bool = True):
         self.directory = directory
         self.keep = keep
         self.async_save = async_save
         self._thread: Optional[threading.Thread] = None
+        self._on_mesh = False
 
     def wait(self):
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._on_mesh:
+            self._on_mesh = False
+            _barrier()
 
     def save(self, step: int, tree: Tree):
-        tree = _host_tree(tree)
+        leaves, on_mesh = _gather(tree)
         self.wait()
+        self._on_mesh = on_mesh
+        if leaves is None:
+            return
 
         def run():
-            save_checkpoint(self.directory, step, tree)
+            _write(self.directory, step, leaves)
             self._gc()
 
         if self.async_save:
@@ -176,9 +290,10 @@ class CheckpointManager:
             shutil.rmtree(os.path.join(self.directory, f"step_{s:08d}"),
                           ignore_errors=True)
 
-    def restore_latest(self, like: Tree) -> Tuple[Optional[int], Optional[Tree]]:
+    def restore_latest(self, like: Tree, shardings: Optional[Tree] = None
+                       ) -> Tuple[Optional[int], Optional[Tree]]:
         self.wait()
         step = latest_step(self.directory)
         if step is None:
             return None, None
-        return step, restore_checkpoint(self.directory, step, like)
+        return step, restore_checkpoint(self.directory, step, like, shardings)

@@ -68,7 +68,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import DTensor, distribute_tensor
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
@@ -409,14 +409,6 @@ def _ranks(multi_pod: bool) -> int:
 # cell construction
 
 
-def _place(shapes: Any, shardings: Any) -> Any:
-    """``distribute_tensor`` of each meta leaf by its ``(mesh, placements)``
-    (meta in, meta local shards out: nothing is allocated)."""
-    return shd.tree_map(lambda t, sh: distribute_tensor(t, *sh), shapes,
-                        shardings, is_leaf=lambda x: isinstance(
-                            x, torch.Tensor))
-
-
 def build_cell(cfg: ModelConfig, shape: ShapeSpec, multi_pod: bool,
                mesh: Optional[DeviceMesh] = None,
                arrays: Optional[Tuple[Any, ...]] = None):
@@ -440,7 +432,7 @@ def build_cell(cfg: ModelConfig, shape: ShapeSpec, multi_pod: bool,
         fn = S.make_train_step(model, opt_cfg, grad_specs=st_sh["params"])
         trees = arrays or (S.train_state_shapes(model, opt_cfg),
                            batch_specs(cfg, shape))
-        args = (_place(trees[0], st_sh), _place(trees[1], b_sh))
+        args = (S.place_tree(trees[0], st_sh), S.place_tree(trees[1], b_sh))
         donated = 0
     else:
         p_sh, b_sh, c_sh = S.serve_shardings(model, mesh, shape)
@@ -449,8 +441,8 @@ def build_cell(cfg: ModelConfig, shape: ShapeSpec, multi_pod: bool,
         # the serve steps run under inference_mode, whose views of a
         # DTensor made outside it cannot be taken
         with torch.inference_mode():
-            args = (_place(trees[0], p_sh), _place(trees[1], b_sh),
-                    _place(trees[2], c_sh))
+            args = tuple(S.place_tree(t, sh)
+                         for t, sh in zip(trees, (p_sh, b_sh, c_sh)))
         if shape.kind == "prefill":
             fn = S.make_prefill_step(model)
         else:

@@ -12,6 +12,7 @@ parallelism. A ``DeviceMesh`` spans the whole default process group, so the
 world must have exactly the mesh's ranks: on one machine that is the
 ``"fake"`` backend (``torch.testing._internal.distributed.fake_pg``), which
 gives a rank its shards' shapes without running a collective.
+``mesh_for_flag`` is the entry points' ``--mesh`` choice.
 """
 
 from __future__ import annotations
@@ -102,3 +103,28 @@ def make_mesh_for(devices: Optional[int] = None, model_parallel: int = 16
     the whole world), used by the elastic-rescale path."""
     n = devices or (dist.get_world_size() if dist.is_initialized() else 1)
     return _mesh(mesh_shape_for(n, model_parallel), ("data", "model"))
+
+
+MESH_FLAGS = ("none", "smoke", "auto", "production")
+
+
+def mesh_for_flag(flag: str, device: Optional[Union[str, torch.device]] = None,
+                  *, multi_pod: bool = False
+                  ) -> Tuple[Optional[Union[str, torch.device]],
+                             Optional[DeviceMesh]]:
+    """(this rank's device, the mesh) for the entry points' ``--mesh``:
+    ``none`` no mesh; ``smoke`` ``make_smoke_mesh(device)``; ``auto``
+    ``make_mesh_for()`` and ``production`` ``make_production_mesh(
+    multi_pod=)`` over the world that ``start_world`` joins (the latter
+    raises, naming the ranks it needs, in a world of another size). The
+    caller destroys a process group started here."""
+    if flag not in MESH_FLAGS:
+        raise ValueError(f"--mesh {flag!r}: one of {MESH_FLAGS}")
+    if flag == "none":
+        return device, None
+    if flag == "smoke":
+        return device, make_smoke_mesh(device)
+    device = start_world(device)
+    if flag == "auto":
+        return device, make_mesh_for()
+    return device, make_production_mesh(multi_pod=multi_pod)

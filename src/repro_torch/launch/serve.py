@@ -43,7 +43,7 @@ from repro_torch.configs.base import AUDIO_FRAMES, ModelConfig, ShapeSpec
 from repro_torch.device import resolve_device
 from repro_torch.distributed.sharding import use_rules
 from repro_torch.launch import steps as S
-from repro_torch.launch.mesh import make_mesh_for, make_smoke_mesh, start_world
+from repro_torch.launch.mesh import mesh_for_flag
 from repro_torch.models import LM
 from repro_torch.models.params import Tree
 from repro_torch.optim.adamw import tree_leaves
@@ -86,20 +86,6 @@ def prefill_batch(model: LM, prompts: torch.Tensor
     return batch
 
 
-def _place(tree: Tree, shardings: Tree) -> Tree:
-    """Replace each leaf of ``tree`` by a DTensor laid out by its ``(mesh,
-    placements)`` in ``shardings``, in place and a leaf at a time, so the
-    plain and the placed copies overlap by one leaf at most. The leaves are
-    inference tensors, as the steps' outputs are."""
-    for key, sh in shardings.items():
-        if isinstance(sh, dict):
-            _place(tree[key], sh)
-        else:
-            with torch.inference_mode():
-                tree[key] = distribute_tensor(tree[key], *sh)
-    return tree
-
-
 def serve(cfg: ModelConfig, *, batch: int, prompt_len: int, gen: int,
           device=None, mesh: Optional[DeviceMesh] = None) -> Served:
     """Random-init ``cfg`` (seed 0), prefill ``batch`` random prompts (seed
@@ -130,8 +116,10 @@ def serve(cfg: ModelConfig, *, batch: int, prompt_len: int, gen: int,
         _, db_sh, c_sh = S.serve_shardings(
             model, mesh, ShapeSpec("decode", prompt_len + gen, batch,
                                    "decode"))
-        params, cache = _place(params, p_sh), _place(cache, c_sh)
-        batch0 = _place(batch0, {k: pb_sh[k] for k in batch0})
+        with torch.inference_mode():
+            params = S.place_tree(params, p_sh)
+            cache = S.place_tree(cache, c_sh)
+            batch0 = S.place_tree(batch0, pb_sh)
         rules = use_rules(S.rules_for(model.cfg))
 
     def place_tokens(t):
@@ -193,20 +181,14 @@ def main(argv: Optional[List[str]] = None) -> Served:
     if args.smoke:
         cfg = cfg.smoke()
     b, plen, gen = args.batch, args.prompt_len, args.gen
-    device, mesh, started = args.device, None, False
-    if args.mesh != "none":
-        started = not dist.is_initialized()
-        if args.mesh == "smoke":
-            mesh = make_smoke_mesh(device)
-        else:
-            device = start_world(device)
-            mesh = make_mesh_for()
+    started = args.mesh != "none" and not dist.is_initialized()
     try:
+        device, mesh = mesh_for_flag(args.mesh, args.device)
         r = serve(cfg, batch=b, prompt_len=plen, gen=gen, device=device,
                   mesh=mesh)
         rank = 0 if mesh is None else mesh.get_rank()
     finally:
-        if started:
+        if started and dist.is_initialized():
             dist.destroy_process_group()
     if rank != 0:
         return r

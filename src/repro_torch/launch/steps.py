@@ -4,7 +4,7 @@ The steps run eagerly (the reference's jit has no counterpart here). The
 sharding trees are the reference's, over a ``DeviceMesh``: ``rules_for``
 picks a config's rules, and ``train_shardings`` / ``serve_shardings`` give
 ``(mesh, placements)`` for every leaf of the state, the batch and the cache,
-what ``distribute_tensor`` takes.
+what ``distribute_tensor`` takes; ``place_tree`` lays a tree out by them.
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.data.pipeline import batch_logical_axes, batch_specs
@@ -158,6 +158,27 @@ def train_shardings(model: LM, opt_cfg: AdamWConfig, mesh: DeviceMesh,
                                      rules=rules_for(cfg))
     return (shd.named_shardings(mesh, st_specs),
             shd.named_shardings(mesh, b_specs))
+
+
+def place_tree(tree: Tree, shardings: Tree) -> Tree:
+    """Lay out each leaf of ``tree`` as a DTensor by its ``(mesh,
+    placements)`` in ``shardings`` (a tree of ``train_shardings`` or
+    ``serve_shardings``: dicts, the optimizer's ``AdamWState``, ``None``
+    where there is no subtree), a leaf at a time. A dict's entries are
+    replaced in place, so the plain and the placed copies overlap by one
+    leaf at most; a NamedTuple comes back anew around its placed subtrees.
+    Under ``torch.inference_mode()`` the leaves are inference tensors, as
+    the serve steps' outputs are."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        for k in tree:
+            tree[k] = place_tree(tree[k], shardings[k])
+        return tree
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(place_tree(t, sh)
+                            for t, sh in zip(tree, shardings)))
+    return distribute_tensor(tree, *shardings)
 
 
 def init_train_state(model: LM, opt_cfg: AdamWConfig,

@@ -27,7 +27,18 @@ Cases (``CASES``):
   merge over the ranks where the slots are sharded, a gather of the head
   dim under ``tp``), and the train step's attention through
   ``flash_attention`` on each rank's rows with their offset (on the CPU
-  both wrappers run their plain versions).
+  both wrappers run their plain versions);
+* ``train-driver``: ``launch.train.train(mesh=)`` for 3 steps in f32 (the
+  default rules, every layer's attention through ``flash_attention``),
+  its losses and final parameters held to the plain one-process run;
+* ``ckpt-reshard``: a train state saved from the (2, 2) mesh through
+  ``CheckpointManager``, restored in place on (2, 2), onto a (1, 4) mesh
+  (its layout from ``train_shardings`` there) and into plain tensors, each
+  equal to the saved whole values;
+* ``train-fault``: the driver on the mesh with checkpoints every 2 steps
+  and a failure injected at step 3: it restores step 2, and its losses
+  after the restore and its final state equal the clean mesh run's (the
+  reference's faulty == clean bar).
 """
 
 from __future__ import annotations
@@ -50,9 +61,11 @@ CASES = (["write-even", "write-uneven", "write-nested"]
          + [f"serve-{f}-{p}" for f in ARCH for p in PROFILES]
          + [f"train-{f}-sp" for f in ARCH]
          + [f"flash-{f}-{p}" for f in ARCH for p in PROFILES]
-         + ["flash-train-dense-sp"])
+         + ["flash-train-dense-sp", "train-driver", "ckpt-reshard",
+            "train-fault"])
 #: the card host's phase: the cases that the faults broke, at their cheapest
-CHEAPEST = ["write-uneven", "serve-dense-cache_seq", "flash-dense-cache_seq"]
+CHEAPEST = ["write-uneven", "serve-dense-cache_seq", "flash-dense-cache_seq",
+            "ckpt-reshard"]
 WORLD, MESH = 4, (2, 2)
 BATCH, PROMPT, SLOTS, STEPS = 2, 8, 16, 4
 RTOL = ATOL = 1e-4
@@ -82,7 +95,7 @@ def _rank(rank: int, cases, out_path: str, store_path: str) -> None:
         out = {"torch": torch.__version__}
         for case in cases:
             try:
-                _run(case, mesh)
+                _run(case, mesh, os.path.dirname(out_path))
                 out[case] = None
             except AssertionError as e:
                 out[case] = str(e)
@@ -98,9 +111,15 @@ def _rank(rank: int, cases, out_path: str, store_path: str) -> None:
         dist.destroy_process_group()
 
 
-def _run(case: str, mesh) -> None:
+def _run(case: str, mesh, work: str) -> None:
     kind, *rest = case.split("-")
-    if kind == "write":
+    if case == "train-driver":
+        _driver_case(mesh)
+    elif case == "ckpt-reshard":
+        _reshard_case(mesh, os.path.join(work, case))
+    elif case == "train-fault":
+        _fault_case(mesh, os.path.join(work, case))
+    elif kind == "write":
         _write_case(rest[0], mesh)
     elif kind == "serve":
         _serve_case(*rest, mesh)
@@ -146,11 +165,6 @@ def _setup(family: str, profile: str, flash: bool = False):
     return cfg, model, params
 
 
-def _place(tree, shardings):
-    from repro_torch.optim.adamw import tree_map
-    return tree_map(lambda t, sh: distribute_tensor(t, *sh), tree, shardings)
-
-
 def _serve_case(family: str, profile: str, mesh, flash: bool = False
                 ) -> None:
     from repro_torch.configs.base import ShapeSpec
@@ -180,8 +194,8 @@ def _serve_case(family: str, profile: str, mesh, flash: bool = False
     _, db_sh, c_sh = S.serve_shardings(
         model, mesh, ShapeSpec("decode", SLOTS, BATCH, "decode"))
     with torch.inference_mode():
-        dparams = _place(params, p_sh)
-        dcache = _place(tree_map(lambda t: t.float(), model.init_cache(
+        dparams = S.place_tree(params, p_sh)
+        dcache = S.place_tree(tree_map(lambda t: t.float(), model.init_cache(
             BATCH, SLOTS, "cpu")), c_sh)
 
     def dbatch(t, kind):
@@ -215,8 +229,8 @@ def _train_case(family: str, mesh, flash: bool = False) -> None:
                                     mesh, shape)
     dbatch = {k: distribute_tensor(v, *b_sh[k]) for k, v in batch.items()}
     with shd.use_rules(S.rules_for(cfg)):
-        loss1, g1 = S.loss_and_grads(model, _place(params, st_sh["params"]),
-                                     dbatch)
+        loss1, g1 = S.loss_and_grads(
+            model, S.place_tree(params, st_sh["params"]), dbatch)
     what = f"train {family} under sp{' with use_flash' * flash}"
     _close(loss1, loss0, f"{what}: loss", RTOL, 0)
     for i, (a, b) in enumerate(zip(tree_leaves(g1), tree_leaves(g0))):
@@ -224,3 +238,130 @@ def _train_case(family: str, mesh, flash: bool = False) -> None:
         # another order on 4 ranks
         _close(a, b, f"{what}: gradient {i} {tuple(b.shape)}", RTOL,
                RTOL * float(b.abs().max()))
+
+
+TRAIN_SHAPE = ("train", PROMPT, BATCH, "train")
+
+
+def _f32_train_state(init):
+    """``steps.init_train_state`` with f32 parameters: on 4 ranks the bf16
+    partial sums of a sharded product round apart from one rank's sums by
+    more than ``RTOL``."""
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.adamw import tree_map
+
+    def f32(model, opt_cfg, generator, device=None):
+        params = tree_map(lambda t: t.float(),
+                          init(model, opt_cfg, generator, device)["params"])
+        return {"params": params, "opt": adamw_init(params, opt_cfg)}
+    return f32
+
+
+def _driver(**kw):
+    """``train`` of llama3's smoke config at one unit of depth, in f32, for
+    ``kw["steps"]`` steps of BATCH x PROMPT tokens."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import steps as S
+    from repro_torch.launch import train as T
+    cfg = D.make_probe_cfg(ARCHS["llama3-8b"].smoke(), 1).replace(
+        attn_impl="auto")
+    init = S.init_train_state
+    S.init_train_state = _f32_train_state(init)
+    try:
+        r = T.train(cfg, ShapeSpec(*TRAIN_SHAPE), device="cpu",
+                    log=lambda m: None, **kw)
+    finally:
+        S.init_train_state = init
+    if r.model._impl(PROMPT) != "flash":
+        raise AssertionError(f"train: attention {r.model._impl(PROMPT)}, "
+                             f"not the flash branch")
+    return r
+
+
+def _close_states(got, want, what: str) -> None:
+    from repro_torch.checkpoint.ckpt import _flatten
+    g, w = _flatten(got), _flatten(want)
+    if [p for p, _ in g] != [p for p, _ in w]:
+        raise AssertionError(f"{what}: leaves {[p for p, _ in g]}")
+    for (p, a), (_, b) in zip(g, w):
+        b = b.full_tensor() if isinstance(b, DTensor) else b
+        _close(a, b, f"{what}: {p}", RTOL, RTOL * float(b.abs().max()))
+
+
+def _driver_case(mesh) -> None:
+    got = _driver(steps=3, mesh=mesh)
+    want = _driver(steps=3)
+    _close(torch.tensor(got.losses), torch.tensor(want.losses),
+           "train(mesh=): losses", RTOL, 0)
+    _close_states(got.state["params"], want.state["params"],
+                  "train(mesh=): final parameters")
+
+
+def _fault_case(mesh, work: str) -> None:
+    clean = _driver(steps=5, mesh=mesh, ckpt_dir=os.path.join(work, "clean"),
+                    ckpt_every=2)
+    faulty = _driver(steps=5, mesh=mesh, ckpt_every=2, fail_at=[3],
+                     ckpt_dir=os.path.join(work, "faulty"))
+    if faulty.history != ["failure@3:injected", "restored@2"] or \
+            faulty.end_step != 5 or len(faulty.losses) != 6:
+        raise AssertionError(f"train with a failure at step 3: history "
+                             f"{faulty.history}, end step {faulty.end_step},"
+                             f" {len(faulty.losses)} losses")
+    # steps 0-2, then 2-4 again from the step-2 checkpoint
+    _close(torch.tensor(faulty.losses),
+           torch.tensor(clean.losses[:3] + clean.losses[2:]),
+           "faulty against clean: losses", RTOL, 0)
+    _close_states(faulty.state, clean.state, "faulty against clean")
+
+
+def _reshard_case(mesh, work: str) -> None:
+    from repro_torch.checkpoint import CheckpointManager, restore_checkpoint
+    from repro_torch.checkpoint.ckpt import _flatten
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import steps as S
+    from repro_torch.models import LM
+    cfg = ARCHS["llama3-8b"].smoke().replace(grad_compress=True)
+    model, shape = LM(cfg), ShapeSpec(*TRAIN_SHAPE)
+    opt = S.make_optimizer_config(cfg, total_steps=4)
+
+    def state(seed):
+        st = S.init_train_state(model, opt, torch.Generator().manual_seed(
+            seed), "cpu")
+        for i, (_, x) in enumerate(_flatten(st["opt"])):
+            x.add_(i)                 # moments and error feedback not 0
+        return st
+    whole = state(0)
+    saved = state(0)
+    st_sh, _ = S.train_shardings(model, opt, mesh, shape)
+    mgr = CheckpointManager(work, keep=1)
+    mgr.save(2, S.place_tree(saved, st_sh))
+    mgr.wait()
+
+    def check(got, what, sh=None):
+        for p, x in _flatten(got):
+            if sh is not None and (not isinstance(x, DTensor) or tuple(
+                    x.placements) != tuple(sh[p][1])):
+                raise AssertionError(f"{what}: {p} laid out "
+                                     f"{getattr(x, 'placements', 'plain')}")
+        _close_states(got, whole, what)
+
+    like = S.place_tree(state(1), st_sh)
+    step, got = mgr.restore_latest(like)
+    if step != 2 or got is not like:
+        raise AssertionError(f"restore in place: step {step}")
+    check(got, "(2, 2) -> (2, 2) in place", dict(_flatten(st_sh)))
+    mesh14 = init_device_mesh("cpu", (1, 4), mesh_dim_names=("data", "model"))
+    sh14, _ = S.train_shardings(model, opt, mesh14, shape)
+    if not any(p.is_shard() and m.size(i) > 1 for m, pl in
+               dict(_flatten(sh14)).values() for i, p in enumerate(pl)):
+        raise AssertionError("the (1, 4) layout shards nothing")
+    check(restore_checkpoint(work, 2, S.train_state_shapes(model, opt),
+                             shardings=sh14),
+          "(2, 2) -> (1, 4)", dict(_flatten(sh14)))
+    plain = restore_checkpoint(work, 2, state(1))
+    if any(isinstance(x, DTensor) for _, x in _flatten(plain)):
+        raise AssertionError("(2, 2) -> plain tensors: a DTensor came back")
+    check(plain, "(2, 2) -> plain tensors")

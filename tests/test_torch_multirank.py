@@ -3,8 +3,11 @@
 rules, sequence parallelism and the sequence-sharded KV cache
 (``decode_cache_shard="seq"``), and train one step under sequence
 parallelism, each equal to the same run on plain tensors, also under
-``use_flash`` (the kernels' branches on each rank's shards); and a bare
-DTensor cache written across two ranks' shards. The world is spawned once
+``use_flash`` (the kernels' branches on each rank's shards); a bare
+DTensor cache written across two ranks' shards; and the train driver on the
+mesh: its losses and final parameters against the plain run, a checkpoint
+of mesh state restored onto another mesh and into plain tensors, and a run
+with an injected failure against the clean run. The world is spawned once
 for the module (``tests/_torch_multirank.py`` holds the cases); each case
 is a test of its own."""
 
