@@ -98,9 +98,9 @@ lines:
              at full width and depth (4 steps of 2 x 4096 tokens: losses
              finite, the router aux in the loss, launch count, step ms,
              tok/s, model TFLOP/s, peak memory) and zamba2-2.7b the same
-             way but for 2 steps (54 layers, head dim 80: 9 shared-block
-             applications a step through the tensor-core kernel; its traced
-             step records the device alone); ``train --arch <a> --smoke --steps 4`` for
+             way (54 layers, head dim 80: 9 shared-block applications a
+             step through the tensor-core kernel; its traced step records
+             the device alone); ``train --arch <a> --smoke --steps 4`` for
              each of the six.
 5. profile — device time by kernel over two decode steps, the split and
              combine kernels of flash_decode wherever they rank.
@@ -279,6 +279,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -372,9 +373,6 @@ FAMILY_DEPTH = {"llama4-maverick-400b-a17b": 2}
 # trained at full width and depth: granite-moe, and zamba2 (head dim 80; its
 # 2.42 B parameters take ~29 GB at 12 bytes a parameter)
 FAMILY_TRAIN = ("granite-moe-1b-a400m", "zamba2-2.7b")
-# zamba2's host-bound steps take 26-50 s each: 2 steps (one after the
-# first) keep the script inside its time limit
-FAMILY_TRAIN_STEPS = {"zamba2-2.7b": 2}
 
 
 def log(phase: str, msg: str) -> None:
@@ -1964,9 +1962,9 @@ def family_kernel_shapes(dev) -> dict:
 
 def train_family(card: str, arch: str) -> int:
     """``arch`` at full width and depth through ``train.train``: 4 steps of
-    2 x 4096 tokens (``FAMILY_TRAIN_STEPS``), every flash_attention launch
-    on the tensor cores, one more step traced; for a MoE, the router aux in
-    the loss checked on one batch."""
+    2 x 4096 tokens, every flash_attention launch on the tensor cores, one
+    more step traced; for a MoE, the router aux in the loss checked on one
+    batch."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.data import SyntheticLMData
@@ -1976,20 +1974,19 @@ def train_family(card: str, arch: str) -> int:
     from repro_torch.models import LM
 
     cfg = get_config(arch)
-    steps = FAMILY_TRAIN_STEPS.get(arch, TRAIN_STEPS)
     shape = ShapeSpec("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     for name in ("launches", "tensor_core_launches", "cuda_core_launches"):
         setattr(flash_attention, name, 0)
-    r = train.train(cfg, shape, steps=steps, device="cuda",
+    r = train.train(cfg, shape, steps=TRAIN_STEPS, device="cuda",
                     log=lambda m: log("families", m))
     got = (flash_attention.launches, flash_attention.tensor_core_launches)
-    want = steps * train_attention_launches(r.model.cfg)
+    want = TRAIN_STEPS * train_attention_launches(r.model.cfg)
     if got != (want, want):
         raise RuntimeError(f"{arch} train: flash_attention (calls, tensor "
                            f"cores) {got}, want {(want, want)}")
-    if len(r.losses) != steps or not all(
+    if len(r.losses) != TRAIN_STEPS or not all(
             math.isfinite(x) for x in r.losses):
         raise RuntimeError(f"{arch} train losses: {r.losses}")
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -2008,7 +2005,7 @@ def train_family(card: str, arch: str) -> int:
         f"{6 * n_act * tokens / step_s / 1e12:.1f} TFLOP/s (6 x active "
         f"params x tokens), peak memory {peak:.2f} GiB, on {card}")
     log("families", f"{arch}: flash_attention {got[0]} calls = "
-        f"{steps} steps x {want // steps} (remat="
+        f"{TRAIN_STEPS} steps x {want // TRAIN_STEPS} (remat="
         f"{cfg.remat!r}), all on the tensor cores")
     if cfg.num_experts:
         batch = data.batch(0)
@@ -2025,12 +2022,12 @@ def train_family(card: str, arch: str) -> int:
         log("families", f"{arch}: the router aux term on step 0's batch "
             f"{term:.6f} (loss {loss:.6f}, without it {base:.6f})")
         del batch
-    opt_cfg = S.make_optimizer_config(cfg, total_steps=steps)
+    opt_cfg = S.make_optimizer_config(cfg, total_steps=TRAIN_STEPS)
     step_fn = S.make_train_step(r.model, opt_cfg)
     state = {"s": r.state}
 
     def one_step():
-        state["s"], _ = step_fn(state["s"], data.batch(steps))
+        state["s"], _ = step_fn(state["s"], data.batch(TRAIN_STEPS))
     # a step of the Mamba2 stack is ~10^5 kernels: trace the device alone
     device_profile("families", f"{arch}: 1 train step", one_step, reps=1,
                    watch="flash_attention",
@@ -3551,7 +3548,6 @@ def phase_batch(dev, card: str, table1: dict, dev_runs: dict) -> None:
     torch engines (spawned workers on the card); the frontier on the torch
     STA (thread and process fan-out); the power-capped schedule; the
     device rule of the keys."""
-    import shutil
     from concurrent.futures import ProcessPoolExecutor
     from dataclasses import replace
 
@@ -4233,10 +4229,8 @@ def phase_multirank(card: str) -> None:
     sys.path.insert(0, str(ROOT / "tests"))
     from _torch_multirank import CHEAPEST, MESH, WORLD, run_world
     out = ROOT / "build" / "chip_smoke_multirank"
-    if out.exists():
-        for f in out.iterdir():
-            f.unlink()
-    out.mkdir(parents=True, exist_ok=True)
+    shutil.rmtree(out, ignore_errors=True)   # an earlier run's checkpoints
+    out.mkdir(parents=True)
     t0 = time.perf_counter()
     verdicts = run_world(CHEAPEST, str(out / "verdicts.json"),
                          str(out / "store"))

@@ -280,14 +280,14 @@ def _driver(**kw):
     return r
 
 
-def _close_states(got, want, what: str) -> None:
+def _close_states(got, want, what: str, rtol: float = RTOL) -> None:
     from repro_torch.checkpoint.ckpt import _flatten
     g, w = _flatten(got), _flatten(want)
     if [p for p, _ in g] != [p for p, _ in w]:
         raise AssertionError(f"{what}: leaves {[p for p, _ in g]}")
     for (p, a), (_, b) in zip(g, w):
         b = b.full_tensor() if isinstance(b, DTensor) else b
-        _close(a, b, f"{what}: {p}", RTOL, RTOL * float(b.abs().max()))
+        _close(a, b, f"{what}: {p}", rtol, rtol * float(b.abs().max()))
 
 
 def _driver_case(mesh) -> None:

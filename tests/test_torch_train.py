@@ -7,6 +7,7 @@ reference's train step is run unsharded (jit, no mesh): its sharded step
 does not run under the installed jax (ROADMAP, section 3).
 """
 
+import contextlib
 import importlib
 import os
 import subprocess
@@ -20,6 +21,8 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
+import torch.distributed as dist  # noqa: E402
+from torch.distributed.tensor import DTensor  # noqa: E402
 
 from repro.checkpoint import ckpt as ref_ckpt  # noqa: E402
 from repro.configs import get_config as ref_get_config  # noqa: E402
@@ -32,13 +35,16 @@ from repro.optim import schedules as ref_sched  # noqa: E402
 from repro.runtime import fault_tolerance as ref_ft  # noqa: E402
 from repro_torch.checkpoint import (CheckpointManager, latest_step,  # noqa: E402
                                     restore_checkpoint, save_checkpoint)
+from repro_torch.checkpoint.ckpt import _flatten  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import ShapeSpec  # noqa: E402
 from repro_torch.data import SyntheticLMData  # noqa: E402
+from repro_torch.distributed.sharding import use_rules  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_plain  # noqa: E402
 from repro_torch.launch import steps as S  # noqa: E402
 from repro_torch.launch import train as T  # noqa: E402
+from repro_torch.launch.mesh import make_smoke_mesh  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
 from repro_torch.models.convert import params_from_reference  # noqa: E402
 from repro_torch.optim import adamw as port_adamw  # noqa: E402
@@ -286,8 +292,14 @@ def test_synthetic_data_is_byte_identical(kind):
 # the train step against the reference's unsharded train step
 
 
-@pytest.mark.parametrize("dt,tol", [("float32", 1e-4), ("bfloat16", 5e-2)])
-def test_three_train_steps_match_unsharded_reference(dt, tol):
+@pytest.mark.parametrize("dt,tol,on_mesh", [
+    pytest.param(dt, tol, on_mesh, id=f"{dt}-{tol}" + "-mesh" * on_mesh)
+    for on_mesh in (False, True)
+    for dt, tol in (("float32", 1e-4), ("bfloat16", 5e-2))])
+def test_three_train_steps_match_unsharded_reference(dt, tol, on_mesh):
+    """``-mesh``: on ``make_smoke_mesh("cpu")`` (one gloo rank), state and
+    batches laid out by ``train_shardings``, gradients synced by
+    ``grad_specs``, under ``rules_for(cfg)``, the loss read replicated."""
     rcfg, cfg = _cfgs()
     rparams = _ref_params(rcfg, None if dt == "bfloat16" else np.float32)
     ropt = RS.make_optimizer_config(rcfg, total_steps=3)
@@ -299,18 +311,35 @@ def test_three_train_steps_match_unsharded_reference(dt, tol):
     popt = S.make_optimizer_config(cfg, total_steps=3)
     params = params_from_reference(rparams, "cpu")
     state = {"params": params, "opt": port_adamw.adamw_init(params, popt)}
-    step = S.make_train_step(model, popt)
+    place, rules, grad_specs = (lambda t: t), contextlib.nullcontext(), None
+    if on_mesh:
+        mesh = make_smoke_mesh("cpu")
+        st_sh, b_sh = S.train_shardings(model, popt, mesh,
+                                        ShapeSpec("x", S_LEN, B, "train"))
+        state = S.place_tree(state, st_sh)
+        place = lambda t: S.place_tree(t, b_sh)  # noqa: E731
+        rules, grad_specs = use_rules(S.rules_for(cfg)), st_sh["params"]
+    step = S.make_train_step(model, popt, grad_specs=grad_specs)
 
     data = RefData(rcfg, RefShape("x", S_LEN, B, "train"))
-    for i in range(3):
-        batch = jax.tree.map(np.asarray, data.batch(i))
-        rstate, want = rstep(rstate, batch)
-        state, got = step(state, _tbatch(batch))
-        np.testing.assert_allclose(got.item(), float(want), rtol=tol,
-                                   atol=tol)
-    assert int(state["opt"].step) == 3
+    try:
+        with rules:
+            for i in range(3):
+                batch = jax.tree.map(np.asarray, data.batch(i))
+                rstate, want = rstep(rstate, batch)
+                state, got = step(state, place(_tbatch(batch)))
+                assert isinstance(got, DTensor) == on_mesh
+                np.testing.assert_allclose(T._replicated(got).item(),
+                                           float(want), rtol=tol, atol=tol)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    assert all(isinstance(x, DTensor) == on_mesh for _, x in _flatten(state))
+    whole = (lambda x: x.full_tensor()) if on_mesh else (lambda x: x)
+    assert int(whole(state["opt"].step)) == 3
     if dt == "float32":
-        _assert_tree_close(state["params"], rstate["params"], 1e-4)
+        _assert_tree_close(port_adamw.tree_map(whole, state["params"]),
+                           rstate["params"], 1e-4)
 
 
 def test_four_steps_at_width_2048_match_reference_and_rise():

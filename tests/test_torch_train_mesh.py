@@ -1,9 +1,11 @@
 """Training on a device mesh, on the CPU: checkpoints of DTensor state
 (saved from a mesh, restored in place, resharded on restore, read by the
-reference), the train step on ``make_smoke_mesh("cpu")`` (one gloo rank)
-held to the reference's unsharded steps, and ``train --mesh``. Each test
-that starts a process group destroys it (``mesh`` fixture). The same paths
-on 4 ranks are cases of ``tests/test_torch_multirank.py``."""
+reference) on ``make_smoke_mesh("cpu")`` (one gloo rank), and ``train
+--mesh``. Each test that starts a process group destroys it (``mesh``
+fixture). The train step on that mesh against the reference's unsharded
+steps is a case of ``test_three_train_steps_match_unsharded_reference``
+(``tests/test_torch_train.py``); the same paths on 4 ranks are cases of
+``tests/test_torch_multirank.py``."""
 
 import os
 
@@ -18,24 +20,20 @@ import torch.distributed as dist  # noqa: E402
 from torch.distributed.tensor import DTensor, Shard  # noqa: E402
 
 from repro.checkpoint import ckpt as ref_ckpt  # noqa: E402
-from repro.configs.base import ShapeSpec as RefShape  # noqa: E402
-from repro.data.pipeline import SyntheticLMData as RefData  # noqa: E402
-from repro.launch import steps as RS  # noqa: E402
-from repro.models import LM as RefLM  # noqa: E402
 from repro.optim import adamw as ref_adamw  # noqa: E402
 from repro_torch.checkpoint import (CheckpointManager, latest_step,  # noqa: E402
                                     restore_checkpoint, save_checkpoint)
 from repro_torch.checkpoint.ckpt import _flatten  # noqa: E402
 from repro_torch.configs.base import ShapeSpec  # noqa: E402
-from repro_torch.distributed.sharding import use_rules  # noqa: E402
 from repro_torch.launch import steps as S  # noqa: E402
 from repro_torch.launch import train as T  # noqa: E402
 from repro_torch.launch.mesh import make_smoke_mesh  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
 from repro_torch.models.convert import params_from_reference  # noqa: E402
 from repro_torch.optim import adamw as port_adamw  # noqa: E402
+from _torch_multirank import _close_states  # noqa: E402
 from test_torch_train import (B, S_LEN, _assert_tree_close, _cfgs,  # noqa: E402
-                              _ref_params, _tbatch)
+                              _ref_params)
 
 SHAPE = ShapeSpec("x", S_LEN, B, "train")
 
@@ -59,18 +57,6 @@ def _state(compress: bool = True, seed: int = 3):
     for i, (_, x) in enumerate(_flatten(state["opt"])):
         x.add_(i)                     # moments and error feedback not 0
     return model, opt, state
-
-
-def _whole(x):
-    return x.full_tensor() if isinstance(x, DTensor) else x
-
-
-def _assert_same_leaves(got, want):
-    g, w = _flatten(got), _flatten(want)
-    assert [p for p, _ in g] == [p for p, _ in w]
-    for (p, a), (_, b) in zip(g, w):
-        a, b = _whole(a), _whole(b)
-        assert a.dtype == b.dtype and torch.equal(a, b), p
 
 
 # ---------------------------------------------------------------------------
@@ -134,7 +120,7 @@ def test_plain_checkpoint_restores_resharded(mesh, tmp_path, like_kind):
         assert isinstance(x, DTensor) and x.device_mesh == mesh
         assert tuple(x.placements) == tuple(sh[p][1]), p
     assert any(pl.is_shard() for _, (_, pls) in sh.items() for pl in pls)
-    _assert_same_leaves(got, state)
+    _close_states(got, state, "resharded restore", rtol=0)
     # another layout of one leaf than the state's: every dim sharded
     x = state["params"]["embed"]["tok"]
     one = restore_checkpoint(
@@ -179,43 +165,6 @@ def test_mesh_checkpoint_is_read_by_the_reference_and_plain_tensors(
 
 # ---------------------------------------------------------------------------
 # the train step and the driver on the mesh
-
-
-@pytest.mark.parametrize("dt,tol", [("float32", 1e-4), ("bfloat16", 5e-2)])
-def test_three_mesh_train_steps_match_unsharded_reference(mesh, dt, tol):
-    """``make_train_step(grad_specs=)`` on state and batches laid out by
-    ``train_shardings`` under ``rules_for(cfg)``, its loss replicated, at
-    the bars of ``test_three_train_steps_match_unsharded_reference``."""
-    rcfg, cfg = _cfgs()
-    rparams = _ref_params(rcfg, None if dt == "bfloat16" else np.float32)
-    ropt = RS.make_optimizer_config(rcfg, total_steps=3)
-    rstate = {"params": jax.tree.map(jnp.asarray, rparams),
-              "opt": ref_adamw.adamw_init(rparams, ropt)}
-    rstep = jax.jit(RS.make_train_step(RefLM(rcfg), ropt))
-
-    model = LM(cfg.replace(use_flash=True))
-    popt = S.make_optimizer_config(cfg, total_steps=3)
-    params = params_from_reference(rparams, "cpu")
-    st_sh, b_sh = S.train_shardings(model, popt, mesh, SHAPE)
-    state = S.place_tree({"params": params,
-                          "opt": port_adamw.adamw_init(params, popt)}, st_sh)
-    step = S.make_train_step(model, popt, grad_specs=st_sh["params"])
-
-    data = RefData(rcfg, RefShape("x", S_LEN, B, "train"))
-    with use_rules(S.rules_for(cfg)):
-        for i in range(3):
-            batch = jax.tree.map(np.asarray, data.batch(i))
-            rstate, want = rstep(rstate, batch)
-            state, got = step(state, S.place_tree(_tbatch(batch), b_sh))
-            assert isinstance(got, DTensor)
-            np.testing.assert_allclose(T._replicated(got).item(),
-                                       float(want), rtol=tol, atol=tol)
-    assert int(state["opt"].step.full_tensor()) == 3
-    for p, x in _flatten(state):
-        assert isinstance(x, DTensor), p
-    if dt == "float32":
-        _assert_tree_close(port_adamw.tree_map(_whole, state["params"]),
-                           rstate["params"], 1e-4)
 
 
 def test_train_cli_on_the_smoke_mesh():
