@@ -38,12 +38,15 @@ lines:
              not dense, and at head dims 16, 48, 80, 96 and 112 at S = 1,
              127, 128, 129 (the last four also in the model's layout, at Sq
              != Skv and in a batch slice), and at zamba2's training shape
-             (d = 80). Checks that every bf16 call went to the tensor-core
-             kernel and every f32 call to the CUDA-core one, prints the bf16
-             kernel's registers, spills (failing on any) and shared memory
-             at every head dim, and times the kernel, the plain version and
-             SDPA at llama3-8b's training shape and, on both routes, at
-             zamba2's.
+             (d = 80). Every f32 case is also held to F32_KERNEL_TOL
+             (2e-5). Checks that every bf16 call went to the bf16 kernel
+             and every f32 call to the 3xTF32 one, prints both kernels'
+             registers, spills (failing on any) and shared memory at every
+             head dim and their SASS tensor-core and TMA counts, and times
+             the kernel, the plain version and SDPA: bf16 at llama3-8b's
+             and zamba2's training shapes, f32 (SDPA without TF32, its
+             kernels named from a profile) at llama3-8b's, zamba2's and
+             granite-moe's training shapes and whisper-small's encoder.
 4. serve   — llama3-8b at full width and depth (random weights from a seed)
              through ``repro_torch.launch.serve``: batch 4, prompt 128, 32
              generated tokens. Checks finite logits, the kernel's launch
@@ -293,12 +296,19 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12                 # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12,     # dense tensor-core bf16
               torch.float32: 67e12}       # f32 outside the tensor cores
+# f32 on the tensor cores as 3xTF32: three TF32 products (495 TFLOP/s dense)
+# for each f32 one
+F32_3XTF32_FLOPS = 495e12 / 3
 TOL = {torch.float32: 2e-3, torch.bfloat16: 4e-2}   # tests/test_kernels.py
 # A kernel against its plain version: both sum in f32 and round once, so in
 # bf16 they differ by about one ulp. The reference's 4e-2 would pass a kernel
 # that skipped tiles at a long cache, where outputs are about 1e-2.
 KERNEL_TOL = {torch.float32: dict(rtol=2e-3, atol=2e-3),
               torch.bfloat16: dict(rtol=1e-2, atol=1e-3)}
+# The f32 flash_attention kernel (3xTF32) against its plain version: f32's
+# function to within f32's rounding. KERNEL_TOL's 2e-3 would also pass one
+# TF32 product (10 bits of mantissa), about 1e-3 off.
+F32_KERNEL_TOL = dict(rtol=2e-5, atol=2e-5)
 
 # max-plus: one FADD and one FMNMX per (i, j, k). FMNMX runs at 64 results
 # a clock an SM on compute capability 9.0 (CUDA C++ Programming Guide,
@@ -319,6 +329,16 @@ TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2, 4096, 4
 NEW_HEAD_DIMS = (48, 80, 96, 112)
 ZAMBA2_ATTENTION = (TRAIN_BATCH, 32, 32, TRAIN_SEQ, TRAIN_SEQ, 80, True,
                     "model")
+# the f32 flash_attention route timed at the families' attention calls:
+# (B, H, KV, S, d, causal), in the model's layout
+F32_ATTENTION_SHAPES = {
+    "llama3-8b train": (TRAIN_BATCH, 32, 8, TRAIN_SEQ, 128, True),
+    "zamba2-2.7b train": (TRAIN_BATCH, 32, 32, TRAIN_SEQ, 80, True),
+    "granite-moe train": (TRAIN_BATCH, 16, 8, TRAIN_SEQ, 64, True),
+    "whisper-small encoder": (4, 12, 12, 1500, 64, False)}
+# f32 flash_attention launches of the driven paths (phase 6's f32 branch
+# check, phase 4b's f32 branch checks), outside the kernel checks
+F32_PATH = {"launches": 0}
 
 # the compile path: Table I's designs at benchmarks/cascade_tables.py's move
 # budget, and tests/test_predication.py's pins at place_moves=40: (design
@@ -425,11 +445,11 @@ def decode_bound(q, k, lengths, lse: bool = False):
                                        else "operations")
 
 
-def attention_bound(q, k, causal, q_off: int = 0):
+def attention_bound(q, k, causal, q_off: int = 0, peak=None):
     """(least ms, what bounds it) for one flash_attention call: the (query,
     key) pairs this mask keeps, 4 * d flops each (QK and PV) at the card's
-    peak, against q, k, v read and o written once. With ``q_off``, q's row
-    r is key row q_off + r."""
+    peak for q's type (or at ``peak`` flop/s), against q, k, v read and o
+    written once. With ``q_off``, q's row r is key row q_off + r."""
     b, h, sq, d = q.shape
     skv = k.shape[2]
     if causal:                      # top left: row r sees keys 0..r
@@ -439,7 +459,7 @@ def attention_bound(q, k, causal, q_off: int = 0):
     flops = 4 * d * b * h * pairs
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[q.dtype]
+    t_ops = flops / (peak or PEAK_FLOPS[q.dtype])
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -596,7 +616,7 @@ def phase_kernels(dev) -> dict:
             "max_abs_err": max_err, **main}
 
 
-def phase_flash_attention(dev) -> dict:
+def phase_flash_attention(dev) -> tuple:
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -659,9 +679,9 @@ def phase_flash_attention(dev) -> dict:
     train = (TRAIN_BATCH, 32, 8, TRAIN_SEQ, TRAIN_SEQ, 128, True, "model")
     cases.append(train)
     cases.append(ZAMBA2_ATTENTION)
-    max_err = 0.0
-    flash_attention.tensor_core_launches = 0
-    flash_attention.cuda_core_launches = 0
+    max_err = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    flash_attention.bf16_launches = 0
+    flash_attention.tf32_launches = 0
     for dtype in (torch.bfloat16, torch.float32):
         for b, h, kv, sq, skv, d, causal, layout in cases:
             q, k, v = inputs(b, h, kv, sq, skv, d, dtype, layout)
@@ -671,23 +691,26 @@ def phase_flash_attention(dev) -> dict:
             err = (got.float() - want.float()).abs().max().item()
             torch.testing.assert_close(got.float(), want.float(),
                                        **KERNEL_TOL[dtype])
-            max_err = max(max_err, err)
+            if dtype == torch.float32:
+                torch.testing.assert_close(got, want, **F32_KERNEL_TOL)
+            max_err[dtype] = max(max_err[dtype], err)
             log("attention", f"flash_attention {str(dtype)[6:]} B={b} H={h} "
                 f"KV={kv} Sq={sq} Skv={skv} d={d} causal={causal} {layout}: "
                 f"max abs err {err:.3g}")
             del q, k, v, got, want
         torch.cuda.empty_cache()
-    routes = (flash_attention.tensor_core_launches,
-              flash_attention.cuda_core_launches)
+    routes = (flash_attention.bf16_launches, flash_attention.tf32_launches)
     if routes != (len(cases), len(cases)):
-        raise RuntimeError(f"flash_attention routes (tensor cores, CUDA "
-                           f"cores) {routes}: every bf16 call must take the "
-                           f"tensor cores and every f32 call the CUDA cores, "
-                           f"{len(cases)} each")
-    log("attention", f"all {2 * len(cases)} cases within {KERNEL_TOL}; "
-        f"{routes[0]} bf16 launches on the tensor cores, {routes[1]} f32 "
-        f"on CUDA cores")
-    log("attention", "bf16 kernel (ptxas -v): " + bf16_kernel_resources())
+        raise RuntimeError(f"flash_attention routes (bf16, 3xTF32) {routes}: "
+                           f"every bf16 call must take the bf16 kernel and "
+                           f"every f32 call the 3xTF32 one, {len(cases)} "
+                           f"each")
+    log("attention", f"all {2 * len(cases)} cases within {KERNEL_TOL}, the "
+        f"f32 ones also within {F32_KERNEL_TOL} (max abs err bf16 "
+        f"{max_err[torch.bfloat16]:.3g}, f32 {max_err[torch.float32]:.3g}); "
+        f"{routes[0]} bf16 launches, {routes[1]} f32 launches on the 3xTF32 "
+        f"kernel")
+    log("attention", "kernels (ptxas -v): " + flash_attention_resources())
 
     # the main path's call: one layer's forward attention in the train step
     b, h, kv, s, _, d = train[:6]
@@ -712,74 +735,140 @@ def phase_flash_attention(dev) -> dict:
         f"{main['bound_ms'] / main['ms']:.4f} (library: SDPA, which rounds "
         f"P to bf16; the kernel feeds P as two bf16 halves)")
     time_zamba2_attention(inputs, sdpa)
-    return {"name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                      "flash_attention_wgmma.cu",
-            "replaces": "src/repro/kernels/flash_attention/"
-                        "flash_attention.py:32",
-            "max_abs_err": max_err, **main}
+    f32 = time_f32_route(inputs)
+    return ({"name": "flash_attention", "route": "cuda",
+             "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                       "flash_attention_wgmma.cu",
+             "replaces": "src/repro/kernels/flash_attention/"
+                         "flash_attention.py:32",
+             "max_abs_err": max_err[torch.bfloat16], **main},
+            {"name": "flash_attention_f32", "route": "cuda",
+             "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                       "flash_attention_tf32.cu",
+             "replaces": "src/repro/kernels/flash_attention/"
+                         "flash_attention.py:32",
+             "max_abs_err": max_err[torch.float32], **f32})
 
 
 def time_zamba2_attention(inputs, sdpa) -> None:
     """zamba2's training call (B 2, H = KV = 32, S 4096, d 80, causal, the
-    model's layout) on both routes: the kernel, the plain version and SDPA,
-    beside the bound (operations: 4 x 80 flops a kept pair)."""
+    model's layout) in bf16: the kernel, the plain version and SDPA, beside
+    the bound (operations: 4 x 80 flops a kept pair)."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
     b, h, kv, s, _, d = ZAMBA2_ATTENTION[:6]
-    for dtype in (torch.bfloat16, torch.float32):
-        q, k, v = inputs(b, h, kv, s, s, d, dtype, "model")
+    q, k, v = inputs(b, h, kv, s, s, d, torch.bfloat16, "model")
+    dense = [x.contiguous() for x in (q, k, v)]
+    bound_ms, bound_by = attention_bound(q, k, True)
+    r = {"ms": time_ms(lambda *a: flash_attention(*a), [(q, k, v)], 20),
+         "plain_ms": time_ms(flash_attention_plain, [(q, k, v)], 4),
+         "bound_ms": bound_ms, "bound_by": bound_by,
+         "library_ms": time_ms(sdpa, [tuple(dense)], 20)}
+    log("attention", f"flash_attention bfloat16 zamba2 train shape B={b} "
+        f"H={h} KV={kv} S={s} d={d} causal, model layout: " + json.dumps(r)
+        + f", roofline share {r['bound_ms'] / r['ms']:.4f} (library: SDPA)")
+    del q, k, v, dense
+    torch.cuda.empty_cache()
+
+
+def time_f32_route(inputs) -> dict:
+    """The f32 route (3xTF32 on the tensor cores) at the families' attention
+    calls (``F32_ATTENTION_SHAPES``, the model's layout): the kernel, the
+    plain version and f32 SDPA (no TF32 in PyTorch's products), beside the
+    bound at 3xTF32's 165 TFLOP/s and at 67 TFLOP/s of f32 FMAs; SDPA's
+    kernels named from a profile of one call. Returns llama3-8b's row."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("f32 SDPA must run without TF32 products")
+    rows = {}
+    for name, (b, h, kv, s, d, causal) in F32_ATTENTION_SHAPES.items():
+        q, k, v = inputs(b, h, kv, s, s, d, torch.float32, "model")
         dense = [x.contiguous() for x in (q, k, v)]
-        bound_ms, bound_by = attention_bound(q, k, True)
-        r = {"ms": time_ms(lambda *a: flash_attention(*a), [(q, k, v)], 20),
-             "plain_ms": time_ms(flash_attention_plain, [(q, k, v)], 4),
+
+        def sdpa(q, k, v):
+            return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                  enable_gqa=True)
+        got = flash_attention(q, k, v, causal=causal)
+        want = flash_attention_plain(q, k, v, causal=causal)
+        torch.testing.assert_close(got, want, **F32_KERNEL_TOL)
+        lib_out = sdpa(*dense)
+        torch.testing.assert_close(lib_out, want, rtol=TOL[torch.float32],
+                                   atol=TOL[torch.float32])
+        err = (got - want).abs().max().item()
+        lib_err = (lib_out - want).abs().max().item()
+        del got, want, lib_out
+        bound_ms, bound_by = attention_bound(q, k, causal,
+                                             peak=F32_3XTF32_FLOPS)
+        fma_ms, _ = attention_bound(q, k, causal)
+        r = {"ms": time_ms(lambda *a: flash_attention(*a, causal=causal),
+                           [(q, k, v)], 20),
+             "plain_ms": time_ms(lambda *a: flash_attention_plain(
+                 *a, causal=causal), [(q, k, v)], 4),
              "bound_ms": bound_ms, "bound_by": bound_by,
              "library_ms": time_ms(sdpa, [tuple(dense)], 20)}
-        log("attention", f"flash_attention {str(dtype)[6:]} zamba2 train "
-            f"shape B={b} H={h} KV={kv} S={s} d={d} causal, model layout: "
-            + json.dumps(r) + f", roofline share "
-            f"{r['bound_ms'] / r['ms']:.4f} (library: SDPA)")
+        log("attention", f"flash_attention float32 {name} shape B={b} H={h} "
+            f"KV={kv} S={s} d={d} causal={causal}, model layout: "
+            + json.dumps(r) + f", max abs err {err:.3g} (SDPA's "
+            f"{lib_err:.3g}); share of the "
+            f"3xTF32 bound {r['bound_ms'] / r['ms']:.4f}, of the f32-FMA "
+            f"bound ({fma_ms:.4f} ms) {fma_ms / r['ms']:.4f}; "
+            f"{'faster' if r['ms'] < r['library_ms'] else 'slower'} than "
+            f"f32 SDPA")
+        device_profile("attention", f"f32 SDPA {name} (its kernels)",
+                       lambda: sdpa(*dense), reps=1)
+        rows[name] = r
         del q, k, v, dense
         torch.cuda.empty_cache()
+    return rows["llama3-8b train"]
 
 
-def bf16_kernel_resources() -> str:
-    """Registers and spills of each head dim's instantiation of the bf16
-    kernel, from its ptxas -v build log, and its dynamic shared memory."""
+def flash_attention_resources() -> str:
+    """Registers and spills of each head dim's instantiation of the two
+    kernels, from their ptxas -v build log (failing on any spill), their
+    dynamic shared memory, and the SASS
+    counts of their tensor-core products and TMA loads."""
     from repro_torch.kernels import _build
     lib = _build.lib_path("flash_attention")
     log_lines = lib.with_name(lib.name + ".log").read_text().splitlines()
     fa = importlib.import_module(
         "repro_torch.kernels.flash_attention.flash_attention")
-    smem = fa._kernel_lib().flash_attention_bf16_smem_bytes
-    out, hd = [], None
+    kl = fa._kernel_lib()
+    smem = {"wgmma": kl.flash_attention_bf16_smem_bytes,
+            "tf32": kl.flash_attention_tf32_smem_bytes}
+    out, entry = [], None
     for line in log_lines:
-        found = re.search(r"flash_attention_wgmma_kernelILi(\d+)E", line)
+        found = re.search(r"flash_attention_(wgmma|tf32)_kernelILi(\d+)E",
+                          line)
         if "Compiling entry function" in line:
-            hd = int(found.group(1)) if found else None
-        elif hd is not None and "spill" in line:
+            entry = (found.group(1), int(found.group(2))) if found else None
+        elif entry is not None and "spill" in line:
             spills = re.findall(r"(\d+) bytes spill", line)
-        elif hd is not None and "registers" in line:
+        elif entry is not None and "registers" in line:
+            kind, hd = entry
             regs = re.search(r"Used (\d+) registers", line).group(1)
             if any(int(n) for n in spills):
-                raise RuntimeError(f"flash_attention bf16 d={hd} spills "
+                raise RuntimeError(f"flash_attention {kind} d={hd} spills "
                                    f"registers: {line.strip()}")
-            out.append(f"d={hd}: {regs} registers, spill stores/loads "
-                       f"{'/'.join(spills)} bytes, {smem(hd)} bytes of "
+            out.append(f"{'bf16' if kind == 'wgmma' else 'f32 3xTF32'} "
+                       f"d={hd}: {regs} registers, spill stores/loads "
+                       f"{'/'.join(spills)} bytes, {smem[kind](hd)} bytes of "
                        f"dynamic shared memory")
-            hd = None
-    if len(out) != len(fa.HEAD_DIMS):
-        raise RuntimeError(f"bf16 kernel entries not found in {lib}.log")
-    # the library's machine code: tensor-core products and TMA loads, and
-    # no bf16 instantiation of the CUDA-core kernel
+            entry = None
+    if len(out) != 2 * len(fa.HEAD_DIMS):
+        raise RuntimeError(f"flash_attention kernel entries not found in "
+                           f"{lib}.log")
+    # the library's machine code: tensor-core products (wgmma HGMMA in
+    # both kernels, mma.sync HMMA for the f32 kernel's P V), TMA loads, and
+    # no CUDA-core flash_attention_kernel left
     sass = subprocess.run([str(Path(_build._nvcc()).with_name("cuobjdump")),
                            "-sass", str(lib)], capture_output=True, text=True,
                           check=True, timeout=120).stdout
-    counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
-    if not all(counts.values()) or "flash_attention_kernelI13__nv_bfloat16" \
-            in sass:
-        raise RuntimeError(f"flash_attention SASS: {counts}, or a bf16 "
-                           f"CUDA-core kernel is left")
+    counts = {op: sass.count(op) for op in ("HGMMA", "HMMA", "UTMALDG")}
+    counts["TF32 products"] = len(re.findall(r"H[G]?MMA\S*TF32", sass))
+    if not all(counts.values()) or "flash_attention_kernel" in sass:
+        raise RuntimeError(f"flash_attention SASS: {counts}, or a CUDA-core "
+                           f"kernel is left")
     return "; ".join(out) + f"; SASS {counts}"
 
 
@@ -1336,13 +1425,13 @@ def phase_train(card: str) -> int:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     flash_attention.launches = 0
-    flash_attention.tensor_core_launches = 0
-    flash_attention.cuda_core_launches = 0
+    flash_attention.bf16_launches = 0
+    flash_attention.tf32_launches = 0
     r = train.train(cfg, shape, steps=TRAIN_STEPS, device="cuda",
                     log=lambda m: log("train", m))
     launches = flash_attention.launches
-    routes = (flash_attention.tensor_core_launches,
-              flash_attention.cuda_core_launches)
+    routes = (flash_attention.bf16_launches,
+              flash_attention.tf32_launches)
     # remat="full" checkpoints each layer: its forward runs once in the
     # forward pass and once more when backward recomputes it, and each run
     # launches the kernel once (the backward itself is the plain version)
@@ -1353,9 +1442,9 @@ def phase_train(card: str) -> int:
         raise RuntimeError(f"flash_attention launched {launches} times, "
                            f"expected {want}")
     if routes != (want, 0):
-        raise RuntimeError(f"flash_attention routes (tensor cores, CUDA "
-                           f"cores) {routes}: every bf16 launch must take "
-                           f"the tensor cores")
+        raise RuntimeError(f"flash_attention routes (bf16, 3xTF32) "
+                           f"{routes}: every bf16 launch must take the bf16 "
+                           f"kernel")
     if len(r.losses) != TRAIN_STEPS or not all(
             math.isfinite(x) for x in r.losses):
         raise RuntimeError(f"train losses not finite: {r.losses}")
@@ -1411,12 +1500,12 @@ def train_dots(card: str, cfg, shape, full_loss: float, full_step_s: float,
 
     dots = cfg.replace(remat="dots")
     torch.cuda.reset_peak_memory_stats()
-    for name in ("launches", "tensor_core_launches", "cuda_core_launches"):
+    for name in ("launches", "bf16_launches", "tf32_launches"):
         setattr(flash_attention, name, 0)
     r = train.train(dots, shape, steps=TRAIN_STEPS, device="cuda",
                     log=lambda m: log("train", m))
     want = TRAIN_STEPS * train_attention_launches(dots)
-    got = (flash_attention.launches, flash_attention.tensor_core_launches)
+    got = (flash_attention.launches, flash_attention.bf16_launches)
     if want != 2 * dots.num_layers * TRAIN_STEPS or got != (want, want):
         raise RuntimeError(f"remat='dots': flash_attention (calls, tensor "
                            f"cores) {got}, want {(want, want)}")
@@ -1516,12 +1605,11 @@ def phase_mesh_train(card: str, cfg, shape, full_losses: list,
     torch.cuda.reset_peak_memory_stats()
     mesh = make_smoke_mesh()
     try:
-        for name in ("launches", "tensor_core_launches",
-                     "cuda_core_launches"):
+        for name in ("launches", "bf16_launches", "tf32_launches"):
             setattr(flash_attention, name, 0)
         r = train.train(cfg, shape, steps=TRAIN_STEPS, device="cuda",
                         mesh=mesh, log=lambda m: log("mesh-train", m))
-        got = (flash_attention.launches, flash_attention.tensor_core_launches)
+        got = (flash_attention.launches, flash_attention.bf16_launches)
         leaves = [x for _, x in tree_items(r.state["params"])]
         on_mesh = all(isinstance(x, DTensor) and x.device_mesh == mesh
                       for x in leaves)
@@ -1565,7 +1653,7 @@ def phase_mesh_train(card: str, cfg, shape, full_losses: list,
     del r
     torch.cuda.empty_cache()
 
-    for name in ("launches", "tensor_core_launches", "cuda_core_launches"):
+    for name in ("launches", "bf16_launches", "tf32_launches"):
         setattr(flash_attention, name, 0)
     t1 = time.perf_counter()
     with tempfile.TemporaryDirectory() as ckpt:
@@ -1577,7 +1665,7 @@ def phase_mesh_train(card: str, cfg, shape, full_losses: list,
     # steps 0 and 1, the failure before step 2, the step-2 checkpoint
     # restored, steps 2 and 3
     want = 4 * 2 * smoke.num_layers
-    got = (flash_attention.launches, flash_attention.tensor_core_launches)
+    got = (flash_attention.launches, flash_attention.bf16_launches)
     if r.history != ["failure@2:injected", "restored@2"] or \
             r.end_step != 4 or got != (want, want) or dist.is_initialized():
         raise RuntimeError(f"train --smoke --mesh smoke --fail-at 2: history "
@@ -1601,23 +1689,22 @@ def phase_train_smoke(card: str) -> None:
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.launch import train
 
-    for name in ("launches", "tensor_core_launches", "cuda_core_launches"):
+    for name in ("launches", "bf16_launches", "tf32_launches"):
         setattr(flash_attention, name, 0)
     t0 = time.perf_counter()
     r = train.main(["--smoke", "--steps", "4"])
     secs = time.perf_counter() - t0
     cfg = r.model.cfg
     want = 4 * (2 if cfg.remat == "full" else 1) * cfg.num_layers
-    routes = (flash_attention.launches, flash_attention.tensor_core_launches,
-              flash_attention.cuda_core_launches)
+    routes = (flash_attention.launches, flash_attention.bf16_launches,
+              flash_attention.tf32_launches)
     if cfg.head_dim != 16 or r.model._impl(128) != "flash" or \
             r.model.cfg.dtype != "bfloat16":
         raise RuntimeError(f"train --smoke: head dim {cfg.head_dim}, dtype "
                            f"{cfg.dtype}, impl {r.model._impl(128)}")
     if routes != (want, want, 0):
-        raise RuntimeError(f"train --smoke: flash_attention (all, tensor "
-                           f"cores, CUDA cores) {routes}, want "
-                           f"{(want, want, 0)}")
+        raise RuntimeError(f"train --smoke: flash_attention (all, bf16, "
+                           f"3xTF32) {routes}, want {(want, want, 0)}")
     if len(r.losses) != 4 or not all(math.isfinite(x) for x in r.losses):
         raise RuntimeError(f"train --smoke losses: {r.losses}")
     log("train-smoke", f"{cfg.name} (head dim {cfg.head_dim}, "
@@ -1723,10 +1810,10 @@ def serve_family(arch: str, card: str) -> tuple:
     cfg = family_config(arch)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    for fn in (flash_decode, flash_attention):
-        for name in ("launches", "tensor_core_launches",
-                     "cuda_core_launches"):
-            setattr(fn, name, 0)
+    for name in ("launches", "tensor_core_launches", "cuda_core_launches"):
+        setattr(flash_decode, name, 0)
+    for name in ("launches", "bf16_launches", "tf32_launches"):
+        setattr(flash_attention, name, 0)
     flash_decode.device_launches = 0
     t0 = time.perf_counter()
     r = serve.serve(cfg, batch=BATCH, prompt_len=PROMPT, gen=GEN,
@@ -1734,7 +1821,7 @@ def serve_family(arch: str, card: str) -> tuple:
     secs = time.perf_counter() - t0
     fd = (flash_decode.launches, flash_decode.tensor_core_launches,
           flash_decode.cuda_core_launches, flash_decode.device_launches)
-    fa = (flash_attention.launches, flash_attention.tensor_core_launches)
+    fa = (flash_attention.launches, flash_attention.bf16_launches)
     peak = torch.cuda.max_memory_allocated() / 2**30
     m = r.model.cfg
     calls = self_attention_layers(m)
@@ -1753,7 +1840,7 @@ def serve_family(arch: str, card: str) -> tuple:
     if fd != want or fa != (want_fa, want_fa):
         raise RuntimeError(f"{arch}: flash_decode (calls, tensor cores, CUDA "
                            f"cores, device kernels) {fd}, want {want}; "
-                           f"flash_attention (calls, tensor cores) {fa}, "
+                           f"flash_attention (calls, bf16) {fa}, "
                            f"want {(want_fa, want_fa)}")
     if r.tokens.shape != (BATCH, GEN) or not torch.isfinite(
             r.logits.float()).all():
@@ -1832,6 +1919,7 @@ def family_branches(arch: str) -> None:
     cdefs = map_defs(lambda d: dc_replace(d, dtype=torch.float32),
                      fl.cache_defs(BATCH, PROMPT + 1))
     out = {}
+    before = f32_route_counts()
     with torch.inference_mode():
         for name, m in (("flash", fl), ("einsum", es)):
             cache = init_params(cdefs, None, torch.device("cuda"))
@@ -1841,6 +1929,7 @@ def family_branches(arch: str) -> None:
             ld, _ = m.decode_step(params, tok, cache, PROMPT)
             out[name] = (lp, ld, tok)
             del cache
+    f32_launches = count_f32_route("families", before)
     tol = TOL[torch.float32]
     errs = []
     for i, what in ((0, "prefill"), (1, "decode step")):
@@ -1849,7 +1938,8 @@ def family_branches(arch: str) -> None:
         errs.append(f"{what} {(a - b).abs().max().item():.3g}")
     log("families", f"{arch} f32 at full width, {cfg.num_layers} layers: "
         f"flash_decode branch vs einsum cache branch, max abs err "
-        + ", ".join(errs) + f" (tol {tol})")
+        + ", ".join(errs) + f" (tol {tol}); {f32_launches} f32 "
+        f"flash_attention launches (3xTF32 kernel)")
     del params, out
     torch.cuda.empty_cache()
 
@@ -1926,11 +2016,11 @@ def family_kernel_shapes(dev) -> dict:
         q, k, v = (torch.randn((b, s, heads, 64), generator=gen,
                                device=dev).to(torch.bfloat16).transpose(1, 2)
                    for heads in (h, kv, kv))
-        before = flash_attention.tensor_core_launches
+        before = flash_attention.bf16_launches
         got = flash_attention(q, k, v, causal=causal)
         want = flash_attention_plain(q, k, v, causal=causal)
         torch.cuda.synchronize()
-        if flash_attention.tensor_core_launches != before + 1:
+        if flash_attention.bf16_launches != before + 1:
             raise RuntimeError(f"flash_attention {name}: not on the tensor "
                                f"cores")
         torch.testing.assert_close(got.float(), want.float(),
@@ -1977,11 +2067,11 @@ def train_family(card: str, arch: str) -> int:
     shape = ShapeSpec("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    for name in ("launches", "tensor_core_launches", "cuda_core_launches"):
+    for name in ("launches", "bf16_launches", "tf32_launches"):
         setattr(flash_attention, name, 0)
     r = train.train(cfg, shape, steps=TRAIN_STEPS, device="cuda",
                     log=lambda m: log("families", m))
-    got = (flash_attention.launches, flash_attention.tensor_core_launches)
+    got = (flash_attention.launches, flash_attention.bf16_launches)
     want = TRAIN_STEPS * train_attention_launches(r.model.cfg)
     if got != (want, want):
         raise RuntimeError(f"{arch} train: flash_attention (calls, tensor "
@@ -2044,17 +2134,16 @@ def train_smoke_families(card: str) -> int:
 
     total = 0
     for arch in FAMILY_ARCHS:
-        for name in ("launches", "tensor_core_launches",
-                     "cuda_core_launches"):
+        for name in ("launches", "bf16_launches", "tf32_launches"):
             setattr(flash_attention, name, 0)
         t0 = time.perf_counter()
         r = train.main(["--arch", arch, "--smoke", "--steps", "4"])
         secs = time.perf_counter() - t0
         want = 4 * train_attention_launches(r.model.cfg)
-        got = (flash_attention.launches, flash_attention.tensor_core_launches)
+        got = (flash_attention.launches, flash_attention.bf16_launches)
         if got != (want, want):
             raise RuntimeError(f"train --smoke {arch}: flash_attention "
-                               f"(calls, tensor cores) {got}, want "
+                               f"(calls, bf16) {got}, want "
                                f"{(want, want)}")
         if len(r.losses) != 4 or not all(math.isfinite(x)
                                          for x in r.losses):
@@ -2203,6 +2292,7 @@ def check_train_branches(cfg, params, batch) -> None:
     for x in leaves:
         x.requires_grad_(True)
     out = {}
+    before = f32_route_counts()
     for name, mc in (("flash", cfg2.replace(use_flash=True)),
                      ("blockwise", cfg2)):
         loss = LM(mc).loss(p32, one)
@@ -2210,6 +2300,7 @@ def check_train_branches(cfg, params, batch) -> None:
         out[name] = (loss.detach(), [g[0][0], g[1][0], g[2]])
         del loss, g
         torch.cuda.empty_cache()
+    f32_launches = count_f32_route("train", before)
     (lf, gf), (lb, gb) = out["flash"], out["blockwise"]
     tol = TOL[torch.float32]
     torch.testing.assert_close(lf, lb, rtol=tol, atol=tol)
@@ -2222,7 +2313,25 @@ def check_train_branches(cfg, params, batch) -> None:
         errs.append(f"{name} {rel:.3g}")
     log("train", f"f32 at 2 layers, 1 x {TRAIN_SEQ} tokens, flash vs "
         f"blockwise: loss {lf.item():.6f} vs {lb.item():.6f}; grads' max "
-        f"abs error over max abs value: {', '.join(errs)} (tol {tol})")
+        f"abs error over max abs value: {', '.join(errs)} (tol {tol}); "
+        f"{f32_launches} f32 flash_attention launches (3xTF32 kernel)")
+
+
+def f32_route_counts() -> tuple:
+    from repro_torch.kernels.flash_attention import flash_attention
+    return flash_attention.launches, flash_attention.tf32_launches
+
+
+def count_f32_route(phase: str, before: tuple) -> int:
+    """f32 flash_attention launches of a driven path since ``before``
+    (``f32_route_counts()``), added to ``F32_PATH``; fails unless every
+    launch since took the 3xTF32 kernel."""
+    calls, tf32 = (a - b for a, b in zip(f32_route_counts(), before))
+    if calls != tf32:
+        raise RuntimeError(f"{phase}: {calls} flash_attention launches in an "
+                           f"f32 path, {tf32} of them 3xTF32")
+    F32_PATH["launches"] += tf32
+    return tf32
 
 
 def maxplus_bound(m: int, k: int, n: int):
@@ -4417,7 +4526,7 @@ def main(argv) -> int:
         print_ok()
         return 0
     decode = phase_kernels(dev)
-    attn = phase_flash_attention(dev)
+    attn, attn_f32 = phase_flash_attention(dev)
     partial, offset = phase_shard_kernels(dev)
     decode["launches"], plain = phase_serve(card)
     torch.cuda.empty_cache()
@@ -4445,12 +4554,17 @@ def main(argv) -> int:
     maxplus = phase_maxplus(dev, path)
     stencil = phase_stencil(dev)
     maxplus["launches"], stencil["launches"] = mp_launches, st_launches
+    attn_f32["launches"] = F32_PATH["launches"]
+    if not attn_f32["launches"]:
+        raise RuntimeError("the f32 flash_attention kernel was not launched "
+                           "on a driven path")
     phase_dryrun(dev, card)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {k: e[k] for k in keys}
-        for e in (decode, attn, partial, offset, maxplus, stencil, *sim)]}),
+        for e in (decode, attn, attn_f32, partial, offset, maxplus, stencil,
+                  *sim)]}),
         flush=True)
     print_ok()
     return 0

@@ -1,6 +1,8 @@
-// wgmma instructions of flash_attention_wgmma.cu, one wrapper per shape:
-// bf16 operands, f32 accumulators, 64 rows a warpgroup, depth 16; P V has
-// one wrapper per head dim (N = d: 16 to 128 in steps of 16).
+// wgmma instructions of the two flash_attention kernels, one wrapper per
+// shape, f32 accumulators, 64 rows a warpgroup. flash_attention_wgmma.cu:
+// bf16 operands, depth 16; P V has one wrapper per head dim (N = d: 16 to
+// 128 in steps of 16). flash_attention_tf32.cu: tf32 operands, depth 8, Q K^T
+// over 64 keys.
 // The accumulator fragment `d` is a register array indexed only by
 // constants; each wrapper reads and writes all of it.
 //
@@ -227,4 +229,28 @@ __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a, uint6
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
         "r"(accumulate));
+}
+
+// D[64 x 64] (+)= A[64 x 8] . B[64 x 8]^T in tf32, A and B K-major in shared
+// memory. The tensor cores read the top 19 bits of each 32-bit operand (sign,
+// exponent, 10 bits of mantissa): an f32 value passed as it is counts as
+// its truncation to tf32.
+__device__ __forceinline__ void wgmma_tf32_n64(float* d, uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
 }

@@ -7,11 +7,16 @@ replace the Pallas TPU kernel of ``repro.kernels.flash_attention``, by dtype:
 
 * bf16 (the training path): ``csrc/flash_attention_wgmma.cu``, on the
   tensor cores (TMA loads, wgmma products, a warp-specialised block);
-* f32: ``csrc/flash_attention.cu``, f32 FMAs on CUDA cores.
+* f32: ``csrc/flash_attention_tf32.cu``, on the tensor cores in 3xTF32
+  (each operand split into tf32 hi and lo, each product taken as lo.hi +
+  hi.lo + hi.hi in f32: the same function as f32 FMAs to within f32's
+  rounding; TMA loads, wgmma for Q K^T, mma.sync for P V).
 
-Each source's header gives its bound on the card and its design. Both are
-counted: ``flash_attention.launches`` in all, and
-``tensor_core_launches`` / ``cuda_core_launches`` by route.
+Each source's header gives its bound on the card and its design. Both
+routes share their tiling of the grid (128 query rows a block, on the grid's
+y axis) and take TMA tensor maps. Both are counted:
+``flash_attention.launches`` in all, and ``bf16_launches`` /
+``tf32_launches`` by route.
 
 Both take a query-row offset ``q_off`` for the causal mask: on a mesh whose
 ranks each hold a slice of a sequence's rows, a rank's row r is the
@@ -38,9 +43,9 @@ from .ref import flash_attention_plain
 
 _DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = tuple(range(16, 129, 16))   # 16, 32, ..., 128
-# Query rows a block of the bf16 kernel: its q tiles run on the grid's y
-# axis, B*H on x; the f32 kernel has B*H on y.
-BF16_BQ = 128
+# Query rows a block of either kernel: q tiles run on the grid's y axis,
+# B*H on x.
+BQ = 128
 GRID_Y_MAX, GRID_X_MAX = 65535, 2 ** 31 - 1
 # A TMA tensor map takes byte strides below 2^40 and dims up to 2^32.
 TMA_STRIDE_LIMIT, TMA_DIM_LIMIT = 2 ** 40, 2 ** 32
@@ -54,7 +59,7 @@ BACKWARD_CHUNK_ELEMS = 2 ** 28
 def _kernel_lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     for fn in (lib.flash_attention_bf16_launch,
-               lib.flash_attention_f32_launch):
+               lib.flash_attention_tf32_launch):
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
                        + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -91,12 +96,9 @@ def _check_launch(q, k, v, q_off=0):
     kv, skv = k.shape[1], k.shape[2]
     if d not in HEAD_DIMS:
         raise ValueError(f"the kernel takes head dims {HEAD_DIMS}, got {d}")
-    if q.dtype == torch.bfloat16:
-        if -(-sq // BF16_BQ) > GRID_Y_MAX or b * h > GRID_X_MAX:
-            raise ValueError(f"{-(-sq // BF16_BQ)} q tiles x B*H = {b * h} "
-                             f"exceed the grid's {GRID_Y_MAX} x {GRID_X_MAX}")
-    elif b * h > GRID_Y_MAX:
-        raise ValueError(f"B*H = {b * h} exceeds the grid's {GRID_Y_MAX}")
+    if -(-sq // BQ) > GRID_Y_MAX or b * h > GRID_X_MAX:
+        raise ValueError(f"{-(-sq // BQ)} q tiles x B*H = {b * h} exceed "
+                         f"the grid's {GRID_Y_MAX} x {GRID_X_MAX}")
     es = q.element_size()
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.stride(3) != 1:
@@ -104,8 +106,7 @@ def _check_launch(q, k, v, q_off=0):
         if x.data_ptr() % 16 or any(s * es % 16 for s in x.stride()[:3]):
             raise ValueError(f"{name} must be 16-byte aligned with strides of "
                              f"whole 16-byte chunks, got {x.stride()}")
-        if q.dtype == torch.bfloat16 and (
-                any(s * es >= TMA_STRIDE_LIMIT for s in x.stride()[:3])
+        if (any(s * es >= TMA_STRIDE_LIMIT for s in x.stride()[:3])
                 or max(x.shape[:3]) > TMA_DIM_LIMIT):
             raise ValueError(f"{name}'s strides {x.stride()} or shape "
                              f"{tuple(x.shape)} exceed a TMA tensor map's "
@@ -120,8 +121,8 @@ def _stream(device) -> int:
 
 
 def _launch(q, k, v, causal, q_off=0) -> torch.Tensor:
-    """One kernel launch, chosen by dtype: bf16 on the tensor cores, f32 on
-    CUDA cores."""
+    """One kernel launch, chosen by dtype: bf16 or f32 (3xTF32), both on the
+    tensor cores."""
     _check_launch(q, k, v, q_off)
     b, h, sq, d = q.shape
     kv, skv = k.shape[1], k.shape[2]
@@ -129,9 +130,9 @@ def _launch(q, k, v, causal, q_off=0) -> torch.Tensor:
     out = torch.empty_like(q)     # q's layout: [B, S, H, d] views stay so
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
-    tensor_cores = q.dtype == torch.bfloat16
-    fn = (lib.flash_attention_bf16_launch if tensor_cores
-          else lib.flash_attention_f32_launch)
+    bf16 = q.dtype == torch.bfloat16
+    fn = (lib.flash_attention_bf16_launch if bf16
+          else lib.flash_attention_tf32_launch)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
              kv, sq, skv, d, int(causal), q_off, 1.0 / (d ** 0.5), strides,
              _stream(q.device))
@@ -145,10 +146,10 @@ def _launch(q, k, v, causal, q_off=0) -> torch.Tensor:
         raise RuntimeError(f"flash_attention launch failed with CUDA error "
                            f"{err}")
     flash_attention.launches += 1
-    if tensor_cores:
-        flash_attention.tensor_core_launches += 1
+    if bf16:
+        flash_attention.bf16_launches += 1
     else:
-        flash_attention.cuda_core_launches += 1
+        flash_attention.tf32_launches += 1
     return out
 
 
@@ -202,7 +203,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     Head dims 16 to 128 in steps of 16 (``HEAD_DIMS``: zamba2's 80
     included), in f32 or bf16, with no padded copy. The tiles are fixed
-    (bf16: 128 query rows by 128 keys; f32: 64 by 64), so the reference's
+    (bf16: 128 query rows by 128 keys; f32: 128 by 64), so the reference's
     ``bq`` / ``bk`` options are not taken.
 
     CPU tensors take the plain version, with ordinary autograd; CUDA tensors
@@ -218,5 +219,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
-flash_attention.tensor_core_launches = 0
-flash_attention.cuda_core_launches = 0
+flash_attention.bf16_launches = 0
+flash_attention.tf32_launches = 0

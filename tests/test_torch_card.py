@@ -58,6 +58,15 @@ MP_MOD = importlib.import_module("repro_torch.kernels.maxplus.maxplus")
 SIM_MOD = importlib.import_module("repro_torch.kernels.sim.sim")
 KERNEL_TOL = {torch.float32: dict(rtol=2e-3, atol=2e-3),
               torch.bfloat16: dict(rtol=1e-2, atol=1e-3)}
+# the f32 flash_attention kernel (3xTF32): f32's function to within its
+# rounding (chip_smoke.py's F32_KERNEL_TOL)
+F32_KERNEL_TOL = dict(rtol=2e-5, atol=2e-5)
+
+
+def _hold_attention(got, want, dt):
+    torch.testing.assert_close(got.float(), want.float(), **KERNEL_TOL[dt])
+    if dt == torch.float32:
+        torch.testing.assert_close(got, want, **F32_KERNEL_TOL)
 
 
 @pytest.fixture
@@ -77,13 +86,12 @@ def _nan_equal(got, want):
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_flash_attention_head_dim_16_matches_plain_version(card, dtype):
-    """On the card: d = 16 through the tensor-core kernel (bf16) or the
-    CUDA-core one (f32), at the bf16 kernel's tile edges, against the plain
-    version within the kernel bar."""
+    """On the card: d = 16 through the bf16 kernel or the 3xTF32 one (f32),
+    at the tile edges, against the plain version within the kernel bar (f32
+    also within 2e-5)."""
     dt = getattr(torch, dtype)
     gen = torch.Generator(device="cuda").manual_seed(16)
-    route = ("tensor_core_launches" if dt == torch.bfloat16
-             else "cuda_core_launches")
+    route = "bf16_launches" if dt == torch.bfloat16 else "tf32_launches"
     for s in (1, 127, 128, 129):
         for causal in (True, False):
             q = torch.randn(2, 4, s, 16, generator=gen, device="cuda").to(dt)
@@ -93,8 +101,7 @@ def test_flash_attention_head_dim_16_matches_plain_version(card, dtype):
             got = flash_attention(q, k, v, causal=causal)
             assert getattr(flash_attention, route) == before + 1
             want = flash_attention_plain(q, k, v, causal=causal)
-            torch.testing.assert_close(got.float(), want.float(),
-                                       **KERNEL_TOL[dt])
+            _hold_attention(got, want, dt)
 
 
 @pytest.mark.requires_cuda
@@ -102,14 +109,13 @@ def test_flash_attention_head_dim_16_matches_plain_version(card, dtype):
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_flash_attention_new_head_dims_match_plain_version(card, dtype, d):
     """On the card: the head dims that are no power of two (zamba2's 80
-    among them) through the tensor-core kernel (bf16: d / 16 boxes of 16
-    columns a row) or the CUDA-core one (f32), at the bf16 tile's edges,
+    among them) through the bf16 kernel (d / 16 boxes of 16 columns a row)
+    or the 3xTF32 one (f32: d / 8 boxes of 8 columns), at the tile edges,
     Sq != Skv, GQA and the model's [B, S, H, d] layout, against the plain
-    version within the kernel bar."""
+    version within the kernel bar (f32 also within 2e-5)."""
     dt = getattr(torch, dtype)
     gen = torch.Generator(device="cuda").manual_seed(d)
-    route = ("tensor_core_launches" if dt == torch.bfloat16
-             else "cuda_core_launches")
+    route = "bf16_launches" if dt == torch.bfloat16 else "tf32_launches"
     cases = [(2, 4, 2, s, s, c, False) for s in (1, 127, 128, 129, 257)
              for c in (True, False)]
     cases += [(1, 4, 4, 127, 255, True, False), (1, 4, 1, 255, 128, True,
@@ -128,8 +134,7 @@ def test_flash_attention_new_head_dims_match_plain_version(card, dtype, d):
         got = flash_attention(q, k, v, causal=causal)
         assert getattr(flash_attention, route) == before + 1
         want = flash_attention_plain(q, k, v, causal=causal)
-        torch.testing.assert_close(got.float(), want.float(),
-                                   **KERNEL_TOL[dt])
+        _hold_attention(got, want, dt)
 
 
 @pytest.mark.requires_cuda
@@ -192,14 +197,14 @@ def test_maxplus_equals_plain_version_with_nan_and_splits(card):
 def test_train_smoke_runs_through_the_tensor_cores(card):
     """On the card: ``train --smoke --steps 4`` runs, with finite losses, and
     every flash_attention launch is the bf16 tensor-core kernel at d = 16."""
-    for name in ("launches", "tensor_core_launches", "cuda_core_launches"):
+    for name in ("launches", "bf16_launches", "tf32_launches"):
         setattr(flash_attention, name, 0)
     r = T.main(["--smoke", "--steps", "4"])
     cfg = r.model.cfg
     want = 4 * (2 if cfg.remat == "full" else 1) * cfg.num_layers
     assert cfg.head_dim == 16
-    assert (flash_attention.launches, flash_attention.tensor_core_launches,
-            flash_attention.cuda_core_launches) == (want, want, 0)
+    assert (flash_attention.launches, flash_attention.bf16_launches,
+            flash_attention.tf32_launches) == (want, want, 0)
     assert len(r.losses) == 4 and all(np.isfinite(r.losses))
 
 
@@ -243,9 +248,9 @@ def test_flash_attention_at_the_families_shapes(card, b, h, kv, s, causal):
     gen = torch.Generator(device="cuda").manual_seed(s)
     q, k, v = (torch.randn((b, s, n, 64), generator=gen, device="cuda")
                .to(torch.bfloat16).transpose(1, 2) for n in (h, kv, kv))
-    before = flash_attention.tensor_core_launches
+    before = flash_attention.bf16_launches
     got = flash_attention(q, k, v, causal=causal)
-    assert flash_attention.tensor_core_launches == before + 1
+    assert flash_attention.bf16_launches == before + 1
     torch.testing.assert_close(
         got.float(), flash_attention_plain(q, k, v, causal=causal).float(),
         **KERNEL_TOL[torch.bfloat16])
@@ -281,13 +286,13 @@ def test_serve_smoke_each_family_on_the_card(card, arch):
 def test_train_smoke_of_a_family_on_the_card(card, arch):
     """On the card: ``train --arch <a> --smoke --steps 2`` with finite
     losses, every flash_attention launch on the tensor cores."""
-    for name in ("launches", "tensor_core_launches", "cuda_core_launches"):
+    for name in ("launches", "bf16_launches", "tf32_launches"):
         setattr(flash_attention, name, 0)
     r = T.main(["--arch", arch, "--smoke", "--steps", "2"])
     assert len(r.losses) == 2 and all(np.isfinite(r.losses))
-    assert flash_attention.launches == flash_attention.tensor_core_launches
+    assert flash_attention.launches == flash_attention.bf16_launches
     assert flash_attention.launches > 0 and \
-        flash_attention.cuda_core_launches == 0
+        flash_attention.tf32_launches == 0
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,9 @@
 On the CPU the port's wrapper runs its plain version; the reference kernel
 runs in Pallas interpret mode, as its own tests run it. Inputs are made with
 numpy from a seed and handed to both. Bars: the reference's own (f32 2e-3,
-bf16 4e-2, tests/test_kernels.py).
+bf16 4e-2, tests/test_kernels.py); the CUDA kernels' arithmetic, emulated
+tile by tile, is held to the kernel bars of ``chip_smoke.py`` (bf16 rtol
+1e-2 / atol 1e-3, f32 2e-5).
 """
 
 import importlib
@@ -227,13 +229,13 @@ def test_function_backward_matches_autograd_of_plain(fake_kernel, chunk,
 
 def test_cpu_tensors_never_count_a_launch():
     q, k, v = _t(*_qkv(np.random.default_rng(0), 1, 2, 9, 16))
-    before = (flash_attention.launches, flash_attention.tensor_core_launches,
-              flash_attention.cuda_core_launches)
+    before = (flash_attention.launches, flash_attention.bf16_launches,
+              flash_attention.tf32_launches)
     flash_attention(q, k, v)
     flash_attention(q, k[:, :1], v[:, :1])       # GQA
     flash_attention(*(x.bfloat16() for x in (q, k, v)))
-    assert (flash_attention.launches, flash_attention.tensor_core_launches,
-            flash_attention.cuda_core_launches) == before
+    assert (flash_attention.launches, flash_attention.bf16_launches,
+            flash_attention.tf32_launches) == before
 
 
 @pytest.mark.parametrize("bad", ["dtype", "mixed_dtype", "shape", "heads",
@@ -261,16 +263,25 @@ def test_flash_attention_rejects_what_the_kernel_does_not_take(bad):
 
 @pytest.mark.parametrize("bad", ["hd", "grid", "misaligned", "last_dim",
                                  "stride", "grid_bf16", "tma_stride",
-                                 "stride_bf16"])
+                                 "stride_bf16", "grid_x", "tma_stride_f32",
+                                 "tma_dim"])
 def test_kernel_launch_checks_raise_before_building(bad):
     """What only the CUDA kernels refuse is checked before the library is
     built or a pointer is passed (these raise here, with no nvcc)."""
     rng = np.random.default_rng(5)
     d = 144 if bad == "hd" else 32     # 144: past the kernels' 128
     q, k, v = _t(*_qkv(rng, 1, 2, 8, d))
-    if bad == "grid":                 # f32: B*H past the grid's y of 65535
-        q = torch.zeros(1, 65536, 1, d)
+    if bad == "grid":                 # f32: q tiles of 128 past y's 65535
+        q = torch.zeros(1, 1, 1, d).expand(1, 1, 65535 * 128 + 1, d)
         k = v = torch.zeros(1, 1, 1, d)
+    elif bad == "grid_x":             # f32: B*H past x's 2^31 - 1
+        q = torch.zeros(1, 1, 1, d).expand(1, 2 ** 31, 1, d)
+        k = v = torch.zeros(1, 1, 1, d)
+    elif bad == "tma_stride_f32":     # f32: a byte stride of 2^40
+        q = torch.zeros(1, 2, 8, d).as_strided((1, 2, 8, d),
+                                               (2 ** 38, 8 * d, d, 1))
+    elif bad == "tma_dim":            # f32: a dim past a tensor map's 2^32
+        k = v = torch.zeros(1, 1, 1, d).expand(1, 1, 2 ** 32 + 1, d)
     elif bad == "grid_bf16":          # bf16: q tiles of 128 past y's 65535
         q = torch.zeros(1, 1, 1, d, dtype=torch.bfloat16).expand(
             1, 1, 65535 * 128 + 1, d)
@@ -314,9 +325,9 @@ def test_kernel_on_the_card_matches_plain_version():
     # the bf16 kernel past one 128-row tile, in the model's strided layout
     q, k, v = (torch.randn(2, 257, heads, 128, generator=gen, device="cuda")
                .bfloat16().transpose(1, 2) for heads in (8, 2, 2))
-    tensor_core = flash_attention.tensor_core_launches
+    bf16 = flash_attention.bf16_launches
     got = flash_attention(q, k, v, causal=True)
-    assert flash_attention.tensor_core_launches == tensor_core + 1
+    assert flash_attention.bf16_launches == bf16 + 1
     torch.testing.assert_close(got.float(),
                                flash_attention_plain(q, k, v).float(),
                                rtol=1e-2, atol=1e-3)
@@ -325,13 +336,13 @@ def test_kernel_on_the_card_matches_plain_version():
 
 @pytest.mark.parametrize("hd", FA_MOD.HEAD_DIMS)
 def test_bf16_route_takes_head_counts_past_the_f32_grid(hd):
-    """The bf16 kernel puts B*H on the grid's x axis (2^31 - 1), so a head
-    count the f32 kernel's y axis refuses passes its checks."""
+    """Both kernels put B*H on the grid's x axis (2^31 - 1): a head count
+    past the y axis's 65535, where the CUDA-core f32 kernel had B*H, passes
+    the checks of both routes."""
     q = torch.zeros(1, 65536, 1, hd, dtype=torch.bfloat16)
     k = v = torch.zeros(1, 1, 1, hd, dtype=torch.bfloat16)
     FA_MOD._check_launch(q, k, v)
-    with pytest.raises(ValueError):
-        FA_MOD._check_launch(q.float(), k.float(), v.float())
+    FA_MOD._check_launch(q.float(), k.float(), v.float())
 
 
 class _FakeLib:
@@ -351,8 +362,8 @@ class _FakeLib:
         return self._entry("bf16")
 
     @property
-    def flash_attention_f32_launch(self):
-        return self._entry("f32")
+    def flash_attention_tf32_launch(self):
+        return self._entry("tf32")
 
 
 @pytest.fixture
@@ -360,28 +371,28 @@ def fake_lib(monkeypatch):
     lib = _FakeLib()
     monkeypatch.setattr(FA_MOD, "_kernel_lib", lambda: lib)
     monkeypatch.setattr(FA_MOD, "_stream", lambda device: 0)
-    for name in ("launches", "tensor_core_launches", "cuda_core_launches"):
+    for name in ("launches", "bf16_launches", "tf32_launches"):
         monkeypatch.setattr(flash_attention, name, 0)
     return lib
 
 
-def test_dispatch_bf16_to_tensor_cores_and_f32_to_cuda_cores(fake_lib):
-    """bf16 reaches the tensor-core entry, f32 the CUDA-core entry, and each
-    counts its launch by route and in all."""
+def test_dispatch_bf16_and_f32_to_their_tensor_core_kernels(fake_lib):
+    """bf16 reaches the bf16 entry, f32 the 3xTF32 entry, and each counts
+    its launch by route and in all."""
     q, k, v = _t(*_qkv(np.random.default_rng(6), 2, 4, 16, 64, hkv=2))
     FA_MOD._launch(*(x.bfloat16() for x in (q, k, v)), causal=True)
     assert fake_lib.calls == [("bf16", (2, 4, 2, 16, 16, 64, 1))]
-    assert (flash_attention.launches, flash_attention.tensor_core_launches,
-            flash_attention.cuda_core_launches) == (1, 1, 0)
+    assert (flash_attention.launches, flash_attention.bf16_launches,
+            flash_attention.tf32_launches) == (1, 1, 0)
     FA_MOD._launch(q, k, v, causal=False)
-    assert fake_lib.calls[1] == ("f32", (2, 4, 2, 16, 16, 64, 0))
-    assert (flash_attention.launches, flash_attention.tensor_core_launches,
-            flash_attention.cuda_core_launches) == (2, 1, 1)
+    assert fake_lib.calls[1] == ("tf32", (2, 4, 2, 16, 16, 64, 0))
+    assert (flash_attention.launches, flash_attention.bf16_launches,
+            flash_attention.tf32_launches) == (2, 1, 1)
 
 
 @pytest.mark.parametrize("d", [48, 80, 96, 112])
 @pytest.mark.parametrize("dtype,entry", [("bfloat16", "bf16"),
-                                         ("float32", "f32")])
+                                         ("float32", "tf32")])
 def test_new_head_dims_reach_their_kernel_unpadded(fake_lib, dtype, entry,
                                                    d):
     """The model's [B, S, H, d] views go to the kernel as they are: no
@@ -395,7 +406,7 @@ def test_new_head_dims_reach_their_kernel_unpadded(fake_lib, dtype, entry,
 
 
 @pytest.mark.parametrize("dtype,entry", [("bfloat16", "bf16"),
-                                         ("float32", "f32")])
+                                         ("float32", "tf32")])
 def test_head_dim_16_reaches_its_kernel(fake_lib, dtype, entry):
     q, k, v = _t(*_qkv(np.random.default_rng(9), 1, 4, 129, 16, hkv=2),
                  dtype=getattr(torch, dtype))
@@ -403,17 +414,18 @@ def test_head_dim_16_reaches_its_kernel(fake_lib, dtype, entry):
     assert fake_lib.calls == [(entry, (1, 4, 2, 129, 129, 16, 1))]
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("rc,match", [(-1, "cuTensorMapEncodeTiled"),
                                       (-1001, "CUresult 1"),
                                       (98, "CUDA error 98")])
-def test_failed_launch_raises_and_counts_nothing(fake_lib, rc, match):
+def test_failed_launch_raises_and_counts_nothing(fake_lib, rc, match, dtype):
     fake_lib.rc = rc
     q, k, v = _t(*_qkv(np.random.default_rng(7), 1, 2, 8, 32),
-                 dtype=torch.bfloat16)
+                 dtype=getattr(torch, dtype))
     with pytest.raises(RuntimeError, match=match):
         FA_MOD._launch(q, k, v, causal=True)
-    assert (flash_attention.launches,
-            flash_attention.tensor_core_launches) == (0, 0)
+    assert (flash_attention.launches, flash_attention.bf16_launches,
+            flash_attention.tf32_launches) == (0, 0, 0)
 
 
 # the port's bar for a kernel against its plain version in bf16
@@ -519,3 +531,126 @@ def test_bf16_kernel_emulation_at_the_new_head_dims(d, causal):
     torch.testing.assert_close(
         got.float(), flash_attention_plain(q, k, v, causal=causal).float(),
         **BF16_KERNEL_TOL)
+
+
+# the f32 kernel's own bar against its plain version and the Pallas kernel:
+# 3xTF32 is f32's function to within f32's rounding (~1e-6 here), 1xTF32
+# misses it by two orders (the reference's 2e-3 passes both)
+F32_KERNEL_TOL = dict(rtol=2e-5, atol=2e-5)
+
+
+def _tf32(x):
+    """x truncated to tf32 (sign, exponent, top 10 bits of mantissa): what
+    the tensor cores read of an f32 operand."""
+    return (x.view(torch.int32) & -8192).view(torch.float32)
+
+
+def _tf32_product(a, b, passes):
+    """a @ b as the f32 kernel's tensor cores take it: with passes = 3,
+    lo.hi + hi.lo + hi.hi of hi = tf32(x), lo = tf32(x - hi) (3xTF32); with
+    passes = 1, hi.hi alone (1xTF32)."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    if passes == 1:
+        return a_hi @ b_hi
+    return _tf32(a - a_hi) @ b_hi + a_hi @ _tf32(b - b_hi) + a_hi @ b_hi
+
+
+def _emulate_f32_kernel(q, k, v, *, causal, q_off=0, passes=3):
+    """The f32 kernel's arithmetic, tile by tile, on the CPU: 128 query rows
+    by 64 keys; key tiles up to the causal frontier of the q tile's last
+    row (q's row r is key row q_off + r), ragged last tiles; f32 scores
+    scaled in log2 units by the kernel's f32 constant; f32 running max, sum
+    and accumulator; both products through ``_tf32_product``."""
+    b, h, sq, d = q.shape
+    skv, g = k.shape[2], h // k.shape[1]
+    kf, vf = (x.repeat_interleave(g, 1) for x in (k, v))
+    c = float(np.float32(1.0 / d ** 0.5) * np.float32(1.4426950408889634))
+    out = torch.empty(b, h, sq, d)
+    n_kv = -(-skv // 64)
+    for q0 in range(0, sq, 128):
+        qt = q[:, :, q0:q0 + 128]
+        rows = q_off + torch.arange(q0, q0 + qt.shape[2])
+        n_tiles = min(n_kv, int(rows[-1]) // 64 + 1) if causal else n_kv
+        m = torch.full(qt.shape[:3], -1e30)
+        l = torch.zeros(qt.shape[:3])
+        acc = torch.zeros(qt.shape)
+        for k0 in range(0, 64 * n_tiles, 64):
+            kt, vt = kf[:, :, k0:k0 + 64], vf[:, :, k0:k0 + 64]
+            s = _tf32_product(qt, kt.transpose(-1, -2), passes) * c
+            if causal:
+                cols = torch.arange(k0, k0 + kt.shape[2])
+                s = s.masked_fill(rows[:, None] < cols[None, :], -1e30)
+            m_new = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(s - m_new[..., None])
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + _tf32_product(p, vt, passes)
+            m = m_new
+        out[:, :, q0:q0 + 128] = acc / torch.where(l == 0, 1.0,
+                                                   l)[..., None]
+    return out
+
+
+def _pallas(q, k, v, causal):
+    """The reference's Pallas kernel in interpret mode (GQA through its
+    wrapper, which repeats K and V)."""
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    if q.shape[1] == k.shape[1]:
+        return np.asarray(ref_flash(jq, jk, jv, causal=causal))
+    return np.asarray(ref_gqa(jq, jk, jv, causal=causal))
+
+
+# the f32 kernel's tile edges (64 keys, 128 query rows), Sq != Skv, GQA and
+# every kind of head dim: 16 (64-byte swizzle), 32, 64, 96, 128 (128-byte),
+# 48, 80, 112 (32-byte boxes of one k8 step)
+@pytest.mark.parametrize("b,h,hkv,sq,skv,d", [
+    (1, 2, 2, 1, 1, 64), (1, 2, 2, 63, 63, 16), (2, 2, 1, 65, 65, 32),
+    (1, 4, 2, 129, 129, 48), (1, 4, 1, 127, 255, 80), (1, 2, 2, 255, 128, 96),
+    (1, 2, 2, 200, 64, 112), (1, 4, 2, 257, 257, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_f32_kernel_emulation_matches_pallas_kernel(b, h, hkv, sq, skv, d,
+                                                    causal):
+    """The f32 kernel's tile-by-tile 3xTF32 arithmetic stays within 2e-5 of
+    the Pallas kernel in interpret mode and of the plain version."""
+    rng = np.random.default_rng(sq + skv + d)
+    q, k, v = _qkv(rng, b, h, sq, d, skv=skv, hkv=hkv)
+    tq, tk, tv = _t(q, k, v)
+    got = _emulate_f32_kernel(tq, tk, tv, causal=causal)
+    _close(got, _pallas(q, k, v, causal), F32_KERNEL_TOL["atol"])
+    torch.testing.assert_close(
+        got, flash_attention_plain(tq, tk, tv, causal=causal),
+        **F32_KERNEL_TOL)
+
+
+@pytest.mark.parametrize("q_off,rows,d", [(37, 100, 64), (64, 136, 80),
+                                          (128, 72, 16), (150, 50, 128)])
+def test_f32_kernel_emulation_with_a_row_offset(q_off, rows, d):
+    """With ``q_off`` (a rank's slice of a sequence's rows), the emulation
+    on rows q_off to q_off + rows equals those rows of the Pallas kernel on
+    the whole sequence (causal), within 2e-5, and the plain version's."""
+    rng = np.random.default_rng(q_off + d)
+    q, k, v = _qkv(rng, 1, 4, 200, d, hkv=2)
+    want = _pallas(q, k, v, True)[:, :, q_off:q_off + rows]
+    tq, tk, tv = _t(q[:, :, q_off:q_off + rows], k, v)
+    got = _emulate_f32_kernel(tq, tk, tv, causal=True, q_off=q_off)
+    _close(got, want, F32_KERNEL_TOL["atol"])
+    torch.testing.assert_close(
+        got, flash_attention_plain(tq, tk, tv, causal=True, q_off=q_off),
+        **F32_KERNEL_TOL)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_1xtf32_misses_the_f32_kernel_bar(d):
+    """Why the f32 kernel takes three tf32 products where one would do for
+    the reference's 2e-3: hi.hi alone (1xTF32) passes 2e-3 and misses the
+    2e-5 bar against the Pallas kernel, which 3xTF32 meets."""
+    rng = np.random.default_rng(d)
+    q, k, v = _qkv(rng, 1, 2, 512, d)
+    want = _pallas(q, k, v, True)
+    tq, tk, tv = _t(q, k, v)
+    one = _emulate_f32_kernel(tq, tk, tv, causal=True, passes=1)
+    _close(one, want, 2e-3)
+    with pytest.raises(AssertionError):
+        _close(one, want, F32_KERNEL_TOL["atol"])
+    _close(_emulate_f32_kernel(tq, tk, tv, causal=True), want,
+           F32_KERNEL_TOL["atol"])
