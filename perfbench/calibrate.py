@@ -1,19 +1,24 @@
-"""Readings for the limits of a cell's numbers, many seeds in one process.
+"""Readings for the limits of a cell's numbers, many seeds in one process,
+each judged by the harness's own comparison (``result``).
 
     python3 perfbench/calibrate.py --workload <name> --seeds 11,12,13 \
-        [--control-seeds 11,12,13] [--fault half_batch --fault-seeds 21,22] \
+        [--control-seeds 11,12] [--fault half_batch --fault-seeds 21,22] \
         [--seconds 20]
 
-For each seed: the program's readings (what a run of the cell compares)
-and, on the control seeds, the control's (the plain reference in fp8 in
-the program's place) against the same float32 reference; on the fault
-seeds, the program's readings with the named fault planted. One JSON line a
-seed on standard output. The limits in limits/<workload>.json are set from
-these readings: above the largest of the program's, below the smallest of
-the control's (and, in a training cell, of each fault's).
+For each seed a run of the cell, as ``run.py`` makes it (the window lasts
+``--seconds``; 0 takes one step), and one JSON line: the program's result
+line and all its readings. On the control seeds a second line: the result
+line with the control's readings in the program's place (the plain
+reference computed in fp8, against the same float32 reference), which has
+to read ``"correct": false``. On the fault seeds, a run with the named
+fault planted under the timed path (``faults.py``), which has to read
+false too. The limits in limits/<workload>.json are set from these
+readings: above the largest of the program's, below the smallest of the
+control's (and, in a training cell, of each fault's).
 """
 
 import argparse
+import dataclasses
 import json
 import sys
 import time
@@ -24,7 +29,8 @@ sys.path[:0] = [str(HERE), str(HERE.parent / "src")]
 
 import torch  # noqa: E402
 
-from harness.run import Run, execute, free_device  # noqa: E402
+import faults  # noqa: E402
+from harness.run import Run, execute, free_device, result  # noqa: E402
 from harness.spec import load_cell  # noqa: E402
 
 
@@ -32,12 +38,21 @@ def _ints(s: str):
     return [int(x) for x in s.split(",") if x]
 
 
+def line(run: Run, side: str, readings, t0: float) -> str:
+    judged = dataclasses.replace(run, readings=readings)
+    return json.dumps({
+        "workload": run.cell.name, "seed": run.seed, "side": side,
+        "result": result(judged), "readings": readings, "units": run.units,
+        "seconds": time.perf_counter() - t0})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seeds", type=_ints, default=[])
     ap.add_argument("--control-seeds", type=_ints, default=[])
-    ap.add_argument("--fault", action="append", default=[])
+    ap.add_argument("--fault", action="append", default=[],
+                    choices=sorted(faults.FAULTS))
     ap.add_argument("--fault-seeds", type=_ints, default=[])
     ap.add_argument("--seconds", type=float, default=0.0)
     args = ap.parse_args()
@@ -45,20 +60,23 @@ def main() -> int:
         print("calibrate: no CUDA device", file=sys.stderr)
         return 3
     cell = load_cell(args.workload)
-    plan = [(s, (), s in args.control_seeds)
-            for s in sorted(set(args.seeds) | set(args.control_seeds))]
-    plan += [(s, tuple(args.fault), False) for s in args.fault_seeds]
-    for seed, faults, control in plan:
+    plan = [(s, None) for s in sorted(set(args.seeds)
+                                      | set(args.control_seeds))]
+    plan += [(s, args.fault) for s in args.fault_seeds]
+    for seed, fault in plan:
         t0 = time.perf_counter()
-        run = Run(cell, seed, args.seconds, False, torch.device("cuda", 0),
-                  faults=faults, control=control)
-        execute(run, t0)
-        print(json.dumps({
-            "workload": cell.name, "seed": seed, "faults": list(faults),
-            "program": run.readings, "control": run.control_readings or None,
-            "units": run.units, "memory_peak_bytes": run.memory_peak,
-            "seconds": time.perf_counter() - t0}), flush=True)
-        del run
+        run = Run(cell, seed, args.seconds, False, torch.device("cuda", 0))
+        if fault:
+            readings = execute(run, t0, plant=faults.plant(*fault))
+            print(line(run, "fault:" + "+".join(fault), run.readings, t0),
+                  flush=True)
+        else:
+            sides = ("program", "control") if seed in args.control_seeds \
+                else ("program",)
+            readings = execute(run, t0, sides=sides)
+            for side in sides:
+                print(line(run, side, readings[side], t0), flush=True)
+        del run, readings
         free_device()
     return 0
 

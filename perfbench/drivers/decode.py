@@ -8,7 +8,7 @@ written in the program's own layout (keys and values of positions
 sessions then decode in rounds of ``round`` steps from position
 ``history``; after a round the position goes back to ``history``: the
 recurrent state goes on, the key and value slots of the round are written
-over. Set-up takes the mix's ``warmup_steps`` first steps (every shape the
+over. Warming takes the mix's ``warmup_steps`` first steps (every shape the
 window uses); the window goes on until the first step that ends after
 ``--seconds``. Each step ends in a CUDA event, and the gap between two
 consecutive events is the gap between a session's tokens.
@@ -16,6 +16,8 @@ consecutive events is the gap between a session's tokens.
 After the window: the sampled sessions' final cache and the tokens of every
 step are kept, the program's state freed, and the plain reference replays
 those sessions from the same history, fed the same tokens, round by round.
+Its control (the reference in fp8 in the program's place) is judged the
+same way, by its own best token at each position and its own cache.
 Readings: how far a served token's logit lies below the reference's best
 (greedy tokens; the widest gap and the mean over every position judged),
 the relative error of the last step's logits, and the relative errors of
@@ -25,17 +27,17 @@ which of them are compared.
 
 from __future__ import annotations
 
+import math
 import statistics
 import time
-from contextlib import contextmanager
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import torch
 
 from reference.common import Numerics
 
-from . import counts, traffic, weights
-from .run import Run, free_device, strict_f32
+from harness import counts, traffic, weights
+from harness.run import Run, free_device, strict_f32
 
 
 def setup(run: Run) -> Dict:
@@ -43,28 +45,25 @@ def setup(run: Run) -> Dict:
     from repro_torch.models import LM
 
     mix, dev, cfg = run.cell.mix, run.device, run.cfg
-    port = run.port_config()
-    model = LM(port)
+    model = LM(run.port_config())
     ref = run.reference()
     b, slots = mix["sessions"], mix["cache_slots"]
     params = weights.make(ref.param_layout(), run.seed, traffic.WEIGHTS, dev)
     weights.check_layout(params, model.shapes(), "parameters")
-    cache = weights.make(ref.cache_layout(b, slots, **_fill(mix)), run.seed,
-                         traffic.CACHE, dev)
+    cache = weights.make(ref.cache_layout(b, slots), run.seed, traffic.CACHE,
+                         dev)
     weights.check_layout(cache, model.cache_shapes(b, slots), "cache")
     sessions = traffic.sample(run.seed, b, mix["check_sessions"])
-    st = {"params": params, "cache": cache, "step": S.make_decode_step(model),
-          "fed": [traffic.first_tokens(run.seed, b, cfg["vocab_size"], dev)],
-          "served": [], "watched": [], "k": 0, "ref": ref,
-          "sessions": sessions,
-          "watch": torch.tensor(sessions, device=dev)}
-    for _ in range(mix["warmup_steps"]):
+    return {"params": params, "cache": cache,
+            "step": S.make_decode_step(model),
+            "fed": [traffic.first_tokens(run.seed, b, cfg["vocab_size"], dev)],
+            "served": [], "watched": [], "k": 0, "ref": ref,
+            "sessions": sessions, "watch": torch.tensor(sessions, device=dev)}
+
+
+def warm(run: Run, st: Dict) -> None:
+    for _ in range(run.cell.mix["warmup_steps"]):
         _step(run, st)
-    return st
-
-
-def _fill(mix: Dict) -> Dict:
-    return {"state_std": mix["state_std"]} if "state_std" in mix else {}
 
 
 def position(mix: Dict, k: int) -> int:
@@ -72,31 +71,15 @@ def position(mix: Dict, k: int) -> int:
 
 
 def _step(run: Run, st: Dict) -> None:
-    mix = run.cell.mix
-    with planted(run, st["cache"]):
-        logits, _ = st["step"](st["params"], {"tokens": st["fed"][-1]},
-                               st["cache"], position(mix, st["k"]))
+    logits, _ = st["step"](st["params"], {"tokens": st["fed"][-1]},
+                           st["cache"], position(run.cell.mix, st["k"]))
     nxt = logits.argmax(-1)
-    if "altered_token" in run.faults:
-        nxt = (nxt + 1) % run.cfg["vocab_size"]
     # the checked sessions' logits, judged after the window
     st["watched"].append(logits.index_select(0, st["watch"]))
     st["event"] = _event(run)
     st["served"].append(nxt.cpu())           # the tokens streamed out
     st["fed"].append(nxt[:, None])
     st["k"] += 1
-
-
-@contextmanager
-def planted(run: Run, cache: Dict):
-    """The fault ``unchanged_state`` (the harness's own tests): the step
-    leaves the cache and state as it found them."""
-    keep = ([t.clone() for _, t in weights.items(cache)]
-            if "unchanged_state" in run.faults else None)
-    yield
-    if keep is not None:
-        for (_, t), k in zip(weights.items(cache), keep):
-            t.copy_(k)
 
 
 def _event(run: Run):
@@ -127,32 +110,43 @@ def window(run: Run, st: Dict) -> None:
     run.window_s = time.perf_counter() - t0
     if run.device.type == "cuda":
         events[-1].synchronize()
-    run.gaps_s = [_elapsed_s(a, c) for a, c in zip(events, events[1:])]
+    gaps = [_elapsed_s(a, c) for a, c in zip(events, events[1:])]
     run.units = st["k"] - first
-    run.tokens = run.units * b
-    run.attempted = run.tokens
-    pos = [position(mix, k) for k in range(first, st["k"])]
-    per = [counts.decode_step(run.cfg, b, p) for p in pos]
+    run.attempted = run.units * b
+    run.end_to_end["decode_tokens_per_s"] = run.attempted / run.window_s
+    run.end_to_end["decode_step_p95_ms"] = 1e3 * percentile(gaps, 95)
+    ref = st["ref"]
+    per = [counts.decode_step(ref, b, position(mix, k))
+           for k in range(first, st["k"])]
     run.work = {k: sum(w[k] for w in per) / len(per) for k in per[0]}
 
 
+def percentile(values: List[float], q: float) -> float:
+    """The q-th percentile, linear between the two nearest ranks."""
+    v = sorted(values)
+    x = (len(v) - 1) * q / 100
+    lo = int(math.floor(x))
+    hi = min(lo + 1, len(v) - 1)
+    return v[lo] + (v[hi] - v[lo]) * (x - lo)
+
+
 def traced(run: Run, st: Dict) -> None:
-    from .trace import profile
+    """A profiled stretch of ``trace_steps`` steps; flash_decode's bound a
+    call, averaged over the stretch's positions (the trace counts the
+    calls)."""
+    from harness.trace import profile
     mix, cfg = run.cell.mix, run.cfg
     n = mix["trace_steps"]
     first = st["k"]
     run.trace = profile(lambda: _step(run, st), n)
-    layers = counts.cache_bytes_per_token(cfg) // (
-        2 * cfg["num_kv_heads"] * cfg["head_dim"] * counts.BF16)
     g = cfg["num_heads"] // cfg["num_kv_heads"]
     run.bounds["flash_decode"] = sum(
-        layers * counts.decode_call_seconds(
-            mix["sessions"], cfg["num_kv_heads"], g, cfg["head_dim"],
-            position(mix, k) + 1)
-        for k in range(first, first + n))
+        counts.decode_call_seconds(mix["sessions"], cfg["num_kv_heads"], g,
+                                   cfg["head_dim"], position(mix, k) + 1)
+        for k in range(first, first + n)) / n
 
 
-def check(run: Run, st: Dict) -> None:
+def check(run: Run, st: Dict, sides: Tuple[str, ...]) -> Dict[str, Dict]:
     mix = run.cell.mix
     ref = st["ref"]
     sessions, idx = st["sessions"], st["watch"]
@@ -172,21 +166,23 @@ def check(run: Run, st: Dict) -> None:
     st.clear()
     free_device()
     strict_f32()
-    replay(run, ref, sessions, fed, served, prog, written)
+    return replay(run, ref, sessions, fed, served, prog, written,
+                  "control" in sides)
 
 
 def replay(run: Run, ref, sessions: List[int], fed: torch.Tensor,
-           served: torch.Tensor, prog: Dict, written: int) -> None:
+           served: torch.Tensor, prog: Dict, written: int, control: bool
+           ) -> Dict[str, Dict]:
     """The reference over the sampled sessions, round by round, fed the
-    tokens the program was fed. Sets the program's readings and, with
-    ``run.control``, those of the fp8 reference in its place (its own best
+    tokens the program was fed. Returns the program's readings and, with
+    ``control``, those of the fp8 reference in its place (its own best
     token at each position is what is judged, and its cache)."""
     mix, dev = run.cell.mix, run.device
     b, slots, hist = mix["sessions"], mix["cache_slots"], mix["history"]
     idx = torch.tensor(sessions, device=dev)
     params = weights.make(ref.param_layout(), run.seed, traffic.WEIGHTS, dev)
-    full = weights.make(ref.cache_layout(b, slots, **_fill(mix)), run.seed,
-                        traffic.CACHE, dev)
+    full = weights.make(ref.cache_layout(b, slots), run.seed, traffic.CACHE,
+                        dev)
     start = {}
     for name, t in ref.flat_cache(full).items():
         t = t.index_select(1, idx)
@@ -194,7 +190,7 @@ def replay(run: Run, ref, sessions: List[int], fed: torch.Tensor,
     del full
     free_device()
     sides = {"ref": Numerics("f32")}
-    if run.control:
+    if control:
         sides["control"] = Numerics("fp8")
     prog_logits = prog.pop("logits")
     prefix = {"k": start["k"], "v": start["v"]}
@@ -215,20 +211,21 @@ def replay(run: Run, ref, sessions: List[int], fed: torch.Tensor,
                 ctl = logits
         chosen = {"program": served[:, r0:r0 + mix["round"]]}
         judged = {"program": prog_logits[:, r0:r0 + mix["round"]]}
-        if run.control:
+        if control:
             chosen["control"] = ctl.argmax(-1)
             judged["control"] = ctl
         best = want.max(-1).values
         for s, c in chosen.items():
             gap[s].append(best - want.gather(-1, c[..., None])[..., 0])
             err[s].append(row_errors(judged[s], want))
-    run.readings = dict(state_errors(prog, last["ref"]),
-                        **token_gaps(gap["program"]),
-                        **logit_errors(err["program"]))
-    if run.control:
-        run.control_readings = dict(
-            state_errors(last["control"], last["ref"]),
-            **token_gaps(gap["control"]), **logit_errors(err["control"]))
+    out = {"program": dict(state_errors(prog, last["ref"]),
+                           **token_gaps(gap["program"]),
+                           **logit_errors(err["program"]))}
+    if control:
+        out["control"] = dict(state_errors(last["control"], last["ref"]),
+                              **token_gaps(gap["control"]),
+                              **logit_errors(err["control"]))
+    return out
 
 
 def token_gaps(gaps: List[torch.Tensor]) -> Dict[str, float]:

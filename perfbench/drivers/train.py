@@ -1,13 +1,14 @@
 """Training cells: the program's ``make_train_step`` (forward, loss with the
 router's balance term, backward, AdamW in place) on a new batch each step.
 
-Set-up makes the weights from the seed, builds the one train state and
-drives it through the mix's first ``checked_steps`` steps by the window's
-own call and feed; those readings (each step's loss, the first gradient as
-AdamW's first moment holds it, each leaf's change after the last of them)
-are what the reference is held to. The window then goes on from the same
-state, a step at a time, each step's loss read on the host as a trainer
-logs it, until the first step that ends after ``--seconds``.
+Set-up makes the weights from the seed and builds the one train state;
+warming drives it through the mix's first ``checked_steps`` steps by the
+window's own call (``st["step"]``) and feed (``st["feed"]``); those
+readings (each step's loss, the first gradient as AdamW's first moment
+holds it, each leaf's change after the last of them) are what the
+reference is held to. The window then goes on from the same state, a step
+at a time, each step's loss read on the host as a trainer logs it, until
+the first step that ends after ``--seconds``.
 
 After the window the program's state is freed and the plain reference
 makes the weights again and takes the same steps on the same batches.
@@ -18,14 +19,14 @@ from __future__ import annotations
 import math
 import statistics
 import time
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import torch
 
 from reference.common import AdamW, Numerics, adamw_step, leaves, leaf_names
 
-from . import counts, traffic, weights
-from .run import Run, free_device, strict_f32
+from harness import counts, traffic, weights
+from harness.run import Run, free_device, strict_f32
 
 
 def _optimizer(mix: Dict) -> AdamW:
@@ -52,44 +53,30 @@ def setup(run: Run) -> Dict:
     opt_cfg = make_optimizer(port.optimizer, total_steps=opt["total_steps"],
                              lr=opt["peak_lr"],
                              grad_compress=port.grad_compress)
-    state = {"params": params, "opt": adamw_init(params, opt_cfg)}
-    step_fn = S.make_train_step(model, opt_cfg)
-    if "unchanged_state" in run.faults:
-        step_fn = _unchanged(model)
-    b, s = mix["batch"], mix["seq_len"]
-    if "half_batch" in run.faults:
-        b //= 2
-    vocab = run.cfg["vocab_size"]
+    b, s, vocab = mix["batch"], mix["seq_len"], run.cfg["vocab_size"]
+    run.work = counts.train_step(ref, b, s)
+    return {"state": {"params": params, "opt": adamw_init(params, opt_cfg)},
+            "step": S.make_train_step(model, opt_cfg),
+            "feed": lambda k: traffic.train_batch(run.seed, k, b, s, vocab,
+                                                  dev),
+            "next": 0, "model": model, "b1": opt_cfg.b1}
 
-    def feed(k):
-        batch = traffic.train_batch(run.seed, k, mix["batch"], s, vocab, dev)
-        return {n: t[:b] for n, t in batch.items()}
 
-    st = {"state": state, "step": step_fn, "feed": feed, "next": 0,
-          "model": model}
+def warm(run: Run, st: Dict) -> None:
+    """The checked steps, and the program's readings of them."""
     losses = []
-    for k in range(mix["checked_steps"]):
+    for k in range(run.cell.mix["checked_steps"]):
         losses.append(_step(st))
         if k == 0:
-            b1 = opt_cfg.b1
-            grads = _norms(state["opt"].mu)
-            grads = {n: v / (1 - b1) for n, v in grads.items()}
-    init = weights.make(ref.param_layout(), run.seed, traffic.WEIGHTS, dev)
+            grads = {n: v / (1 - st["b1"])
+                     for n, v in _norms(st["state"]["opt"].mu).items()}
+    init = weights.make(run.reference().param_layout(), run.seed,
+                        traffic.WEIGHTS, run.device)
     change = {n: float((p.float() - p0.float()).norm())
-              for (n, p), (_, p0) in zip(weights.items(state["params"]),
+              for (n, p), (_, p0) in zip(weights.items(st["state"]["params"]),
                                          weights.items(init))}
     del init
     st["program"] = {"loss": losses, "grad": grads, "change": change}
-    run.work = counts.train_step(run.cfg, mix["batch"], s)
-    return st
-
-
-def _unchanged(model):
-    """A planted fault: a step that returns its state unchanged."""
-    def step(state, batch):
-        with torch.no_grad():
-            return state, model.loss(state["params"], batch)
-    return step
 
 
 def _step(st: Dict) -> float:
@@ -110,17 +97,17 @@ def window(run: Run, st: Dict) -> None:
             break
     run.window_s = time.perf_counter() - t0
     run.attempted = run.units
-    run.tokens = run.units * mix["batch"] * mix["seq_len"]
+    tokens = run.units * mix["batch"] * mix["seq_len"]
+    run.end_to_end["train_tokens_per_s"] = tokens / run.window_s
 
 
 def traced(run: Run, st: Dict) -> None:
-    from .trace import profile
-    mix = run.cell.mix
-    n = mix["trace_steps"]
-    run.trace = profile(lambda: _step(st), n)
-    cfg = run.cfg
-    calls = 2 * cfg["num_layers"] * n     # forward and its recompute
-    run.bounds["flash_attention_wgmma_kernel"] = calls * \
+    """A profiled stretch of ``trace_steps`` steps; the attention kernel's
+    bound a call (the trace counts its calls: forward and any recompute)."""
+    from harness.trace import profile
+    mix, cfg = run.cell.mix, run.cfg
+    run.trace = profile(lambda: _step(st), mix["trace_steps"])
+    run.bounds["flash_attention_wgmma_kernel"] = \
         counts.attention_call_seconds(mix["batch"], cfg["num_heads"],
                                       cfg["num_kv_heads"], mix["seq_len"],
                                       cfg["head_dim"])
@@ -177,32 +164,42 @@ def _tree(layout: Dict, flat: List[torch.Tensor]) -> Dict:
 
 
 def gaps(prog: Dict, ref: Dict) -> Dict[str, float]:
-    """The numbers compared: the worst step's relative loss gap, and the
-    worst leaf's gap of norms (the first gradient; the change over the
-    checked steps) against the larger of that leaf's and the median leaf's
-    reference norm. Leaves whose reference gradient is under a thousandth
-    of the median leaf's (nought to rounding) are left out of the change."""
+    """The numbers compared: each step's relative loss gap, and each
+    leaf's gap of norms (the first gradient; the change over the checked
+    steps) against the larger of that leaf's and the median leaf's
+    reference norm: the worst leaf's, and the mean over the leaves of the
+    first gradient's. Leaves whose reference gradient is under a
+    thousandth of the median leaf's (nought to rounding) are left out of
+    the change."""
     steps = [abs(a - b) / abs(b) for a, b in zip(prog["loss"], ref["loss"])]
-    loss = max(steps)
     g_med = statistics.median(ref["grad"].values())
-    grad = max(abs(prog["grad"][n] - r) / max(r, g_med)
-               for n, r in ref["grad"].items())
+    grad = {n: (prog["grad"][n] - r) / max(r, g_med)
+            for n, r in ref["grad"].items()}
     moved = [n for n, r in ref["grad"].items() if r >= 1e-3 * g_med]
     c_med = statistics.median(ref["change"][n] for n in moved)
-    change = max(abs(prog["change"][n] - ref["change"][n])
-                 / max(ref["change"][n], c_med) for n in moved)
-    out = {"loss_gap": loss, "grad_gap": grad, "change_gap": change}
+    change = {n: (prog["change"][n] - ref["change"][n])
+              / max(ref["change"][n], c_med) for n in moved}
+    out = {"loss_gap": max(steps),
+           "grad_gap": max(abs(g) for g in grad.values()),
+           "grad_gap_mean": statistics.fmean(abs(g) for g in grad.values()),
+           "change_gap": max(abs(c) for c in change.values())}
     out.update({f"loss_gap.{k + 1}": g for k, g in enumerate(steps)})
+    # each leaf's signed gaps, for the look behind a limit
+    out.update({f"grad_gap:{n}": g for n, g in grad.items()})
+    out.update({f"change_gap:{n}": c for n, c in change.items()})
     return out
 
 
-def check(run: Run, st: Dict) -> None:
+def check(run: Run, st: Dict, sides: Tuple[str, ...]) -> Dict[str, Dict]:
+    """The readings of each side against the float32 reference: the
+    program's (taken in warming), and the control's (the reference in fp8
+    in the program's place)."""
     prog = st["program"]
     st.clear()
     free_device()
     strict_f32()
     ref = reference_steps(run, Numerics("f32"))
-    run.readings = gaps(prog, ref)
-    if run.control:
-        run.control_readings = gaps(reference_steps(run, Numerics("fp8")),
-                                    ref)
+    out = {"program": gaps(prog, ref)}
+    if "control" in sides:
+        out["control"] = gaps(reference_steps(run, Numerics("fp8")), ref)
+    return out

@@ -5,14 +5,23 @@ Peaks are NVIDIA's data sheet for one H100 SXM (dense, no sparsity, at the
 700 W limit): 989 TFLOP/s in bf16, 3.35 TB/s of HBM. Model operations are
 the least the mathematics needs: 2 per multiply-add of a weight per token
 the token actually uses (a MoE token's k experts), the attention products
-over the (query, key) pairs a causal mask keeps, and the recurrences' state
+over the (query, key) pairs a causal mask keeps, and any recurrence's state
 updates; training counts the forward once and the backward twice, never a
 recomputation. Bytes count each tensor read once and each written once.
+
+What differs between families comes from the configuration's plain
+reference (``reference/<module>.py``), found by name: its ``counts()``
+(parameters by kind, self-attention layers, recurrence flops a token, the
+bytes of the weights a step reads) and its ``cache_layout``, whose bytes a
+slot and a session are read off two layouts. A new family brings these with
+its reference; nothing here names a family.
 """
 
 from __future__ import annotations
 
 from typing import Dict
+
+from reference.common import layout_bytes
 
 PEAK_FLOPS = 989e12          # bf16 dense, H100 SXM
 HBM_BYTES_PER_S = 3.35e12
@@ -31,133 +40,62 @@ def causal_pairs(s: int, prefix: int = 0) -> int:
     return s * prefix + s * (s + 1) // 2
 
 
-def _vocab(cfg: Dict) -> int:
-    return -(-cfg["vocab_size"] // 256) * 256
+def cache_bytes_per_token(ref) -> int:
+    """Bytes the serving cache keeps a token of one session: what one more
+    slot adds to the reference's cache layout."""
+    return layout_bytes(ref.cache_layout(1, 2)) - \
+        layout_bytes(ref.cache_layout(1, 1))
 
 
-def params(cfg: Dict) -> Dict[str, int]:
-    """Parameter counts by kind: ``dense`` (every token uses them),
-    ``experts`` (all experts' weights), ``active`` (what one token
-    multiplies: dense plus its k experts), ``embed`` (the token table, read
-    a row a token), ``total``."""
-    d, L = cfg["d_model"], cfg["num_layers"]
-    hd = cfg["head_dim"]
-    attn = d * cfg["num_heads"] * hd * 2 + d * cfg["num_kv_heads"] * hd * 2
-    vp = _vocab(cfg)
-    embed, out = vp * d, d * vp
-    if cfg["family"] == "moe":
-        e, f = cfg["num_experts"], cfg["d_ff"]
-        per_expert = 3 * d * f
-        dense = L * (attn + d * e + 2 * d) + out + d
-        experts = L * e * per_expert
-        active = dense + L * cfg["experts_per_token"] * per_expert
-    elif cfg["family"] == "hybrid":
-        di = cfg["ssm_expand"] * d
-        st, nh = cfg["ssm_state"], di // cfg["ssm_head_dim"]
-        c = di + 2 * st
-        mamba = (d * (2 * di + 2 * st + nh) + cfg["ssm_conv_width"] * c + c
-                 + 3 * nh + di + di * d + d)
-        shared = attn + 3 * d * cfg["d_ff"] + 2 * d
-        dense = L * mamba + shared + out + d
-        experts = 0
-        active = dense
-    else:
-        raise ValueError(f"no counts for family {cfg['family']!r}")
-    return {"dense": dense, "experts": experts, "active": active,
-            "embed": embed, "total": dense + experts + embed}
+def state_bytes_per_session(ref) -> int:
+    """Bytes of a session's cache that do not grow with its slots (a
+    recurrence's state)."""
+    return layout_bytes(ref.cache_layout(1, 1)) - cache_bytes_per_token(ref)
 
 
-def _shared_applications(cfg: Dict) -> int:
-    """Layers with self-attention: every layer of a moe model, the shared
-    block's applications of a hybrid one."""
-    if cfg["family"] == "hybrid":
-        return cfg["num_layers"] // cfg["shared_attn_every"]
-    return cfg["num_layers"]
-
-
-def attention_flops(cfg: Dict, batch: int, s: int, prefix: int = 0) -> int:
-    """QK and PV of every attention layer's forward: 4 hd a pair a head."""
+def attention_flops(ref, batch: int, s: int, prefix: int = 0) -> int:
+    """QK and PV of every self-attention layer's forward: 4 hd a pair a
+    head."""
+    cfg = ref.cfg
     return (4 * cfg["head_dim"] * cfg["num_heads"] * batch
-            * causal_pairs(s, prefix) * _shared_applications(cfg))
+            * causal_pairs(s, prefix) * ref.counts()["attention_layers"])
 
 
-def recurrence_flops(cfg: Dict, tokens: int) -> int:
-    """Mamba2's state update and read-out, 4 flops a state element a
-    token (each a multiply-add)."""
-    if cfg["family"] != "hybrid":
-        return 0
-    di = cfg["ssm_expand"] * cfg["d_model"]
-    return 4 * di * cfg["ssm_state"] * tokens * cfg["num_layers"]
+def model_flops(ref, tokens: int, batch: int, seq: int,
+                prefix: int = 0) -> int:
+    """One forward over ``batch`` rows of ``seq`` new tokens each after
+    ``prefix`` earlier ones (``tokens`` = batch x seq)."""
+    c = ref.counts()
+    return (2 * c["active"] * tokens + attention_flops(ref, batch, seq, prefix)
+            + c["recurrence_flops_per_token"] * tokens)
 
 
-def train_step(cfg: Dict, batch: int, seq: int) -> Dict[str, float]:
+def train_step(ref, batch: int, seq: int) -> Dict[str, float]:
     """One optimizer step on batch x seq tokens: the forward once and the
     backward twice; weights, gradients and AdamW's two f32 moments read and
     written once, the batch read once."""
-    p = params(cfg)
     tokens = batch * seq
-    fwd = (2 * p["active"] * tokens + attention_flops(cfg, batch, seq)
-           + recurrence_flops(cfg, tokens))
-    n = p["total"]
+    n = ref.counts()["total"]
     # parameters read and written (bf16), the f32 gradient written and read,
     # two f32 moments read and written
     nbytes = n * (2 * BF16 + 2 * F32 + 4 * F32) + tokens * 16
-    return {"flops": 3.0 * fwd, "bytes": float(nbytes)}
+    return {"flops": 3.0 * model_flops(ref, tokens, batch, seq),
+            "bytes": float(nbytes)}
 
 
-def cache_bytes_per_token(cfg: Dict) -> int:
-    """Bytes of keys and values a token keeps in the cache (bf16)."""
-    return (2 * cfg["num_kv_heads"] * cfg["head_dim"] * BF16
-            * _shared_applications(cfg))
-
-
-def state_bytes_per_session(cfg: Dict) -> int:
-    """Mamba2's recurrent state (f32) and convolution history (bf16) of
-    one session."""
-    if cfg["family"] != "hybrid":
-        return 0
-    di = cfg["ssm_expand"] * cfg["d_model"]
-    st = cfg["ssm_state"]
-    return cfg["num_layers"] * (di * st * F32
-                                + (cfg["ssm_conv_width"] - 1)
-                                * (di + 2 * st) * BF16)
-
-
-def decode_step(cfg: Dict, batch: int, pos: int) -> Dict[str, float]:
+def decode_step(ref, batch: int, pos: int) -> Dict[str, float]:
     """One decode step of ``batch`` sessions at position ``pos`` (pos
-    earlier tokens in the cache): every weight read once (every expert:
-    at batch sizes like these each is chosen), a token-table row a session,
+    earlier tokens in the cache): every weight read once (every expert: at
+    batch sizes like these each is chosen), a token-table row a session,
     the cache's pos rows read and one written, the states read and
     written, the logits written."""
-    p = params(cfg)
-    flops = (2 * p["active"] * batch + attention_flops(cfg, batch, 1, pos)
-             + recurrence_flops(cfg, batch))
-    weights = (p["dense"] + p["experts"]) * BF16 \
-        + batch * cfg["d_model"] * BF16
-    if cfg["family"] == "moe":              # the router is f32
-        weights += cfg["num_layers"] * cfg["d_model"] * cfg["num_experts"] \
-            * (F32 - BF16)
-    cache = batch * (pos + 1) * cache_bytes_per_token(cfg)
-    state = 2 * batch * state_bytes_per_session(cfg)
-    logits = batch * _vocab(cfg) * BF16
-    return {"flops": float(flops),
+    c = ref.counts()
+    weights = c["weight_bytes"] + batch * ref.cfg["d_model"] * BF16
+    cache = batch * (pos + 1) * cache_bytes_per_token(ref)
+    state = 2 * batch * state_bytes_per_session(ref)
+    logits = batch * c["logit_width"] * BF16
+    return {"flops": float(model_flops(ref, batch, batch, 1, pos)),
             "bytes": float(weights + cache + state + logits)}
-
-
-def prefill_call(cfg: Dict, batch: int, seq: int) -> Dict[str, float]:
-    """One prefill of ``batch`` prompts of ``seq`` tokens into an empty
-    cache: weights read once, the prompts' keys, values and final states
-    written, the last position's logits written."""
-    p = params(cfg)
-    tokens = batch * seq
-    flops = (2 * p["active"] * tokens + attention_flops(cfg, batch, seq)
-             + recurrence_flops(cfg, tokens))
-    nbytes = ((p["dense"] + p["experts"]) * BF16
-              + tokens * cfg["d_model"] * BF16
-              + tokens * cache_bytes_per_token(cfg)
-              + batch * state_bytes_per_session(cfg)
-              + batch * _vocab(cfg) * BF16)
-    return {"flops": float(flops), "bytes": float(nbytes)}
 
 
 # ---------------------------------------------------------------------------
@@ -184,4 +122,3 @@ def decode_call_seconds(batch: int, kv: int, g: int, hd: int, rows: int,
               * elem + 4 * batch)
     flops = 4 * kv * g * hd * rows * batch
     return least_seconds(flops, nbytes)
-

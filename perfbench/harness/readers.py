@@ -28,16 +28,20 @@ def step_mfu(run) -> Optional[float]:
     return 100.0 * least / (run.window_s / run.units)
 
 
-def roofline(run, bound: str, patterns: Sequence[str]) -> Optional[float]:
+def roofline(run, bound: str, patterns: Sequence[str],
+             calls: Sequence[str]) -> Optional[float]:
     """Percent of the traced time of the kernels named by ``patterns`` that
-    their bound (``run.bounds[bound]``, summed over the same calls) is."""
+    their bound is: ``run.bounds[bound]`` (a call's least seconds) times
+    the traced calls, counted as the launches of the kernels named by
+    ``calls`` (one a call)."""
     t = run.trace
     if t is None or bound not in run.bounds:
         return None
     seconds = sum(t.kernel_seconds(p) for p in patterns)
-    if seconds <= 0:
+    n = sum(t.kernel_calls(p) for p in calls)
+    if seconds <= 0 or n == 0:
         return None
-    return 100.0 * run.bounds[bound] / seconds
+    return 100.0 * run.bounds[bound] * n / seconds
 
 
 def launches_per_unit(run) -> Optional[float]:

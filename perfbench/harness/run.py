@@ -1,12 +1,13 @@
 """One run of one cell: set-up, the measured window, the traced stretch
 (``--trace 1``), the comparison with the plain reference, the result line.
 
-The drivers (``train``, ``decode``, ``prefill``: one per mix ``kind``) fill
-a ``Run``: what the window did and how long it took, the trace, the work of
-a step counted from shapes, and the numbers compared. This module turns it
-into the result: the cell's end-to-end metrics (``--trace 0``) or its
-per-layer metrics (``--trace 1``, each from its reader in ``metrics/``),
-``correct`` from the numbers and their limits, and the device.
+The driver of the cell's mix kind (``drivers/<kind>.py``, found by name)
+fills a ``Run``: its end-to-end metrics over the window, the trace, the
+work of a step counted from shapes, and the numbers compared. This module
+turns it into the result: the cell's end-to-end metrics (``--trace 0``) or
+its per-layer metrics (``--trace 1``, each from its reader in
+``metrics/``), ``correct`` from the numbers and their limits, and the
+device.
 """
 
 from __future__ import annotations
@@ -17,11 +18,12 @@ import math
 import sys
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
-from .spec import Cell, ROOT, load_cell, metric_reader, reference_class
+from .spec import (Cell, ROOT, driver, load_cell, metric_reader,
+                   reference_class)
 from .trace import Trace
 
 # top-level module names the run may not hold once the window has closed
@@ -35,22 +37,17 @@ class Run:
     seconds: float
     traced: bool
     device: torch.device
-    faults: tuple = ()            # planted faults (the harness's own tests)
-    control: bool = False         # also read the fp8 reference (the control)
-    port: object = None           # the program's config to hold the file to
-                                  # (None: the registry's entry of the arch)
     # filled by the driver
     units: int = 0                # steps or calls in the window
     window_s: float = 0.0
-    tokens: int = 0               # tokens trained, generated or prefilled
-    gaps_s: List[float] = field(default_factory=list)   # between tokens
+    end_to_end: Dict[str, float] = field(default_factory=dict)  # but setup_s
     work: Dict[str, float] = field(default_factory=dict)  # a unit's
     setup_s: float = 0.0
     trace: Optional[Trace] = None
-    bounds: Dict[str, float] = field(default_factory=dict)  # traced kernels
+    bounds: Dict[str, float] = field(default_factory=dict)  # a traced
+                                  # kernel's least seconds a call
     memory_peak: int = 0
     readings: Dict[str, float] = field(default_factory=dict)
-    control_readings: Dict[str, float] = field(default_factory=dict)
     attempted: int = 0
     failed: int = 0
 
@@ -65,8 +62,7 @@ class Run:
     def port_config(self):
         """The program's config of this cell's arch, checked against every
         number the configuration file states."""
-        from repro_torch.configs import get_config
-        port = self.port or get_config(self.cell.config["arch"])
+        port = program_config(self.cell.config["arch"])
         for key, want in self.cfg.items():
             have = getattr(port, key)
             if have != want:
@@ -79,16 +75,10 @@ class Run:
         return reference_class(self.cell.config)(self.cfg)
 
 
-def _driver(kind: str):
-    if kind == "train":
-        from . import train as d
-    elif kind == "decode":
-        from . import decode as d
-    elif kind == "prefill":
-        from . import prefill as d
-    else:
-        raise ValueError(f"no driver for mix kind {kind!r}")
-    return d
+def program_config(arch: str):
+    """The program's registered config of ``arch``."""
+    from repro_torch.configs import get_config
+    return get_config(arch)
 
 
 def free_device() -> None:
@@ -103,16 +93,26 @@ def strict_f32() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
-def execute(run: Run, t_start: float) -> Run:
+def execute(run: Run, t_start: float,
+            plant: Optional[Callable[[Run, Dict], None]] = None,
+            sides: Sequence[str] = ("program",)) -> Dict[str, Dict]:
     """Set-up, window, trace and check of ``run``; ``t_start`` is the
-    process's start on the host clock."""
-    d = _driver(run.kind)
+    process's start on the host clock. ``plant(run, st)``, where given,
+    changes the built state before its first step (a fault, in the
+    harness's tests and calibration). Returns the readings of each of
+    ``sides`` (``program``; ``control``: the plain reference in the
+    program's place, computed a precision lower); ``run.readings`` are the
+    program's."""
+    d = driver(run.kind, run.cell.root)
     cuda = run.device.type == "cuda"
     if cuda:
         torch.cuda.set_device(run.device)
         torch.zeros(1, device=run.device)      # the allocator, initialised
         torch.cuda.reset_peak_memory_stats(run.device)
     state = d.setup(run)
+    if plant is not None:
+        plant(run, state)
+    d.warm(run, state)
     if cuda:
         torch.cuda.synchronize(run.device)
     run.setup_s = time.perf_counter() - t_start
@@ -122,8 +122,9 @@ def execute(run: Run, t_start: float) -> Run:
     if cuda:
         torch.cuda.synchronize(run.device)
         run.memory_peak = torch.cuda.max_memory_allocated(run.device)
-    d.check(run, state)
-    return run
+    readings = d.check(run, state, tuple(sides))
+    run.readings = readings["program"]
+    return readings
 
 
 def _judge(run: Run) -> Dict[str, Dict[str, float]]:
@@ -146,8 +147,11 @@ def result(run: Run) -> Dict:
             if value is not None:
                 metrics[m.name] = {"value": value, "unit": m.unit}
     else:
-        e2e = e2e_values(run)
+        e2e = dict(run.end_to_end, setup_s=run.setup_s)
         for m in run.cell.end_to_end:
+            if m.name not in e2e:
+                raise RuntimeError(f"the {run.kind} driver measured no "
+                                   f"{m.name}")
             metrics[m.name] = {"value": e2e[m.name], "unit": m.unit}
     device = {"platform": "gpu" if run.device.type == "cuda" else "cpu",
               "kind": (torch.cuda.get_device_name(run.device)
@@ -162,23 +166,6 @@ def result(run: Run) -> Dict:
         out["breakdown"] = run.trace.breakdown()
     out["checks"] = checks
     return out
-
-
-def e2e_values(run: Run) -> Dict[str, float]:
-    rate = run.tokens / run.window_s
-    out = {"setup_s": run.setup_s, f"{run.kind}_tokens_per_s": rate}
-    if run.gaps_s:
-        out["decode_step_p95_ms"] = 1e3 * percentile(run.gaps_s, 95)
-    return out
-
-
-def percentile(values: List[float], q: float) -> float:
-    """The q-th percentile, linear between the two nearest ranks."""
-    v = sorted(values)
-    x = (len(v) - 1) * q / 100
-    lo = int(math.floor(x))
-    hi = min(lo + 1, len(v) - 1)
-    return v[lo] + (v[hi] - v[lo]) * (x - lo)
 
 
 def write_trace_summary(run: Run) -> None:
@@ -232,11 +219,18 @@ def main(argv: Optional[List[str]] = None, t_start: Optional[float] = None
     out = result(run)
     if run.trace is not None:
         write_trace_summary(run)
-    for name, c in out["checks"].items():
-        print(f"check {name}: {c['value']!r} limit {c['limit']!r}",
-              file=sys.stderr)
-    print(json.dumps(out), flush=True)
+    report(out)
     return 0
 
 
-__all__ = ["Run", "execute", "result", "main", "ROOT"]
+def report(out: Dict) -> None:
+    """The numbers compared, each beside its limit, as the last lines of
+    standard error; the result as the last line of standard output."""
+    for name, c in out["checks"].items():
+        print(f"check {name}: {c['value']!r} limit {c['limit']!r}",
+              file=sys.stderr, flush=True)
+    print(json.dumps(out), flush=True)
+
+
+__all__ = ["Run", "execute", "result", "report", "main", "ROOT",
+           "load_cell"]

@@ -9,7 +9,7 @@ found by the name ``BENCHMARK.json`` gives it:
   what was reduced and what was assumed, and its plain reference
   (``reference/<module>.py``);
 * ``mixes/<traffic>.json``: the traffic's parameters, read by the one
-  generator of its ``kind`` (``train``, ``decode``, ``prefill``);
+  driver of its ``kind``, ``drivers/<kind>.py`` (``train``, ``decode``);
 * ``limits/<workload>.json``: the limit of each number compared, with the
   readings it was set from;
 * ``metrics/<name>.py``: a per-layer metric's reader, ``read(run)``.
@@ -88,6 +88,9 @@ def load_cell(name: str, root: Path = ROOT) -> Cell:
     if mix.get("name") != w["traffic"]:
         raise SpecError(f"mixes/{w['traffic']}.json holds mix "
                         f"{mix.get('name')!r}")
+    if not (here / "drivers" / f"{mix.get('kind')}.py").is_file():
+        raise SpecError(f"mixes/{w['traffic']}.json: no driver "
+                        f"drivers/{mix.get('kind')}.py for its kind")
     limits = _read_json(here / "limits" / f"{name}.json")
     e2e = [Metric(m["name"], m["unit"])
            for m in bench["end_to_end"] if _applies(m, name)]
@@ -121,6 +124,24 @@ def metric_reader(name: str, root: Path = ROOT):
     if not hasattr(mod, "read"):
         raise SpecError(f"metrics/{name}.py has no read(run)")
     return mod.read
+
+
+DRIVER_STEPS = ("setup", "warm", "window", "traced", "check")
+
+
+def driver(kind: str, root: Path = ROOT) -> ModuleType:
+    """The driver of a mix kind (``drivers/<kind>.py``): ``setup(run)``
+    builds the state, ``warm(run, st)`` takes every shape the window uses,
+    ``window(run, st)`` measures, ``traced(run, st)`` profiles a stretch,
+    ``check(run, st, sides)`` reads the numbers compared."""
+    path = root / BENCH_DIR.name / "drivers" / f"{kind}.py"
+    if not path.is_file():
+        raise SpecError(f"no driver drivers/{kind}.py for mix kind {kind!r}")
+    mod = load_module(path, f"perfbench_driver_{kind}")
+    missing = [f for f in DRIVER_STEPS if not hasattr(mod, f)]
+    if missing:
+        raise SpecError(f"drivers/{kind}.py lacks {missing}")
+    return mod
 
 
 def reference_class(config: Dict):

@@ -45,6 +45,10 @@ class Trace:
         """Seconds of the kernels whose name holds ``pattern``."""
         return sum(e - s for n, s, e in self.kernels if pattern in n) / 1e9
 
+    def kernel_calls(self, pattern: str) -> int:
+        """Launches of the kernels whose name holds ``pattern``."""
+        return sum(1 for n, _, _ in self.kernels if pattern in n)
+
     def breakdown(self) -> Dict[str, list]:
         ops = sorted(self.time_by_kernel().items(), key=lambda x: -x[1])[:10]
         return {"device_ops": [[n[:NAME_CHARS], s] for n, s in ops],

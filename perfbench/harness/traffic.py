@@ -6,8 +6,8 @@ from numpy's generator on ``SeedSequence([seed, step])``, the id
 min(floor(V u^3), V - 1), so small ids are frequent. A training batch of
 step k is exactly that class's batch k (tokens, and labels shifted by one).
 Serving draws use further streams of the same seed, so every piece of a
-run (batches, prompts, first tokens, which sessions are checked) is a pure
-function of ``--seed`` and of the mix.
+run (batches, first tokens, which sessions are checked) is a pure function
+of ``--seed`` and of the mix.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ import torch
 
 # stream ids of the serving draws (training uses SyntheticLMData's [seed,
 # step] directly)
-PROMPTS, FIRST_TOKENS, SAMPLE = 1_000_001, 1_000_002, 1_000_003
+FIRST_TOKENS, SAMPLE = 1_000_002, 1_000_003
 WEIGHTS, CACHE = 1_000_004, 1_000_005
 
 
@@ -52,13 +52,6 @@ def train_batch(seed: int, step: int, batch: int, seq: int, vocab: int,
     toks = torch.from_numpy(zipf_ids(rng(seed, step), (batch, seq + 1),
                                      vocab)).to(device)
     return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
-
-
-def prompts(seed: int, call: int, batch: int, seq: int, vocab: int,
-            device) -> torch.Tensor:
-    """The prompts of prefill call ``call``: [batch, seq]."""
-    return torch.from_numpy(zipf_ids(rng(seed, PROMPTS, call),
-                                     (batch, seq), vocab)).to(device)
 
 
 def first_tokens(seed: int, batch: int, vocab: int, device) -> torch.Tensor:

@@ -209,3 +209,16 @@ def normal(shape, fan_in: Optional[int] = None, scale: float = 1.0,
 
 def const(shape, value: float, dtype=torch.bfloat16) -> Leaf:
     return Leaf(tuple(shape), dtype, "const", value=value)
+
+
+def layout_numel(layout: Dict) -> int:
+    """Elements of every tensor of a layout (a tree of ``Leaf``)."""
+    return sum(layout_numel(v) if isinstance(v, dict) else math.prod(v.shape)
+               for v in layout.values())
+
+
+def layout_bytes(layout: Dict) -> int:
+    """Bytes of every tensor of a layout."""
+    return sum(layout_bytes(v) if isinstance(v, dict)
+               else math.prod(v.shape) * v.dtype.itemsize
+               for v in layout.values())

@@ -24,8 +24,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from .common import (Leaf, Numerics, attention, const, layer, lm_loss_row,
-                     normal, rms_norm, rope, swiglu)
+from .common import (Leaf, Numerics, attention, const, layer, layout_bytes,
+                     layout_numel, lm_loss_row, normal, rms_norm, rope,
+                     swiglu)
 
 
 class MoELM:
@@ -65,6 +66,29 @@ class MoELM:
     def cache_layout(self, batch: int, slots: int) -> Dict:
         shape = (self.L, batch, self.kv, slots, self.hd)
         return {"self": {"k": Leaf(shape), "v": Leaf(shape)}}
+
+    def counts(self) -> Dict[str, int]:
+        """What the benchmark's counts of operations and bytes take from
+        this family: parameters by kind (``dense``: every token uses them;
+        ``experts``: all experts' weights; ``active``: what one token
+        multiplies, dense plus its k experts; ``embed``: the token table,
+        read a row a token; ``total``), the self-attention layers a token
+        passes, a recurrence's flops a token (none here), the bytes of
+        every weight but the token table, and the logits' width."""
+        layout = self.param_layout()
+        total = layout_numel(layout)
+        embed = layout_numel({"tok": layout["embed"]["tok"]})
+        ffn = layout["moe_blocks"]["ffn"]
+        experts = layout_numel({k: ffn[k]
+                                for k in ("w_gate", "w_up", "w_down")})
+        dense = total - embed - experts
+        return {"dense": dense, "experts": experts,
+                "active": dense + experts * self.K // self.E,
+                "embed": embed, "total": total,
+                "attention_layers": self.L, "recurrence_flops_per_token": 0,
+                "weight_bytes": layout_bytes(layout)
+                - layout_bytes({"tok": layout["embed"]["tok"]}),
+                "logit_width": self.vp}
 
     # -- layers -------------------------------------------------------------
 

@@ -1,55 +1,54 @@
 """What decides ``correct``, driven through whole runs on the CPU at the
 program's smoke sizes (the harness's look for a card skipped): the program
 passes its cell's limits; the control (the plain reference in fp8 in the
-program's place) and each planted fault the cell can have do not."""
+program's place), judged by the same ``result``, and each planted fault
+the cell can have do not."""
+
+import dataclasses
 
 import pytest
 import torch
 
-from smallcells import small_run
-
-CELLS = ["granite-moe.train_4k", "zamba2.decode_4k", "zamba2.prefill_2k"]
-FAULTS = {"granite-moe.train_4k": ["unchanged_state", "half_batch"],
-          "zamba2.decode_4k": ["unchanged_state", "altered_token"],
-          "zamba2.prefill_2k": ["unchanged_state", "altered_token"]}
+import faults
+from harness.run import result
+from smallcells import CELLS, small_run
 
 
 @pytest.mark.parametrize("name", CELLS)
 def test_program_passes_and_control_fails(name):
-    run, out = small_run(name, control=True)
+    run, readings, out = small_run(name, sides=("program", "control"))
     assert out["correct"], out["checks"]
     assert out["failed"] == 0 and out["attempted"] > 0
     assert list(out)[-1] == "checks"
-    limits = run.cell.limits
-    assert any(run.control_readings[k] > limits[k] for k in limits), \
-        (run.control_readings, limits)
+    control = result(dataclasses.replace(run, readings=readings["control"]))
+    assert not control["correct"], control["checks"]
 
 
 @pytest.mark.parametrize("name,fault",
-                         [(c, f) for c in CELLS for f in FAULTS[c]])
+                         [(c, f) for c in CELLS
+                          for f in faults.BY_KIND[
+                              "train" if "train" in c else "decode"]])
 def test_planted_fault_is_caught(name, fault):
-    _, out = small_run(name, faults=(fault,))
+    _, _, out = small_run(name, plant=faults.plant(fault))
     assert not out["correct"], out["checks"]
 
 
 def test_same_seed_same_inputs():
-    """Weights, caches, batches and prompts are pure functions of the seed
-    (one past 32 bits included), and another seed draws others."""
+    """Weights, caches and batches are pure functions of the seed (one
+    past 32 bits included), and another seed draws others."""
     from harness import traffic, weights
     from harness.spec import reference_class
     from smallcells import SEED, small_cell
-    cell, _ = small_cell("zamba2.decode_4k")
+    cell, _ = small_cell("granite-moe.decode")
     ref = reference_class(cell.config)(cell.config["config"])
 
     def draw(seed):
         w = weights.make(ref.param_layout(), seed, traffic.WEIGHTS, "cpu")
-        c = weights.make(ref.cache_layout(2, 8, state_std=0.5), seed,
-                         traffic.CACHE, "cpu")
+        c = weights.make(ref.cache_layout(2, 8), seed, traffic.CACHE, "cpu")
         return ([t for _, t in weights.items(w)]
                 + [t for _, t in weights.items(c)]
                 + list(traffic.train_batch(seed, 3, 2, 16, 500, "cpu").values())
-                + [traffic.prompts(seed, 2, 2, 16, 500, "cpu"),
-                   traffic.first_tokens(seed, 4, 500, "cpu")])
+                + [traffic.first_tokens(seed, 4, 500, "cpu")])
 
     a, b, c = draw(SEED), draw(SEED), draw(SEED + 1)
     assert all(torch.equal(x, y) for x, y in zip(a, b))

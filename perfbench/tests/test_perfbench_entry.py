@@ -12,7 +12,7 @@ import torch
 
 from harness import counts
 from harness.run import forbidden_modules
-from harness.spec import ROOT, load_cell
+from harness.spec import ROOT, load_cell, reference_class
 
 CMD = [sys.executable, str(ROOT / "perfbench" / "run.py")]
 
@@ -31,7 +31,7 @@ def test_without_a_card_it_fails_with_no_result():
 
 def test_no_jax_and_no_jax_package_loaded():
     from smallcells import small_run
-    small_run("zamba2.prefill_2k")
+    small_run("granite-moe.train_4k")
     assert forbidden_modules() == []
     assert "repro_torch" in sys.modules       # the program: not "repro"
 
@@ -50,10 +50,14 @@ def test_references_import_nothing_of_the_program():
                                                "harness"), (path, n)
 
 
+def _granite():
+    config = load_cell("granite-moe.train_4k").config
+    return reference_class(config)(config["config"])
+
+
 def test_counts_by_hand():
-    g = load_cell("granite-moe.train_4k").config["config"]
-    z = load_cell("zamba2.decode_4k").config["config"]
-    pg, pz = counts.params(g), counts.params(z)
+    ref = _granite()
+    pg = ref.counts()
     # granite: 24 x (attn 3 145 728 + router 32 768 + norms 2 048)
     # + out 50 593 792 + final norm 1 024; experts 24 x 32 x 1 572 864
     assert pg["dense"] == 24 * (3145728 + 32768 + 2048) + 1024 * 49408 + 1024
@@ -63,46 +67,41 @@ def test_counts_by_hand():
     assert pg["total"] == 1384913920 + (49408 - 49155) * 1024 * 2 \
         + 24 * 2 * 1024
     assert pg["active"] == pg["dense"] + 24 * 8 * 3 * 1024 * 512
-    # zamba2: 54 x (in-projection 2560 x 10 448, conv 4 x 5248 and its bias,
-    # a_log, dt_bias, d_skip of 80, norms 2560 and 5120, out 5120 x 2560)
-    # + the shared block + two 32000-row tables and the final norm
-    mamba = (2560 * 10448 + 4 * 5248 + 5248 + 3 * 80 + 2560 + 5120
-             + 5120 * 2560)
-    shared = 4 * 2560 * 2560 + 3 * 2560 * 10240 + 2 * 2560
-    assert pz["total"] == 54 * mamba + shared + 2 * 32000 * 2560 + 2560
-    # zamba2 K/V: 9 places x 2 x 32 x 80 x 2 B = 92 160 B a token
-    assert counts.cache_bytes_per_token(z) == 92160
-    # Mamba2 state: 54 x 80 x 64 x 64 x 4 B, history 54 x 3 x 5248 x 2 B
-    assert counts.state_bytes_per_session(z) == 54 * (5120 * 64 * 4
-                                                      + 3 * 5248 * 2)
-    t = counts.train_step(g, 4, 4096)
+    assert pg["embed"] == 49408 * 1024 and pg["attention_layers"] == 24
+    # every weight in bf16 but the f32 router, the token table left out
+    assert pg["weight_bytes"] == 2 * (pg["total"] - pg["embed"]) \
+        + 24 * 1024 * 32 * 2
+    # K/V: 24 layers x 2 x 8 heads x 64 x 2 B = 49 152 B a token, no state
+    assert counts.cache_bytes_per_token(ref) == 49152
+    assert counts.state_bytes_per_session(ref) == 0
+    t = counts.train_step(ref, 4, 4096)
     attn = 4 * 64 * 16 * 4 * (4096 * 4097 // 2) * 24
     assert t["flops"] == 3.0 * (2 * pg["active"] * 16384 + attn)
-    d = counts.decode_step(z, 128, 3840)
-    assert d["bytes"] > 128 * 3841 * 92160 + 2 * 128 * 70778880
+    d = counts.decode_step(ref, 256, 3840)
+    assert d["bytes"] == pg["weight_bytes"] + 256 * 1024 * 2 \
+        + 256 * 3841 * 49152 + 256 * 49408 * 2
+    assert d["flops"] == 2 * pg["active"] * 256 \
+        + 4 * 64 * 16 * 256 * (3840 + 1) * 24
     assert counts.least_seconds(d["flops"], d["bytes"]) == \
         d["bytes"] / counts.HBM_BYTES_PER_S
 
 
 def test_counts_bound_the_programs_tally():
-    """The model FLOPs of a prefill are at most what the program's own
-    dry-run tally counts it running (it runs every expert's capacity, the
-    scan's chunk products), and not far below it."""
+    """The model FLOPs of a training step are at most what the program's
+    own dry-run tally counts it running (it runs every expert's capacity,
+    and recomputes under remat), and not far below it."""
     from repro_torch.launch.dryrun import run_step
-    from smallcells import small_cell
-    from harness import weights
-    from harness.spec import reference_class
     from repro_torch.models import LM
-    for name in ("zamba2.prefill_2k", "granite-moe.train_4k"):
-        cell, port = small_cell(name)
-        cfg = cell.config["config"]
-        ref = reference_class(cell.config)(cfg)
-        model = LM(port.replace(use_flash=True))
-        params = weights.make(ref.param_layout(), 1, 0, "cpu")
-        toks = torch.randint(0, 500, (2, 64))
-        cache = model.init_cache(2, 64, "cpu")
-        with torch.no_grad():
-            tally, _, _ = run_step(model.prefill,
-                                   (params, {"tokens": toks}, cache), 2)
-        ours = counts.prefill_call(cfg, 2, 64)["flops"]
-        assert ours <= tally.flops <= 4 * ours, (name, ours, tally.flops)
+    from harness import weights
+    from smallcells import small_cell
+    cell, port = small_cell("granite-moe.train_4k")
+    ref = reference_class(cell.config)(cell.config["config"])
+    model = LM(port.replace(use_flash=True))
+    params = weights.make(ref.param_layout(), 1, 0, "cpu")
+    toks = torch.randint(0, 500, (2, 65))
+    cache = model.init_cache(2, 64, "cpu")
+    with torch.no_grad():
+        tally, _, _ = run_step(model.prefill,
+                               (params, {"tokens": toks[:, :64]}, cache), 2)
+    ours = counts.model_flops(ref, 2 * 64, 2, 64)
+    assert ours <= tally.flops <= 4 * ours, (ours, tally.flops)

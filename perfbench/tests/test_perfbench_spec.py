@@ -1,12 +1,14 @@
 """The harness finds each cell's files by name, refuses what has none, and
-takes a new configuration, mix, limits and metric as new files alone."""
+takes a new mix, cell, limits, metric and mix kind as new files alone."""
 
 import json
 import shutil
 
 import pytest
+import torch
 
-from harness.spec import ROOT, SpecError, load_cell, metric_reader
+from harness.run import Run, execute, result
+from harness.spec import ROOT, SpecError, driver, load_cell, metric_reader
 
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 
@@ -30,6 +32,8 @@ def test_unknown_names_are_refused():
         load_cell("no-such.cell")
     with pytest.raises(SpecError, match="no reader"):
         metric_reader("no_such_metric")
+    with pytest.raises(SpecError, match="no driver"):
+        driver("no_such_kind")
 
 
 def test_contract_shape():
@@ -45,35 +49,100 @@ def test_contract_shape():
         assert 0.01 <= m["bound"] <= 0.25
 
 
-def test_new_files_add_a_cell(tmp_path):
-    """A later change adds a mix, a cell's limits and a per-layer metric as
-    new files and entries; no file that is there changes."""
+def _checkout(tmp_path):
     root = tmp_path / "checkout"
     shutil.copytree(ROOT / "perfbench", root / "perfbench",
                     ignore=shutil.ignore_patterns("__pycache__"))
-    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
-    mix = json.loads((ROOT / "perfbench/mixes/decode_4k_128.json").read_text())
+    return root, json.loads((ROOT / "BENCHMARK.json").read_text())
+
+
+def test_new_files_add_a_cell(tmp_path):
+    """A later change adds a mix, a cell's limits and a per-layer metric as
+    new files and entries; no file that is there changes."""
+    root, bench = _checkout(tmp_path)
+    mix = json.loads((ROOT / "perfbench/mixes/decode_4k_256.json").read_text())
     mix.update(name="decode_chat", sessions=8, cache_slots=512, history=384,
                round=128)
     (root / "perfbench/mixes/decode_chat.json").write_text(json.dumps(mix))
-    (root / "perfbench/limits/zamba2.decode_chat.json").write_text(
-        json.dumps({"limits": {"token_gap": {"limit": 0.5}}}))
+    (root / "perfbench/limits/granite-moe.decode_chat.json").write_text(
+        json.dumps({"limits": {"token_gap_mean": {"limit": 0.5}}}))
     (root / "perfbench/metrics/steps_traced.decode.py").write_text(
         "def read(run):\n    return run.trace.units if run.trace else None\n")
-    bench["workloads"].append({"name": "zamba2.decode_chat",
-                               "config": "zamba2-2.7b",
+    bench["workloads"].append({"name": "granite-moe.decode_chat",
+                               "config": "granite-moe-1b-a400m",
                                "traffic": "decode_chat", "chips": 1,
                                "why": "a host-paced chat batch"})
+    bench["end_to_end"].append({
+        "name": "decode_tokens_per_s", "unit": "tokens/s", "better": "higher",
+        "bound": 0.05, "source": "host_clock",
+        "workloads": ["granite-moe.decode_chat"]})
     bench["per_layer"].append({
         "name": "steps_traced.decode", "unit": "steps", "better": "higher",
         "source": "device_trace", "layer": "device",
-        "moves": "decode_tokens_per_s", "workloads": ["zamba2.decode_chat"]})
+        "moves": "decode_tokens_per_s",
+        "workloads": ["granite-moe.decode_chat"]})
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
-    cell = load_cell("zamba2.decode_chat", root)
+    cell = load_cell("granite-moe.decode_chat", root)
     assert cell.mix["sessions"] == 8
-    assert cell.limits == {"token_gap": 0.5}
-    assert [m.name for m in cell.per_layer][-1] == "steps_traced.decode"
+    assert cell.limits == {"token_gap_mean": 0.5}
+    assert {m.name for m in cell.end_to_end} == {"decode_tokens_per_s",
+                                                 "setup_s"}
+    assert [m.name for m in cell.per_layer] == ["steps_traced.decode"]
     assert metric_reader("steps_traced.decode", root)(
         type("R", (), {"trace": None})()) is None
     with pytest.raises(SpecError):
-        load_cell("zamba2.decode_chat")       # not in the repo's own file
+        load_cell("granite-moe.decode_chat")  # not in the repo's own file
+
+
+TOY_DRIVER = """
+def setup(run):
+    return {"n": 0}
+
+
+def warm(run, st):
+    st["n"] += 1
+
+
+def window(run, st):
+    run.units = run.attempted = 5
+    run.window_s = 0.5
+    run.end_to_end["toy_items_per_s"] = run.units / run.window_s
+
+
+def traced(run, st):
+    pass
+
+
+def check(run, st, sides):
+    return {s: {"gap": 0.0 if s == "program" else 1.0} for s in sides}
+"""
+
+
+def test_a_new_kind_is_a_driver_file(tmp_path):
+    """A mix of a kind the harness has no driver for comes with
+    ``drivers/<kind>.py``, found by name and run whole through ``result``,
+    its end-to-end metric a new entry."""
+    root, bench = _checkout(tmp_path)
+    (root / "perfbench/drivers/toy.py").write_text(TOY_DRIVER)
+    (root / "perfbench/mixes/toy_mix.json").write_text(
+        json.dumps({"name": "toy_mix", "kind": "toy"}))
+    (root / "perfbench/limits/granite-moe.toy.json").write_text(
+        json.dumps({"limits": {"gap": {"limit": 0.5}}}))
+    bench["workloads"].append({"name": "granite-moe.toy",
+                               "config": "granite-moe-1b-a400m",
+                               "traffic": "toy_mix", "chips": 1,
+                               "why": "a kind of its own"})
+    bench["end_to_end"].append({
+        "name": "toy_items_per_s", "unit": "items/s", "better": "higher",
+        "bound": 0.05, "source": "host_clock",
+        "workloads": ["granite-moe.toy"]})
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    cell = load_cell("granite-moe.toy", root)
+    run = Run(cell, 1, 0.1, False, torch.device("cpu"))
+    sides = execute(run, 0.0, sides=("program", "control"))
+    out = result(run)
+    assert out["correct"] and out["metrics"]["toy_items_per_s"]["value"] == 10
+    assert sides["control"] == {"gap": 1.0}
+    (root / "perfbench/drivers/toy.py").unlink()
+    with pytest.raises(SpecError, match="no driver"):
+        load_cell("granite-moe.toy", root)
