@@ -38,6 +38,7 @@ import functools
 
 import torch
 
+from ... import trace
 from .. import _build, refuse_dtensors
 from .ref import flash_attention_plain
 
@@ -155,25 +156,26 @@ def _launch(q, k, v, causal, q_off=0) -> torch.Tensor:
 
 def _plain_backward(q, k, v, do, causal, q_off=0):
     """Gradients of the plain version, a few kv heads at a time."""
-    b, h, sq, _ = q.shape
-    kv, skv = k.shape[1], k.shape[2]
-    g = h // kv
-    per_kv = max(1, BACKWARD_CHUNK_ELEMS // (b * g * sq * skv))
-    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
-    for j0 in range(0, kv, per_kv):
-        j1 = min(kv, j0 + per_kv)
-        qc = q[:, j0 * g:j1 * g].detach().requires_grad_()
-        kc = k[:, j0:j1].detach().requires_grad_()
-        vc = v[:, j0:j1].detach().requires_grad_()
-        with torch.enable_grad():
-            o = flash_attention_plain(qc, kc, vc, causal=causal,
-                                      q_off=q_off)
-            gq, gk, gv = torch.autograd.grad(o, (qc, kc, vc),
-                                             do[:, j0 * g:j1 * g])
-        dq[:, j0 * g:j1 * g] = gq
-        dk[:, j0:j1] = gk
-        dv[:, j0:j1] = gv
-    return dq, dk, dv
+    with trace.span("attention.backward"):
+        b, h, sq, _ = q.shape
+        kv, skv = k.shape[1], k.shape[2]
+        g = h // kv
+        per_kv = max(1, BACKWARD_CHUNK_ELEMS // (b * g * sq * skv))
+        dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+        for j0 in range(0, kv, per_kv):
+            j1 = min(kv, j0 + per_kv)
+            qc = q[:, j0 * g:j1 * g].detach().requires_grad_()
+            kc = k[:, j0:j1].detach().requires_grad_()
+            vc = v[:, j0:j1].detach().requires_grad_()
+            with torch.enable_grad():
+                o = flash_attention_plain(qc, kc, vc, causal=causal,
+                                          q_off=q_off)
+                gq, gk, gv = torch.autograd.grad(o, (qc, kc, vc),
+                                                 do[:, j0 * g:j1 * g])
+            dq[:, j0 * g:j1 * g] = gq
+            dk[:, j0:j1] = gk
+            dv[:, j0:j1] = gv
+        return dq, dk, dv
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -15,6 +15,7 @@ import torch
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, distribute_tensor
 
+from repro_torch import trace
 from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.data.pipeline import batch_logical_axes, batch_specs
 from repro_torch.device import resolve_device
@@ -94,8 +95,10 @@ def loss_and_grads(model: LM, params: Tree, batch: Dict[str, torch.Tensor]
     for p in leaves:
         p.requires_grad_(True)
     try:
-        loss = model.loss(params, batch)
-        grads = torch.autograd.grad(loss, leaves)
+        with trace.span("step.forward"):
+            loss = model.loss(params, batch)
+        with trace.span("step.backward"):
+            grads = torch.autograd.grad(loss, leaves)
     finally:
         for p in leaves:
             p.requires_grad_(False)
@@ -121,8 +124,9 @@ def make_train_step(model: LM, opt_cfg: AdamWConfig,
         loss, grads = loss_and_grads(model, state["params"], batch)
         if grad_specs is not None:
             grads = tree_map(_constrain, grads, grad_specs)
-        params2, opt2 = adamw_update(state["params"], grads, state["opt"],
-                                     opt_cfg)
+        with trace.span("step.optimizer"):
+            params2, opt2 = adamw_update(state["params"], grads,
+                                         state["opt"], opt_cfg)
         return {"params": params2, "opt": opt2}, loss
     return train_step
 

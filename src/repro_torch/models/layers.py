@@ -47,6 +47,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
+from repro_torch import trace
 from repro_torch.distributed.sharding import (flatten, gather_weight as GW,
                                               linear, replicate_like, shard,
                                               unflatten)
@@ -380,64 +381,69 @@ def attention(p: Tree, x: torch.Tensor, cfg, *, positions: torch.Tensor,
     """
     if memory is not None and cache is not None:
         raise ValueError("cross-attention takes no cache")
-    b, s, _ = x.shape
-    hd = cfg.resolved_head_dim
-    hq, hkv = cfg.num_heads, cfg.num_kv_heads
-    g = hq // hkv
+    with trace.span("attention"):
+        b, s, _ = x.shape
+        hd = cfg.resolved_head_dim
+        hq, hkv = cfg.num_heads, cfg.num_kv_heads
+        g = hq // hkv
 
-    src = x if memory is None else memory
-    q = linear(x, GW(p["wq"]))
-    k = linear(src, GW(p["wk"]))
-    v = linear(src, GW(p["wv"]))
-    if "bq" in p:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = shard(q, "batch", "seq", "qkv")
-    # a head split that cannot keep a DTensor's shard moves it to seq
-    q = unflatten(q, 2, (hq, hd), spill=1)
-    k = unflatten(k, 2, (hkv, hd), spill=1)
-    v = unflatten(v, 2, (hkv, hd), spill=1)
+        src = x if memory is None else memory
+        q = linear(x, GW(p["wq"]))
+        k = linear(src, GW(p["wk"]))
+        v = linear(src, GW(p["wv"]))
+        if "bq" in p:
+            q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        q = shard(q, "batch", "seq", "qkv")
+        # a head split that cannot keep a DTensor's shard moves it to seq
+        q = unflatten(q, 2, (hq, hd), spill=1)
+        k = unflatten(k, 2, (hkv, hd), spill=1)
+        v = unflatten(v, 2, (hkv, hd), spill=1)
 
-    if memory is None:
-        q = rope(q, positions, cfg.rope_theta)
-        if cache is None:
-            kpos = positions
+        if memory is None:
+            q = rope(q, positions, cfg.rope_theta)
+            if cache is None:
+                kpos = positions
+            else:
+                kpos = replicate_like(
+                    (cache_pos + torch.arange(s, device=x.device))[None, :],
+                    x)
+            k = rope(k, kpos, cfg.rope_theta)
+
+        qg = unflatten(q, 2, (hkv, g), spill=1)
+        if cache is not None:
+            ck, cv = cache["k"], cache["v"]
+            t = ck.shape[2]
+            if cache_pos + s > t:
+                raise ValueError(f"cache of {t} slots cannot take {s} "
+                                 f"tokens at position {cache_pos}")
+            write_slots(ck, k.transpose(1, 2), cache_pos)
+            write_slots(cv, v.transpose(1, 2), cache_pos)
+        if cache is not None and s == 1 and cfg.use_flash:
+            # single-token decode through the flash_decode kernel: streams
+            # the cache once, no score traffic to device memory
+            out = _local_decode(qg, ck, cv, cache_pos + 1)    # [B,1,KV,G,hd]
+        elif cache is not None:
+            rows = cache_pos + torch.arange(s, device=x.device)[:, None]
+            cols = torch.arange(t, device=x.device)[None, :]
+            mask = cols < cache_pos + s                      # frontier
+            if causal:
+                mask = mask & (rows >= cols)
+            out = cache_attention(qg, ck, cv, mask)
+        elif impl == "flash":
+            out = _local_attention(_flash_attention, qg, k, v,
+                                   causal=causal)
+        elif impl == "blockwise":
+            out = _local_attention(_blockwise_attention, qg, k, v,
+                                   causal=causal)
+        elif impl == "einsum":
+            out = _local_attention(_einsum_attention, qg, k, v,
+                                   causal=causal)
         else:
-            kpos = replicate_like(
-                (cache_pos + torch.arange(s, device=x.device))[None, :], x)
-        k = rope(k, kpos, cfg.rope_theta)
+            raise ValueError(f"unknown attention impl {impl!r}")
 
-    qg = unflatten(q, 2, (hkv, g), spill=1)
-    if cache is not None:
-        ck, cv = cache["k"], cache["v"]
-        t = ck.shape[2]
-        if cache_pos + s > t:
-            raise ValueError(f"cache of {t} slots cannot take {s} tokens at "
-                             f"position {cache_pos}")
-        write_slots(ck, k.transpose(1, 2), cache_pos)
-        write_slots(cv, v.transpose(1, 2), cache_pos)
-    if cache is not None and s == 1 and cfg.use_flash:
-        # single-token decode through the flash_decode kernel: streams the
-        # cache once, no score traffic to device memory
-        out = _local_decode(qg, ck, cv, cache_pos + 1)        # [B,1,KV,G,hd]
-    elif cache is not None:
-        rows = cache_pos + torch.arange(s, device=x.device)[:, None]
-        cols = torch.arange(t, device=x.device)[None, :]
-        mask = cols < cache_pos + s                      # frontier
-        if causal:
-            mask = mask & (rows >= cols)
-        out = cache_attention(qg, ck, cv, mask)
-    elif impl == "flash":
-        out = _local_attention(_flash_attention, qg, k, v, causal=causal)
-    elif impl == "blockwise":
-        out = _local_attention(_blockwise_attention, qg, k, v, causal=causal)
-    elif impl == "einsum":
-        out = _local_attention(_einsum_attention, qg, k, v, causal=causal)
-    else:
-        raise ValueError(f"unknown attention impl {impl!r}")
-
-    out = shard(flatten(out, 2, 3, spill=1), "batch", "seq", "qkv")
-    y = linear(out, GW(p["wo"]))
-    return shard(y, "batch", "seq", "embed"), cache
+        out = shard(flatten(out, 2, 3, spill=1), "batch", "seq", "qkv")
+        y = linear(out, GW(p["wo"]))
+        return shard(y, "batch", "seq", "embed"), cache
 
 
 # ---------------------------------------------------------------------------
@@ -581,40 +587,53 @@ def moe_ffn(p: Tree, x: torch.Tensor, cfg
     an expert's capacity are dropped (their output is 0), and each token
     sums its experts' outputs weighted by its gates. A decode step (S = 1,
     capacity 1) runs every expert, as in the reference."""
+    with trace.span("moe"):
+        return _moe_ffn(p, x, cfg)
+
+
+def _moe_ffn(p: Tree, x: torch.Tensor, cfg
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.experts_per_token
     cap = moe_capacity(cfg, s)
-    gates, choice, aux = moe_route(p, x, cfg)
+    with trace.span("moe.route"):
+        gates, choice, aux = moe_route(p, x, cfg)
 
-    # ---- pseudo-token dispatch along seq --------------------------------
-    t = s * k
-    ids = choice.reshape(b, t)
-    order, counts, starts, rank = moe_dispatch(ids, e)
+    with trace.span("moe.dispatch"):
+        # ---- pseudo-token dispatch along seq ----------------------------
+        t = s * k
+        ids = choice.reshape(b, t)
+        order, counts, starts, rank = moe_dispatch(ids, e)
+        if trace.counting_on():
+            trace.count("moe.pairs", b * t)
+            trace.count("moe.pairs_dropped", (rank >= cap).sum())
+            trace.count("moe.slots", b * e * cap)
 
-    # ---- gather tokens into [B, E, cap, D] -------------------------------
-    slots = replicate_like(torch.arange(cap, device=x.device), x)
-    slot_i = (starts[:, :, None] + slots).clamp(0, t - 1)      # [B,E,cap]
-    valid = slots[None, None, :] < counts[:, :, None]
-    slot_tok = order.gather(1, slot_i.reshape(b, e * cap))
-    src_tok = (slot_tok // k).clamp(0, s - 1)                  # [B,E*cap]
-    xe = x.gather(1, src_tok[..., None].expand(b, e * cap, d))
-    xe = xe.reshape(b, e, cap, d).masked_fill(~valid[..., None], 0)
-    xe = shard(xe, "batch", "expert", "capacity", "embed")
+        # ---- gather tokens into [B, E, cap, D] ---------------------------
+        slots = replicate_like(torch.arange(cap, device=x.device), x)
+        slot_i = (starts[:, :, None] + slots).clamp(0, t - 1)  # [B,E,cap]
+        valid = slots[None, None, :] < counts[:, :, None]
+        slot_tok = order.gather(1, slot_i.reshape(b, e * cap))
+        src_tok = (slot_tok // k).clamp(0, s - 1)              # [B,E*cap]
+        xe = x.gather(1, src_tok[..., None].expand(b, e * cap, d))
+        xe = xe.reshape(b, e, cap, d).masked_fill(~valid[..., None], 0)
+        xe = shard(xe, "batch", "expert", "capacity", "embed")
 
-    # ---- expert FFN ------------------------------------------------------
-    h = _expert_product(xe, p["w_gate"])
-    h = F.silu(h) * _expert_product(xe, p["w_up"])
-    h = shard(h, "batch", "expert", "capacity", "mlp")
-    ye = _expert_product(h, p["w_down"])
-    ye = shard(ye, "batch", "expert", "capacity", "embed")
+    with trace.span("moe.experts"):
+        h = _expert_product(xe, p["w_gate"])
+        h = F.silu(h) * _expert_product(xe, p["w_up"])
+        h = shard(h, "batch", "expert", "capacity", "mlp")
+        ye = _expert_product(h, p["w_down"])
+        ye = shard(ye, "batch", "expert", "capacity", "embed")
 
-    # ---- combine: token-side gather from [B, E*cap, D] --------------------
-    tok_slot = (ids * cap + rank).clamp(0, e * cap - 1)        # [B,T]
-    yp = ye.reshape(b, e * cap, d).gather(
-        1, tok_slot[..., None].expand(b, t, d))
-    yp = yp.masked_fill(~(rank < cap)[..., None], 0).reshape(b, s, k, d)
-    y = (yp * gates[..., None].to(yp.dtype)).sum(dim=2)
-    return shard(y.to(x.dtype), "batch", "seq", "embed"), aux
+    with trace.span("moe.combine"):
+        # ---- token-side gather from [B, E*cap, D] ------------------------
+        tok_slot = (ids * cap + rank).clamp(0, e * cap - 1)    # [B,T]
+        yp = ye.reshape(b, e * cap, d).gather(
+            1, tok_slot[..., None].expand(b, t, d))
+        yp = yp.masked_fill(~(rank < cap)[..., None], 0).reshape(b, s, k, d)
+        y = (yp * gates[..., None].to(yp.dtype)).sum(dim=2)
+        return shard(y.to(x.dtype), "batch", "seq", "embed"), aux
 
 
 # ---------------------------------------------------------------------------

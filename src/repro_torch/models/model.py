@@ -52,6 +52,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch import trace
 from repro_torch.configs.base import AUDIO_FRAMES, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.distributed.sharding import (flatten, get_rules, linear,
@@ -294,7 +295,8 @@ class LM:
         b, s = tokens.shape
         positions = replicate_like(
             torch.arange(s, device=tokens.device)[None].expand(b, s), tokens)
-        x = Lyr.embed(params["embed"], tokens)
+        with trace.span("embed"):
+            x = Lyr.embed(params["embed"], tokens)
         impl = self._impl(s)
         fam = cfg.family
         aux = None
@@ -311,8 +313,9 @@ class LM:
             x = self._vlm_forward(params, batch, x, positions, impl)
         else:                       # dense, moe
             x, aux = self._moe_forward(params, x, positions, impl)
-        x = Lyr.apply_norm(params["final_norm"], x, cfg.norm_eps)
-        logits = Lyr.unembed(params["embed"], x)
+        with trace.span("head"):
+            x = Lyr.apply_norm(params["final_norm"], x, cfg.norm_eps)
+            logits = Lyr.unembed(params["embed"], x)
         if aux is None:
             aux = replicate_like(
                 torch.zeros((), dtype=torch.float32, device=x.device), x)
@@ -401,17 +404,18 @@ class LM:
         batch 2 x 4096 tokens of a 128k vocab)."""
         cfg = self.cfg
         logits, aux = self.forward(params, batch)
-        logits = logits.float()
-        lse = torch.logsumexp(logits, dim=-1)
-        # subtracted before the trailing dim is dropped: on vocab-sharded
-        # DTensor logits the gather is a masked partial sum, which DTensor
-        # reduces only at the gather's own shape
-        true_logit = logits.gather(-1, batch["labels"][..., None].long())
-        nll = (lse[..., None] - true_logit)[..., 0]
-        loss = nll.mean() + cfg.z_loss * (lse * lse).mean()
-        if cfg.num_experts:
-            loss = loss + cfg.router_aux_coef * aux
-        return loss
+        with trace.span("loss"):
+            logits = logits.float()
+            lse = torch.logsumexp(logits, dim=-1)
+            # subtracted before the trailing dim is dropped: on vocab-sharded
+            # DTensor logits the gather is a masked partial sum, which
+            # DTensor reduces only at the gather's own shape
+            true_logit = logits.gather(-1, batch["labels"][..., None].long())
+            nll = (lse[..., None] - true_logit)[..., 0]
+            loss = nll.mean() + cfg.z_loss * (lse * lse).mean()
+            if cfg.num_experts:
+                loss = loss + cfg.router_aux_coef * aux
+            return loss
 
     # ------------------------------------------------------------------
     # serving: cache defs / prefill / decode
