@@ -47,6 +47,14 @@ lines:
              and zamba2's training shapes, f32 (SDPA without TF32, its
              kernels named from a profile) at llama3-8b's, zamba2's and
              granite-moe's training shapes and whisper-small's encoder.
+             The bf16 backward kernels at granite-moe's training call (B 4,
+             H 16, KV 8, S 4096, d 64, causal: the benchmark's cell) and
+             llama3-8b's, in the model's layout, through the autograd
+             Function: dq, dk, dv against f32 autograd of the plain version
+             within the bf16 bar, the same bits twice, one backward launch a
+             call, their registers and spills (failing on any), timed beside
+             the bound (10 * d flops a kept pair), the plain version's
+             backward and bf16 SDPA's.
 4. serve   — llama3-8b at full width and depth (random weights from a seed)
              through ``repro_torch.launch.serve``: batch 4, prompt 128, 32
              generated tokens. Checks finite logits, the kernel's launch
@@ -110,8 +118,8 @@ lines:
 6. train   — llama3-8b at full width and 8 layers (random weights from a
              seed, synthetic data) through ``repro_torch.launch.train``:
              4 steps of 2 x 4096 tokens. Checks finite losses and the
-             flash_attention launch count (all on the tensor cores),
-             profiles one more step, holds one in-place AdamW update of
+             flash_attention launch count (all on the tensor cores) and its
+             backward kernels' (layers x steps), profiles one more step, holds one in-place AdamW update of
              the live state against a plain out-of-place update from the
              same gradients, holds one bf16 loss and layer 0's attention
              through the kernel against the plain (blockwise) branch, and
@@ -339,6 +347,16 @@ F32_ATTENTION_SHAPES = {
 # f32 flash_attention launches of the driven paths (phase 6's f32 branch
 # check, phase 4b's f32 branch checks), outside the kernel checks
 F32_PATH = {"launches": 0}
+# bf16 backward calls of flash_attention on the driven training paths
+# (phase 6, 4b's training), one a self-attention application a step
+BWD_PATH = {"launches": 0}
+# the attention backward's calls checked and timed in phase 3b: granite-moe's
+# training call (the benchmark's cell, B 4, H 16, KV 8, d 64) and llama3-8b's
+# (phase 6's), causal, in the model's layout
+BACKWARD_SHAPES = {
+    "granite-moe train": (4, 16, 8, TRAIN_SEQ, TRAIN_SEQ, 64, True, "model"),
+    "llama3-8b train": (TRAIN_BATCH, 32, 8, TRAIN_SEQ, TRAIN_SEQ, 128, True,
+                        "model")}
 
 # the compile path: Table I's designs at benchmarks/cascade_tables.py's move
 # budget, and tests/test_predication.py's pins at place_moves=40: (design
@@ -428,6 +446,23 @@ def time_ms(fn, arg_sets, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def events_ms(fn, iters: int) -> float:
+    """Mean device time of ``fn`` per call by CUDA events around ``iters``
+    back-to-back calls after one warm call: for autograd's backward, which
+    ``time_ms``'s graph capture does not take; the host's launches hide
+    under calls of a millisecond or more."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def decode_bound(q, k, lengths, lse: bool = False):
     """(least ms, what bounds it) for one flash_decode call on these inputs:
     the K/V rows below each length read once, q and lengths read, out (and
@@ -445,19 +480,23 @@ def decode_bound(q, k, lengths, lse: bool = False):
                                        else "operations")
 
 
-def attention_bound(q, k, causal, q_off: int = 0, peak=None):
+def attention_bound(q, k, causal, q_off: int = 0, peak=None,
+                    backward: bool = False):
     """(least ms, what bounds it) for one flash_attention call: the (query,
     key) pairs this mask keeps, 4 * d flops each (QK and PV) at the card's
     peak for q's type (or at ``peak`` flop/s), against q, k, v read and o
-    written once. With ``q_off``, q's row r is key row q_off + r."""
+    written once. With ``q_off``, q's row r is key row q_off + r. With
+    ``backward``, its backward: 10 * d flops a pair (Q K^T, dO V^T, dV, dQ,
+    dK) against q, k, v, o and dO read and dq, dk, dv written once."""
     b, h, sq, d = q.shape
     skv = k.shape[2]
     if causal:                      # top left: row r sees keys 0..r
         pairs = sum(min(q_off + r + 1, skv) for r in range(sq))
     else:
         pairs = sq * skv
-    flops = 4 * d * b * h * pairs
-    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    flops = (10 if backward else 4) * d * b * h * pairs
+    io = 4 if backward else 2
+    nbytes = io * (q.numel() + k.numel()) * q.element_size()
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / (peak or PEAK_FLOPS[q.dtype])
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -735,6 +774,7 @@ def phase_flash_attention(dev) -> tuple:
         f"{main['bound_ms'] / main['ms']:.4f} (library: SDPA, which rounds "
         f"P to bf16; the kernel feeds P as two bf16 halves)")
     time_zamba2_attention(inputs, sdpa)
+    backward = check_attention_backward(inputs)
     f32 = time_f32_route(inputs)
     return ({"name": "flash_attention", "route": "cuda",
              "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -747,7 +787,82 @@ def phase_flash_attention(dev) -> tuple:
                        "flash_attention_tf32.cu",
              "replaces": "src/repro/kernels/flash_attention/"
                          "flash_attention.py:32",
-             "max_abs_err": max_err[torch.float32], **f32})
+             "max_abs_err": max_err[torch.float32], **f32},
+            {"name": "flash_attention_bwd", "route": "cuda",
+             "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                       "flash_attention_bwd.cu",
+             "replaces": "none (the reference's kernel has no backward); "
+                         "the plain f32 recompute for bf16 CUDA inputs",
+             **backward})
+
+
+def check_attention_backward(inputs) -> dict:
+    """The bf16 backward kernels at the training paths' calls
+    (``BACKWARD_SHAPES``, the model's layout) through flash_attention's
+    autograd Function: dq, dk and dv against autograd of the plain version
+    in f32 (``_plain_backward`` on f32 copies) within KERNEL_TOL[bf16], the
+    same bits twice, one backward launch a call. Times the kernels
+    (``_kernel_backward`` alone), the plain version's backward in bf16 (the
+    route the kernels replaced) and bf16 SDPA's backward (with GQA; it
+    rounds P and dS once to bf16), by CUDA events over back-to-back calls,
+    beside the bound (operations: 10 * d flops a kept pair). Returns
+    granite-moe's row: the benchmark's cell."""
+    fa = importlib.import_module(
+        "repro_torch.kernels.flash_attention.flash_attention")
+    flash_attention = fa.flash_attention
+    rows = {}
+    for name, (b, h, kv, s, _, d, causal, layout) in BACKWARD_SHAPES.items():
+        q, k, v = inputs(b, h, kv, s, s, d, torch.bfloat16, layout)
+        do = inputs(b, h, kv, s, s, d, torch.bfloat16, layout)[0]
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        before = (flash_attention.launches, flash_attention.bwd_launches)
+        got, again = (torch.autograd.grad(
+            flash_attention(*leaves, causal=causal), leaves, do)
+            for _ in range(2))
+        counts = (flash_attention.launches - before[0],
+                  flash_attention.bwd_launches - before[1])
+        if counts != (2, 2):
+            raise RuntimeError(f"flash_attention backward {name}: (forward, "
+                               f"backward) launches {counts}, want (2, 2)")
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise RuntimeError(f"flash_attention backward {name}: two calls "
+                               f"differ")
+        del again
+        want = fa._plain_backward(*(x.float() for x in (q, k, v, do)), causal)
+        errs = {}
+        for g_name, g, w in zip(("dq", "dk", "dv"), got, want):
+            torch.testing.assert_close(g.float(), w,
+                                       **KERNEL_TOL[torch.bfloat16])
+            errs[g_name] = (g.float() - w).abs().max().item()
+        del got, want
+        torch.cuda.empty_cache()
+
+        out, o_lo, lse = fa._launch(q, k, v, causal, 0, for_backward=True)
+        dense = [x.contiguous().requires_grad_() for x in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(*dense, is_causal=causal,
+                                                 enable_gqa=True)
+        do_dense = do.contiguous()
+        bound_ms, bound_by = attention_bound(q, k, causal, backward=True)
+        r = {"ms": events_ms(lambda: fa._kernel_backward(
+                q, k, v, out, o_lo, lse, do, causal), 20),
+             "plain_ms": events_ms(lambda: fa._plain_backward(
+                 q, k, v, do, causal), 2),
+             "bound_ms": bound_ms, "bound_by": bound_by,
+             "library_ms": events_ms(lambda: torch.autograd.grad(
+                 lib_out, dense, do_dense, retain_graph=True), 20),
+             "max_abs_err": max(errs.values())}
+        log("attention", f"flash_attention backward bf16 {name} shape B={b} "
+            f"H={h} KV={kv} S={s} d={d} causal={causal}, {layout} layout: "
+            f"dq, dk, dv within {KERNEL_TOL[torch.bfloat16]} of f32 autograd "
+            f"of the plain version (max abs err {json.dumps(errs)}), the same "
+            f"bits twice, one backward launch a call; " + json.dumps(r)
+            + f", roofline share {r['bound_ms'] / r['ms']:.4f} (CUDA events; "
+            f"plain: the plain version's backward in bf16; library: bf16 "
+            f"SDPA's backward, which rounds P and dS once)")
+        rows[name] = r
+        del q, k, v, do, leaves, out, o_lo, lse, dense, lib_out, do_dense
+        torch.cuda.empty_cache()
+    return rows["granite-moe train"]
 
 
 def time_zamba2_attention(inputs, sdpa) -> None:
@@ -825,8 +940,9 @@ def time_f32_route(inputs) -> dict:
 
 def flash_attention_resources() -> str:
     """Registers and spills of each head dim's instantiation of the two
-    kernels, from their ptxas -v build log (failing on any spill), their
-    dynamic shared memory, and the SASS
+    forward kernels and the three bf16 backward kernels, from their ptxas
+    -v build log (failing on any spill), the forwards' dynamic shared
+    memory, and the SASS
     counts of their tensor-core products and TMA loads."""
     from repro_torch.kernels import _build
     lib = _build.lib_path("flash_attention")
@@ -838,8 +954,9 @@ def flash_attention_resources() -> str:
             "tf32": kl.flash_attention_tf32_smem_bytes}
     out, entry = [], None
     for line in log_lines:
-        found = re.search(r"flash_attention_(wgmma|tf32)_kernelILi(\d+)E",
-                          line)
+        found = re.search(
+            r"flash_attention_(wgmma|tf32|bwd_dq|bwd_dk|bwd_dv)_kernelILi"
+            r"(\d+)E", line)
         if "Compiling entry function" in line:
             entry = (found.group(1), int(found.group(2))) if found else None
         elif entry is not None and "spill" in line:
@@ -850,12 +967,14 @@ def flash_attention_resources() -> str:
             if any(int(n) for n in spills):
                 raise RuntimeError(f"flash_attention {kind} d={hd} spills "
                                    f"registers: {line.strip()}")
-            out.append(f"{'bf16' if kind == 'wgmma' else 'f32 3xTF32'} "
-                       f"d={hd}: {regs} registers, spill stores/loads "
-                       f"{'/'.join(spills)} bytes, {smem[kind](hd)} bytes of "
-                       f"dynamic shared memory")
+            what = {"wgmma": "bf16", "tf32": "f32 3xTF32"}.get(
+                kind, f"bf16 {kind}")
+            out.append(f"{what} d={hd}: {regs} registers, spill stores/loads "
+                       f"{'/'.join(spills)} bytes"
+                       + (f", {smem[kind](hd)} bytes of dynamic shared memory"
+                          if kind in smem else ""))
             entry = None
-    if len(out) != 2 * len(fa.HEAD_DIMS):
+    if len(out) != 5 * len(fa.HEAD_DIMS):
         raise RuntimeError(f"flash_attention kernel entries not found in "
                            f"{lib}.log")
     # the library's machine code: tensor-core products (wgmma HGMMA in
@@ -1427,6 +1546,7 @@ def phase_train(card: str) -> int:
     flash_attention.launches = 0
     flash_attention.bf16_launches = 0
     flash_attention.tf32_launches = 0
+    flash_attention.bwd_launches = 0
     r = train.train(cfg, shape, steps=TRAIN_STEPS, device="cuda",
                     log=lambda m: log("train", m))
     launches = flash_attention.launches
@@ -1434,13 +1554,18 @@ def phase_train(card: str) -> int:
               flash_attention.tf32_launches)
     # remat="full" checkpoints each layer: its forward runs once in the
     # forward pass and once more when backward recomputes it, and each run
-    # launches the kernel once (the backward itself is the plain version)
+    # launches the kernel once; the backward kernels run once a layer
     if cfg.remat != "full":
         raise RuntimeError(f"expected remat='full', got {cfg.remat!r}")
     want = 2 * cfg.num_layers * TRAIN_STEPS
     if launches != want:
         raise RuntimeError(f"flash_attention launched {launches} times, "
                            f"expected {want}")
+    if flash_attention.bwd_launches != cfg.num_layers * TRAIN_STEPS:
+        raise RuntimeError(f"flash_attention's backward kernels ran "
+                           f"{flash_attention.bwd_launches} times, expected "
+                           f"{cfg.num_layers} layers x {TRAIN_STEPS} steps")
+    BWD_PATH["launches"] += flash_attention.bwd_launches
     if routes != (want, 0):
         raise RuntimeError(f"flash_attention routes (bf16, 3xTF32) "
                            f"{routes}: every bf16 launch must take the bf16 "
@@ -1456,7 +1581,9 @@ def phase_train(card: str) -> int:
         f"{cfg.d_model}, {n / 1e9:.3f} B params) {TRAIN_BATCH} x "
         f"{TRAIN_SEQ} tokens: flash_attention launches {launches} = 2 x "
         f"{cfg.num_layers} layers x {TRAIN_STEPS} steps (remat='full'), all "
-        f"on the tensor cores")
+        f"on the tensor cores; backward kernels "
+        f"{flash_attention.bwd_launches} = {cfg.num_layers} x "
+        f"{TRAIN_STEPS}")
     log("train", f"losses {[round(x, 4) for x in r.losses]}")
     log("train", f"step times (s) {[round(t, 4) for t in r.step_times]}; "
         f"steps after the first {1e3 * step_s:.1f} ms, {tokens / step_s:.1f} "
@@ -2067,7 +2194,8 @@ def train_family(card: str, arch: str) -> int:
     shape = ShapeSpec("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    for name in ("launches", "bf16_launches", "tf32_launches"):
+    for name in ("launches", "bf16_launches", "tf32_launches",
+                 "bwd_launches"):
         setattr(flash_attention, name, 0)
     r = train.train(cfg, shape, steps=TRAIN_STEPS, device="cuda",
                     log=lambda m: log("families", m))
@@ -2076,6 +2204,12 @@ def train_family(card: str, arch: str) -> int:
     if got != (want, want):
         raise RuntimeError(f"{arch} train: flash_attention (calls, tensor "
                            f"cores) {got}, want {(want, want)}")
+    want_bwd = TRAIN_STEPS * self_attention_layers(r.model.cfg)
+    if flash_attention.bwd_launches != want_bwd:
+        raise RuntimeError(f"{arch} train: flash_attention's backward "
+                           f"kernels ran {flash_attention.bwd_launches} "
+                           f"times, want {want_bwd}")
+    BWD_PATH["launches"] += want_bwd
     if len(r.losses) != TRAIN_STEPS or not all(
             math.isfinite(x) for x in r.losses):
         raise RuntimeError(f"{arch} train losses: {r.losses}")
@@ -2096,7 +2230,8 @@ def train_family(card: str, arch: str) -> int:
         f"params x tokens), peak memory {peak:.2f} GiB, on {card}")
     log("families", f"{arch}: flash_attention {got[0]} calls = "
         f"{TRAIN_STEPS} steps x {want // TRAIN_STEPS} (remat="
-        f"{cfg.remat!r}), all on the tensor cores")
+        f"{cfg.remat!r}), all on the tensor cores; backward kernels "
+        f"{want_bwd} = {TRAIN_STEPS} steps x {want_bwd // TRAIN_STEPS}")
     if cfg.num_experts:
         batch = data.batch(0)
         with torch.no_grad():
@@ -4526,7 +4661,7 @@ def main(argv) -> int:
         print_ok()
         return 0
     decode = phase_kernels(dev)
-    attn, attn_f32 = phase_flash_attention(dev)
+    attn, attn_f32, attn_bwd = phase_flash_attention(dev)
     partial, offset = phase_shard_kernels(dev)
     decode["launches"], plain = phase_serve(card)
     torch.cuda.empty_cache()
@@ -4558,13 +4693,14 @@ def main(argv) -> int:
     if not attn_f32["launches"]:
         raise RuntimeError("the f32 flash_attention kernel was not launched "
                            "on a driven path")
+    attn_bwd["launches"] = BWD_PATH["launches"]
     phase_dryrun(dev, card)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {k: e[k] for k in keys}
-        for e in (decode, attn, attn_f32, partial, offset, maxplus, stencil,
-                  *sim)]}),
+        for e in (decode, attn, attn_f32, attn_bwd, partial, offset, maxplus,
+                  stencil, *sim)]}),
         flush=True)
     print_ok()
     return 0

@@ -59,7 +59,15 @@
 //     stays one d / 2-register fragment, and the tensor cores see one
 //     product of the full width instead of d / 16 narrow ones.
 //   * Epilogue: the `l == 0` guard, divide by l, bf16 stores through the
-//     output's strides; rows at or past Sq are never written.
+//     output's strides; rows at or past Sq are never written. For training
+//     (flash_attention_bf16_lse_launch) also what the backward kernels
+//     (flash_attention_bwd.cu) read: the row log-sum-exp and the output's
+//     low half, bf16(o - bf16(o)), each thread's fragment in 16-byte
+//     stores. The dQ kernel's block of the same rows reads that fragment
+//     back in the same thread, so the two kernels' mappings of block,
+//     thread and element to (row, column) must stay the same: 128 rows a
+//     block, consumer warpgroup w's warp j holding rows 64w + 16j + lane/4
+//     and + 8, columns 8i + 2 (lane % 4) and + 1.
 //   * A query-row offset `q_off` (>= 0, not necessarily a multiple of a
 //     tile) makes q's row r the keys' row q_off + r for the causal mask, the
 //     edge test and the tile count (up to the key tile of the block's last
@@ -114,6 +122,15 @@ struct Geom {
 struct Params {
   __nv_bfloat16* o;
   long long ob, oh, os;  // output strides in elements: batch, head, row
+  // For the backward kernels (flash_attention_bwd.cu), or null: the
+  // output's low half, bf16(o - bf16(o)), in fragment order ([B * H,
+  // n_q_tiles, 256 consumer threads, d / 2]: each thread's accumulator
+  // fragment contiguous, word 2j + i holding elements 4j + 2i and + 1), and
+  // the row log-sum-exp in log2 units of the scaled scores, [B * H,
+  // n_q_tiles * 128]; both for every row of every tile, the padding rows'
+  // too.
+  __nv_bfloat16* o_lo;
+  float* lse;
   int H, G, Sq, Skv, n_q_tiles, causal;
   int q_off;             // the keys' row of q's row 0 (causal mask)
   float scale_log2;      // 1/sqrt(d) * log2(e)
@@ -312,7 +329,11 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_arrive(empty_bar(s));
     }
 
-    // epilogue: full row sums, the l == 0 guard, bf16 stores below Sq
+    // epilogue: full row sums, the l == 0 guard, bf16 stores below Sq; for
+    // the backward, the row's log-sum-exp and the output's low half
+    // (16-byte stores of this thread's fragment, elements 4j + 2i and + 1
+    // in word 2j + i)
+    uint32_t lo[HD / 4];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       float li = l[i];
@@ -320,15 +341,33 @@ __global__ void __launch_bounds__(kThreads, 1)
       li += __shfl_xor_sync(0xffffffffu, li, 2);
       const float inv = 1.f / (li == 0.f ? 1.f : li);
       const int row = r0 + 8 * i;
-      if (row < prm.Sq) {
-        __nv_bfloat16* dst = prm.o + b * prm.ob + h * prm.oh +
-                             static_cast<long long>(row) * prm.os + cq;
+      if (prm.lse != nullptr && cq == 0)
+        prm.lse[static_cast<long long>(bh) * prm.n_q_tiles * kBQ + row] =
+            m[i] + log2f(li);
+      const long long at = b * prm.ob + h * prm.oh +
+                           static_cast<long long>(row) * prm.os + cq;
 #pragma unroll
-        for (int j = 0; j < HD / 8; ++j)
-          *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
-              __floats2bfloat162_rn(o[4 * j + 2 * i] * inv,
-                                    o[4 * j + 2 * i + 1] * inv);
+      for (int j = 0; j < HD / 8; ++j) {
+        const float x0 = o[4 * j + 2 * i] * inv;
+        const float x1 = o[4 * j + 2 * i + 1] * inv;
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
+        if (prm.o_lo != nullptr) {
+          const __nv_bfloat162 rest = __floats2bfloat162_rn(
+              x0 - __bfloat162float(hi.x), x1 - __bfloat162float(hi.y));
+          lo[2 * j + i] = *reinterpret_cast<const uint32_t*>(&rest);
+        }
+        if (row < prm.Sq)
+          *reinterpret_cast<__nv_bfloat162*>(prm.o + at + 8 * j) = hi;
       }
+    }
+    if (prm.o_lo != nullptr) {
+      uint4* dst = reinterpret_cast<uint4*>(
+          prm.o_lo + ((static_cast<long long>(bh) * prm.n_q_tiles + qt) *
+                          kConsumers + threadIdx.x) * (HD / 2));
+#pragma unroll
+      for (int c = 0; c < HD / 16; ++c)
+        dst[c] = make_uint4(lo[4 * c], lo[4 * c + 1], lo[4 * c + 2],
+                            lo[4 * c + 3]);
     }
   }
 }
@@ -389,16 +428,22 @@ extern "C" {
 // Returns 0, a cudaError_t, or -1 (no tensor-map encoder in the driver) /
 // -1000 - r (the encoder refused a map with CUresult r). Launches on
 // `stream`, does not synchronise and allocates nothing.
-int flash_attention_bf16_launch(const void* q, const void* k, const void* v,
-                                void* o, int B, int H, int KV, int Sq,
-                                int Skv, int hd, int causal, int q_off,
-                                float scale, const long long* strides,
-                                cudaStream_t stream) {
+// o_lo (bf16, [B * H, ceil(Sq / 128) * 128, hd] in fragment order, see
+// Params) and lse (f32, [B * H, ceil(Sq / 128) * 128]) are what the backward
+// kernels read; the forward alone (flash_attention_bf16_launch) passes
+// neither.
+int flash_attention_bf16_lse_launch(const void* q, const void* k,
+                                    const void* v, void* o, void* o_lo,
+                                    float* lse, int B, int H, int KV, int Sq,
+                                    int Skv, int hd, int causal, int q_off,
+                                    float scale, const long long* strides,
+                                    cudaStream_t stream) {
   if (B < 1 || H < 1 || KV < 1 || H % KV || Sq < 1 || Skv < 1 || q_off < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Params prm{static_cast<__nv_bfloat16*>(o), strides[9], strides[10],
-                   strides[11], H, H / KV, Sq, Skv, (Sq + kBQ - 1) / kBQ,
-                   causal, q_off, scale * 1.4426950408889634f};
+                   strides[11], static_cast<__nv_bfloat16*>(o_lo), lse, H,
+                   H / KV, Sq, Skv, (Sq + kBQ - 1) / kBQ, causal, q_off,
+                   scale * 1.4426950408889634f};
   switch (hd) {
     case 16: return launch<16>(q, k, v, prm, B, KV, strides, stream);
     case 32: return launch<32>(q, k, v, prm, B, KV, strides, stream);
@@ -410,6 +455,17 @@ int flash_attention_bf16_launch(const void* q, const void* k, const void* v,
     case 128: return launch<128>(q, k, v, prm, B, KV, strides, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The forward alone: no low half, no log-sum-exp.
+int flash_attention_bf16_launch(const void* q, const void* k, const void* v,
+                                void* o, int B, int H, int KV, int Sq,
+                                int Skv, int hd, int causal, int q_off,
+                                float scale, const long long* strides,
+                                cudaStream_t stream) {
+  return flash_attention_bf16_lse_launch(q, k, v, o, nullptr, nullptr, B, H,
+                                         KV, Sq, Skv, hd, causal, q_off,
+                                         scale, strides, stream);
 }
 
 // Dynamic shared memory a block of the kernel takes at head dim hd, in

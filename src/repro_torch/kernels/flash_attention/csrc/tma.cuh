@@ -1,7 +1,8 @@
-// Device and host helpers shared by the two flash_attention kernels
-// (flash_attention_wgmma.cu, flash_attention_tf32.cu): mbarriers, TMA tile
-// loads, wgmma shared-memory descriptors and fences, and the driver's
-// tensor-map encoder fetched at run time.
+// Device and host helpers shared by the flash_attention kernels
+// (flash_attention_wgmma.cu, flash_attention_tf32.cu,
+// flash_attention_bwd.cu): mbarriers, TMA tile and bulk loads, wgmma
+// shared-memory descriptors and fences, and the driver's tensor-map encoder
+// fetched at run time.
 
 #pragma once
 
@@ -52,6 +53,17 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// A contiguous copy of `bytes` (a multiple of 16, both ends 16-byte
+// aligned) from device to shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
 }
 

@@ -23,13 +23,16 @@ The spans the port records (``SPANS``): the train step's phases
 (``launch/steps.py``), and the layers of the train step's model
 (``models/model.py`` ``forward`` and ``loss``, ``models/layers.py``
 ``attention`` and ``moe_ffn``, which decode and prefill run too, and
-``kernels/flash_attention``'s backward). Under ``remat`` the backward re-runs
-the forward's Python, and with it its spans, on the backward's thread inside
-``step.backward``. The
-counters, all in ``models/layers.py`` ``moe_ffn`` (counted again in a
-recompute): ``moe.pairs``, the routed (token, choice) pairs, B * S * k;
-``moe.pairs_dropped``, those past their expert's capacity;
-``moe.slots``, the expert slots offered, B * E * capacity.
+``kernels/flash_attention``'s backward, one span a call whichever route it
+takes). Under ``remat`` the backward re-runs the forward's Python, and with
+it its spans, on the backward's thread inside ``step.backward``. The
+counters: in ``models/layers.py`` ``moe_ffn`` (counted again in a
+recompute), ``moe.pairs``, the routed (token, choice) pairs, B * S * k;
+``moe.pairs_dropped``, those past their expert's capacity; ``moe.slots``,
+the expert slots offered, B * E * capacity; in ``kernels/flash_attention``'s
+backward, host ints a call by route: ``attention.backward_kernel`` (bf16 on
+the card, the hand-written kernels) and ``attention.backward_plain`` (the
+plain version's autograd: f32, and CPU tensors).
 """
 
 from __future__ import annotations
@@ -46,7 +49,8 @@ SPANS = (
     "embed",               # the token table's lookup
     "attention",           # a whole attention layer: projections, rope,
                            # the kernel or the einsum, the output projection
-    "attention.backward",  # flash_attention's backward, the plain version's
+    "attention.backward",  # flash_attention's backward: the bf16 kernels,
+                           # or the plain version's
     "moe",                 # a MoE layer, in four parts:
     "moe.route",           # the router, top k, the balance loss
     "moe.dispatch",        # the sort by expert, the gather into slots

@@ -52,7 +52,10 @@ from repro_torch.kernels.sim import (sim_dense, sim_dense_plain,  # noqa: E402
                                      stage_plan)
 from repro_torch.kernels.sim.sim import dense_launcher  # noqa: E402
 from repro_torch.launch import train as T  # noqa: E402
+from repro_torch import trace  # noqa: E402
 
+FA_MOD = importlib.import_module(
+    "repro_torch.kernels.flash_attention.flash_attention")
 FD_MOD = importlib.import_module("repro_torch.kernels.flash_decode.flash_decode")
 MP_MOD = importlib.import_module("repro_torch.kernels.maxplus.maxplus")
 SIM_MOD = importlib.import_module("repro_torch.kernels.sim.sim")
@@ -254,6 +257,91 @@ def test_flash_attention_at_the_families_shapes(card, b, h, kv, s, causal):
     torch.testing.assert_close(
         got.float(), flash_attention_plain(q, k, v, causal=causal).float(),
         **KERNEL_TOL[torch.bfloat16])
+
+
+def _attention_grads(fn, q, k, v, do, **kw):
+    q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
+    return torch.autograd.grad(fn(q, k, v, **kw), (q, k, v), do)
+
+
+def _hold_backward(q, k, v, do, *, causal, q_off=0):
+    """The bf16 backward kernels' dq, dk, dv (one launch of each route,
+    the same bits twice) within the bf16 kernel bar of autograd of the
+    plain version in f32."""
+    before = (flash_attention.launches, flash_attention.bwd_launches)
+    got = _attention_grads(flash_attention, q, k, v, do, causal=causal,
+                           q_off=q_off)
+    assert (flash_attention.launches,
+            flash_attention.bwd_launches) == (before[0] + 1, before[1] + 1)
+    want = _attention_grads(flash_attention_plain,
+                            *(x.float() for x in (q, k, v)), do.float(),
+                            causal=causal, q_off=q_off)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape, name
+        torch.testing.assert_close(g.float(), w, **KERNEL_TOL[torch.bfloat16],
+                                   msg=lambda m: f"{name}: {m}")
+    del want
+    again = _attention_grads(flash_attention, q, k, v, do, causal=causal,
+                             q_off=q_off)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("b,h,kv,sq,skv,d,causal,q_off", [
+    (4, 16, 8, 4096, 4096, 64, True, 0),      # granite-moe's training, G 2
+    (2, 32, 8, 4096, 4096, 128, True, 0),     # llama3-8b's, G 4
+    (2, 32, 32, 4096, 4096, 80, True, 0),     # zamba2's, H = KV
+    (4, 12, 12, 1500, 1500, 64, False, 0),    # whisper's encoder
+    (2, 32, 8, 1024, 4096, 128, True, 3072)])  # a rank's last rows of 4096
+def test_flash_attention_backward_at_the_families_shapes(card, b, h, kv, sq,
+                                                         skv, d, causal,
+                                                         q_off):
+    """On the card: the bf16 backward kernels at the training shapes, in
+    the model's [B, S, H, d] layout, against autograd of the plain version
+    in f32 within the bf16 kernel bar, and deterministic."""
+    gen = torch.Generator(device="cuda").manual_seed(sq + d)
+    q, k, v, do = (torch.randn((b, s, n, d), generator=gen, device="cuda")
+                   .to(torch.bfloat16).transpose(1, 2)
+                   for n, s in ((h, sq), (kv, skv), (kv, skv), (h, sq)))
+    _hold_backward(q, k, v, do, causal=causal, q_off=q_off)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("d", FA_MOD.HEAD_DIMS)
+def test_flash_attention_backward_every_head_dim(card, d):
+    """On the card: every bf16 head dim through the backward kernels, at
+    the tile edges (Sq, Skv past 64 and 128), Sq != Skv, GQA, causal or
+    not, against autograd of the plain version in f32."""
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    for b, h, kv, sq, skv, causal in ((2, 4, 2, 300, 300, True),
+                                      (2, 4, 2, 257, 129, False),
+                                      (1, 4, 4, 129, 513, True),
+                                      (1, 2, 1, 1, 65, True)):
+        q, k, v, do = (torch.randn((b, n, s, d), generator=gen,
+                                   device="cuda").to(torch.bfloat16)
+                       for n, s in ((h, sq), (kv, skv), (kv, skv), (h, sq)))
+        _hold_backward(q, k, v, do, causal=causal)
+
+
+@pytest.mark.requires_cuda
+def test_flash_attention_backward_span_and_route_counters(card):
+    """On the card: one ``attention.backward`` span a call; bf16 counts a
+    kernel backward, f32 (the 3xTF32 forward) keeps the plain one."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v, do = (torch.randn((2, n, 256, 64), generator=gen,
+                               device="cuda") for n in (4, 2, 2, 4))
+    for dtype, route in ((torch.bfloat16, "attention.backward_kernel"),
+                         (torch.float32, "attention.backward_plain")):
+        leaves = [x.to(dtype).requires_grad_() for x in (q, k, v)]
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof, \
+                trace.counting():
+            flash_attention(*leaves).backward(do.to(dtype))
+            torch.cuda.synchronize()
+            counted = trace.counters()
+        spans = [e for e in prof.events() if e.name == "attention.backward"]
+        assert len(spans) == 1, dtype
+        assert counted == {route: 1}, dtype
 
 
 FAMILY_ARCHS = ("granite-moe-1b-a400m", "llama4-maverick-400b-a17b",

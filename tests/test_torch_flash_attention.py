@@ -22,6 +22,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels.flash_attention import attention_ref as ref_attention  # noqa: E402
 from repro.kernels.flash_attention import flash_attention as ref_flash  # noqa: E402
 from repro.kernels.flash_attention import gqa_attention as ref_gqa  # noqa: E402
+from repro_torch import trace  # noqa: E402
 from repro_torch.kernels.flash_attention import (attention_ref,  # noqa: E402
                                                  flash_attention,
                                                  flash_attention_plain)
@@ -349,11 +350,13 @@ class _FakeLib:
     """Stands in for the built library: records which entry was called."""
 
     def __init__(self, rc=0):
-        self.calls, self.rc = [], rc
+        self.calls, self.rc, self.args = [], rc, {}
 
-    def _entry(self, name):
+    def _entry(self, name, dims=4):
         def fn(*args):
-            self.calls.append((name, args[4:11]))   # B, H, KV, Sq, Skv, d, causal
+            # B, H, KV, Sq, Skv, d, causal after the entry's pointers
+            self.calls.append((name, args[dims:dims + 7]))
+            self.args[name] = args
             return self.rc
         return fn
 
@@ -365,13 +368,22 @@ class _FakeLib:
     def flash_attention_tf32_launch(self):
         return self._entry("tf32")
 
+    @property
+    def flash_attention_bf16_lse_launch(self):
+        return self._entry("bf16_lse", 6)
+
+    @property
+    def flash_attention_bf16_bwd_launch(self):
+        return self._entry("bwd", 11)
+
 
 @pytest.fixture
 def fake_lib(monkeypatch):
     lib = _FakeLib()
     monkeypatch.setattr(FA_MOD, "_kernel_lib", lambda: lib)
     monkeypatch.setattr(FA_MOD, "_stream", lambda device: 0)
-    for name in ("launches", "bf16_launches", "tf32_launches"):
+    for name in ("launches", "bf16_launches", "tf32_launches",
+                 "bwd_launches"):
         monkeypatch.setattr(flash_attention, name, 0)
     return lib
 
@@ -654,3 +666,249 @@ def test_1xtf32_misses_the_f32_kernel_bar(d):
         _close(one, want, F32_KERNEL_TOL["atol"])
     _close(_emulate_f32_kernel(tq, tk, tv, causal=True), want,
            F32_KERNEL_TOL["atol"])
+
+
+# ---------------------------------------------------------------------------
+# the bf16 backward kernels (csrc/flash_attention_bwd.cu)
+
+
+def _halves(x, split):
+    """x as the tensor cores take it: two bf16 halves, hi = bf16(x) and lo =
+    bf16(x - hi) (``split``), or rounded once."""
+    hi = x.bfloat16().float()
+    return (hi, (x - hi).bfloat16().float()) if split else (hi,)
+
+
+def _o_as_saved(o, low_part):
+    """The f32 output as the backward reads it: bf16(o), plus with
+    ``low_part`` its low half, bf16(o - bf16(o))."""
+    return sum(_halves(o, low_part))
+
+
+def _saved_by_forward(q, k, v, *, causal, q_off):
+    """What the bf16 forward's training launch computes for the backward:
+    the f32 output and the row log-sum-exp in log2 units of the scaled
+    scores, m + log2(sum exp2(x - m))."""
+    g = q.shape[1] // k.shape[1]
+    c = math.log2(math.e) / math.sqrt(q.shape[-1])
+    x = (q.float() @ k.float().repeat_interleave(g, 1).transpose(-1, -2)) * c
+    if causal:
+        rows = q_off + torch.arange(q.shape[2])[:, None]
+        x = x.masked_fill(rows < torch.arange(k.shape[2])[None, :], -1e30)
+    m = x.amax(-1)
+    lse = m + torch.log2(torch.exp2(x - m[..., None]).sum(-1))
+    o = flash_attention_plain(*(t.float() for t in (q, k, v)), causal=causal,
+                              q_off=q_off)
+    return o, lse
+
+
+def _emulate_bf16_backward(q, k, v, do, *, causal, q_off=0, split_p=True,
+                           split_ds=True, low_part=True):
+    """The backward kernels' arithmetic, tile by tile, on the CPU: D =
+    rowsum(dO o O) in f32, O as saved (``_o_as_saved``: with its low half,
+    else rounded once to bf16);
+    P = exp2(S c - lse) on f32 scores, masked on the tiles that cross the
+    causal frontier, Sq or Skv; dS = P o (dP - D). dQ: 128 query rows a
+    block, key tiles of 64 up to the frontier of its last row, acc += dS K.
+    dK, dV: 128 keys a block, each query head of the group and its query
+    tiles of 64 from the first that sees the block's first key, acc += dS^T
+    Q and P^T dO. P (dV) and dS (dQ, dK) enter the products as bf16 halves
+    (``split_p``, ``split_ds``) or rounded once; gradients stored in
+    bf16."""
+    b, h, sq, d = q.shape
+    kvh, skv = k.shape[1], k.shape[2]
+    g = h // kvh
+    scale = 1 / math.sqrt(d)
+    c = scale * math.log2(math.e)
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    o, lse = _saved_by_forward(q, k, v, causal=causal, q_off=q_off)
+    D = (dof * _o_as_saved(o, low_part)).sum(-1)
+
+    def p_ds(rows, cols, qt, kt, vt, dot, lse_t, d_t):
+        keep = (cols[None, :] < skv) & (rows[:, None] < sq)
+        if causal:
+            keep &= q_off + rows[:, None] >= cols[None, :]
+        p = torch.where(keep, torch.exp2(qt @ kt.transpose(-1, -2) * c
+                                         - lse_t[..., None]), 0.0)
+        return p, p * (dot @ vt.transpose(-1, -2) - d_t[..., None])
+
+    dq = torch.empty(b, h, sq, d)
+    for r0 in range(0, sq, 128):
+        rows = torch.arange(r0, min(r0 + 128, sq))
+        n_cols = -(-skv // 64)
+        if causal:
+            n_cols = min(n_cols, (q_off + int(rows[-1])) // 64 + 1)
+        acc = torch.zeros(b, h, len(rows), d)
+        for c0 in range(0, 64 * n_cols, 64):
+            cols = torch.arange(c0, min(c0 + 64, skv))
+            kt, vt = (x[:, :, cols].repeat_interleave(g, 1) for x in (kf, vf))
+            _, ds = p_ds(rows, cols, qf[:, :, rows], kt, vt, dof[:, :, rows],
+                         lse[:, :, rows], D[:, :, rows])
+            acc += sum(part @ kt for part in _halves(ds, split_ds))
+        dq[:, :, rows] = acc * scale
+    dk, dv = torch.empty(b, kvh, skv, d), torch.empty(b, kvh, skv, d)
+    for r0 in range(0, skv, 128):
+        cols = torch.arange(r0, min(r0 + 128, skv))
+        first = max(0, r0 - q_off) // 64 * 64 if causal else 0
+        acc_k, acc_v = torch.zeros(b, kvh, len(cols), d), torch.zeros(
+            b, kvh, len(cols), d)
+        for j in range(g):
+            heads = torch.arange(kvh) * g + j
+            for c0 in range(first, sq, 64):
+                rows = torch.arange(c0, min(c0 + 64, sq))
+                qt, dot = (x[:, heads][:, :, rows] for x in (qf, dof))
+                p, ds = p_ds(rows, cols, qt, kf[:, :, cols], vf[:, :, cols],
+                             dot, lse[:, heads][:, :, rows],
+                             D[:, heads][:, :, rows])
+                acc_v += sum(part @ dot for part in
+                             _halves(p.transpose(-1, -2), split_p))
+                acc_k += sum(part @ qt for part in
+                             _halves(ds.transpose(-1, -2), split_ds))
+        dk[:, :, cols], dv[:, :, cols] = acc_k * scale, acc_v
+    return dq.bfloat16(), dk.bfloat16(), dv.bfloat16()
+
+
+def _bf16_grad_inputs(seed, b, h, hkv, sq, skv, d):
+    rng = np.random.default_rng(seed)
+    q, k, v = _qkv(rng, b, h, sq, d, skv=skv, hkv=hkv)
+    do = rng.normal(size=q.shape).astype("float32")
+    return _t(q, k, v, do, dtype=torch.bfloat16)
+
+
+def _plain_grads(q, k, v, do, *, causal, q_off=0):
+    """Autograd of the plain version in f32 on the bf16 inputs."""
+    leaves = [x.float().requires_grad_() for x in (q, k, v)]
+    out = flash_attention_plain(*leaves, causal=causal, q_off=q_off)
+    return torch.autograd.grad(out, leaves, do.float())
+
+
+def _within_bar(got, want):
+    return all(torch.allclose(a.float(), w, **BF16_KERNEL_TOL)
+               for a, w in zip(got, want))
+
+
+# every kind of head dim (16, 64: 64- and 128-byte swizzles; 80: 32-byte
+# boxes; 128: two boxes a row), causal or not, G 1 and 2, Sq not a multiple
+# of 128, Sq != Skv, a query-row offset
+@pytest.mark.parametrize("b,h,hkv,sq,skv,d,causal,q_off", [
+    (2, 4, 2, 129, 129, 16, True, 0),
+    (1, 4, 2, 300, 300, 64, True, 0),
+    (1, 2, 2, 130, 70, 64, False, 0),
+    (1, 2, 2, 257, 513, 80, False, 0),
+    (1, 4, 2, 200, 700, 128, True, 350),
+    (1, 2, 1, 100, 200, 80, True, 37),
+    (1, 2, 2, 255, 128, 16, True, 0)])
+def test_bf16_backward_emulation_matches_autograd_of_plain(b, h, hkv, sq,
+                                                          skv, d, causal,
+                                                          q_off):
+    """The backward kernels' tile-by-tile arithmetic (P and dS as hi + lo,
+    D from O with its low half) gives dq, dk and dv within the port's
+    bf16 bar of autograd of the plain version in f32."""
+    q, k, v, do = _bf16_grad_inputs(sq + skv + d, b, h, hkv, sq, skv, d)
+    got = _emulate_bf16_backward(q, k, v, do, causal=causal, q_off=q_off)
+    want = _plain_grads(q, k, v, do, causal=causal, q_off=q_off)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == w.shape, name
+        torch.testing.assert_close(a.float(), w, **BF16_KERNEL_TOL,
+                                   msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.parametrize("single", ["p", "ds", "o"])
+def test_bf16_backward_design_needs_each_split(single):
+    """Why the backward takes P and dS as two bf16 halves and D from the
+    output with its low half: at S = 1024, d = 128, causal, rounding P once
+    (dV), dS once (dQ, dK) or taking D from the bf16 output alone misses the
+    port's bar against autograd of the plain version, which the design
+    meets."""
+    q, k, v, do = _bf16_grad_inputs(0, 1, 4, 4, 1024, 1024, 128)
+    want = _plain_grads(q, k, v, do, causal=True)
+    assert _within_bar(_emulate_bf16_backward(q, k, v, do, causal=True),
+                       want)
+    once = _emulate_bf16_backward(q, k, v, do, causal=True,
+                                  split_p=single != "p",
+                                  split_ds=single != "ds",
+                                  low_part=single != "o")
+    assert not _within_bar(once, want)
+
+
+def _model_layout(d=64, s=300, dtype=torch.bfloat16):
+    """q, k, v as the model passes them: [B, S, H, d] storage seen as [B, H,
+    S, d] through strides (8 query heads, 2 kv heads)."""
+    x = torch.zeros(2, s, 8, d, dtype=dtype)
+    return (x.transpose(1, 2), x[:, :, :2].transpose(1, 2),
+            x[:, :, 2:4].transpose(1, 2))
+
+
+def test_training_launch_saves_lse_and_the_low_half(fake_lib):
+    """bf16 training reaches the forward's lse entry: the output keeps q's
+    layout, the log-sum-exp and the output's low half cover every row of
+    every 128-row tile, and the launch counts as a bf16 forward."""
+    q, k, v = _model_layout()
+    out, o_lo, lse = FA_MOD._launch(q, k, v, True, 3, for_backward=True)
+    assert fake_lib.calls == [("bf16_lse", (2, 8, 2, 300, 300, 64, 1))]
+    assert fake_lib.args["bf16_lse"][13] == 3                   # q_off
+    assert out.stride() == q.stride()
+    assert o_lo.shape == (2, 8, 384, 64) and o_lo.dtype == torch.bfloat16
+    assert lse.shape == (2, 8, 384) and lse.dtype == torch.float32
+    assert (flash_attention.launches, flash_attention.bf16_launches,
+            flash_attention.tf32_launches) == (1, 1, 0)
+
+
+def test_backward_launch_takes_each_tensor_in_one_span(fake_lib):
+    """The backward entry gets the shapes, the offset and every tensor's
+    strides; a gradient a tensor map cannot read (autograd's expanded
+    gradient of a sum) goes as a contiguous copy; one call records one
+    ``attention.backward`` span and counts one backward launch."""
+    q, k, v = _model_layout(d=80)
+    out, o_lo, lse = FA_MOD._launch(q, k, v, True, 0, for_backward=True)
+    do = torch.ones((), dtype=torch.bfloat16).expand(q.shape)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        dq, dk, dv = FA_MOD._kernel_backward(q, k, v, out, o_lo, lse, do,
+                                             True, 5)
+    assert fake_lib.calls[-1] == ("bwd", (2, 8, 2, 300, 300, 80, 1))
+    args = fake_lib.args["bwd"]
+    assert args[18] == 5                                         # q_off
+    strides = list(args[-2])
+    assert strides[:12] == [*q.stride()[:3], *k.stride()[:3],
+                            *v.stride()[:3], *out.stride()[:3]]
+    assert strides[12:15] == [8 * 300 * 80, 300 * 80, 80]       # dO copied
+    assert strides[15:] == [*dq.stride()[:3], *dk.stride()[:3],
+                            *dv.stride()[:3]]
+    assert dq.stride() == q.stride()               # the model's layout kept
+    assert flash_attention.bwd_launches == 1
+    spans = [e for e in prof.events() if e.name == "attention.backward"]
+    assert len(spans) == 1
+
+
+def test_backward_launch_failure_raises(fake_lib):
+    q, k, v = _model_layout(d=16)
+    out, o_lo, lse = FA_MOD._launch(q, k, v, True, 0, for_backward=True)
+    fake_lib.rc = 98
+    with pytest.raises(RuntimeError, match="backward failed with CUDA error"):
+        FA_MOD._kernel_backward(q, k, v, out, o_lo, lse, out, True, 0)
+    assert flash_attention.bwd_launches == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cpu_tensors_take_the_plain_backward_and_count_it(fake_kernel,
+                                                          dtype):
+    """The backward is chosen by device and dtype: CPU tensors (of either
+    dtype) never reach the kernels; under counting each call counts one
+    plain backward."""
+    q, k, v = (x.to(dtype).requires_grad_() for x in _t(*_qkv(
+        np.random.default_rng(3), 1, 4, 20, 16, hkv=2)))
+    with trace.counting():
+        fake_kernel(q, k, v, True, 0).float().sum().backward()
+        assert trace.counters() == {"attention.backward_plain": 1}
+    assert flash_attention.bwd_launches == 0
+    assert q.grad is not None and k.grad.shape == k.shape
+
+
+def test_backward_grid_limits_raise_before_launching():
+    q = torch.zeros(1, 1, 1, 64, dtype=torch.bfloat16)
+    k = v = torch.zeros(1, 1, 1, 64, dtype=torch.bfloat16).expand(
+        1, 1, 65535 * 128 + 1, 64)
+    with pytest.raises(ValueError, match="backward kernels' grid"):
+        FA_MOD._check_backward(q, k)
+    FA_MOD._check_backward(q, k[:, :, :65535 * 128])
